@@ -1,0 +1,103 @@
+"""The port's scene build and megakernel tables equal the JAX package's
+exactly (atol 0): both run the same NumPy operations on the same scene
+calls."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import u_4a_2s_p3d_raytracer_template2_tpu as rt
+import u_4a_2s_p3d_raytracer_template2_tpu_torch as pt
+from u_4a_2s_p3d_raytracer_template2_tpu.models import scenes as jscenes
+from u_4a_2s_p3d_raytracer_template2_tpu.models.whitted_streamed import (
+    scene_tables as jax_scene_tables,
+)
+from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import scenes as pscenes
+from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted_megakernel import (
+    scene_tables,
+)
+from test_whitted_vs_oracle import mixed_scene as oracle_mixed_scene
+from torch_parity import jax_scene_to_port, mixed_scene
+
+CPU = torch.device("cpu")
+
+SCENES = {
+    "mount": (lambda: jscenes.mount_scene(res=16),
+              lambda: pscenes.mount_scene(res=16)),
+    "mixed": (lambda: mixed_scene(rt.SceneDef()),
+              lambda: mixed_scene(pt.SceneDef())),
+    "sphere_field": (
+        lambda: jscenes.sphere_field_scene(n_side=4, res=16, accel=0),
+        lambda: pscenes.sphere_field_scene(n_side=4, res=16, accel=0)),
+}
+
+
+def _pairs(pscene, jscene):
+    """(name, port tensor, JAX array) for every field the port has."""
+    for group in ("prims", "materials", "lights", "camera"):
+        pobj, jobj = getattr(pscene, group), getattr(jscene, group)
+        for f in dataclasses.fields(pobj):
+            yield (f"{group}.{f.name}", getattr(pobj, f.name),
+                   getattr(jobj, f.name))
+    yield "bg_color", pscene.bg_color, jscene.bg_color
+    for k in ("accel_type", "spp", "n_objects", "n_lights", "has_reflective",
+              "has_transmissive"):
+        yield k, getattr(pscene, k), getattr(jscene, k)
+
+
+def _assert_same(pscene, jscene):
+    for name, a, b in _pairs(pscene, jscene):
+        if isinstance(a, torch.Tensor):
+            b = np.asarray(b)
+            np.testing.assert_array_equal(a.numpy(), b, err_msg=name,
+                                          strict=True)
+        else:
+            assert a == b, name
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_build_scene_matches_jax(name):
+    jdef, pdef = SCENES[name]
+    _assert_same(pt.build_scene(pdef(), device=CPU), rt.build_scene(jdef()))
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_scene_tables_match_jax(name):
+    jdef, pdef = SCENES[name]
+    got = scene_tables(pt.build_scene(pdef(), device=CPU))
+    want = jax_scene_tables(rt.build_scene(jdef()))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), strict=True)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_convert_equals_port_build(name):
+    jdef, pdef = SCENES[name]
+    converted = jax_scene_to_port(rt.build_scene(jdef()))
+    built = pt.build_scene(pdef(), device=CPU)
+    for (n, a, _), (_, b, _) in zip(_pairs(converted, built),
+                                    _pairs(built, built)):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), n
+        else:
+            assert a == b, n
+
+
+def test_mixed_recipe_is_the_oracle_tests_scene():
+    _assert_same(pt.build_scene(mixed_scene(pt.SceneDef()), device=CPU),
+                 rt.build_scene(oracle_mixed_scene()))
+
+
+def test_unported_scene_features_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.build_scene(pscenes.sphere_field_scene(n_side=2, res=8),
+                       device=CPU)  # BVH by default
+    sd = pscenes.mount_scene(res=8)
+    sd.skybox_dir = "skybox"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.build_scene(sd, device=CPU)
+    sd.skybox_dir = None
+    scene = pt.build_scene(sd, device=CPU)
+    assert scene.accel_type == C.ACCEL_NONE and scene.n_objects == 12

@@ -1,0 +1,78 @@
+"""Helpers shared by the tests that hold the PyTorch port against the JAX
+package: scene recipes applied to either package's SceneDef, and the one
+hand-over of a JAX Scene to the port (core/convert.py)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from u_4a_2s_p3d_raytracer_template2_tpu.models.whitted import render_tile
+
+from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.convert import (
+    scene_from_arrays,
+)
+
+_META = ("accel_type", "spp", "n_objects", "n_lights", "has_reflective",
+         "has_transmissive", "has_skybox")
+
+
+def jax_scene_to_port(jscene, device="cpu"):
+    """A JAX Scene as the port's Scene, through NumPy."""
+    arrays = {"bg_color": np.asarray(jscene.bg_color)}
+    meta = {k: getattr(jscene, k) for k in _META}
+    for group in ("prims", "materials", "lights", "camera"):
+        obj = getattr(jscene, group)
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if isinstance(v, int):
+                meta[f.name] = v
+            else:
+                arrays[f"{group}.{f.name}"] = np.asarray(v)
+    return scene_from_arrays(arrays, meta, torch.device(device))
+
+
+def mixed_scene(sd, res=24):
+    """tests/test_whitted_vs_oracle.py::mixed_scene on any SceneDef: spheres
+    with reflection and refraction, a plane, a triangle, a box."""
+    sd.set_camera(eye=[0.5, 1.5, 6], at=[0, 0.3, 0], up=[0, 1, 0], fov=40,
+                  hither=0.01, res_x=res, res_y=res, aperture_ratio=0,
+                  focal_ratio=1)
+    diffuse = sd.add_material([0.7, 0.7, 0.2], 1.0, [1, 1, 1], 0.0, 10, 0, 1)
+    mirror = sd.add_material([0.1, 0.1, 0.1], 0.2, [0.9, 0.9, 0.9], 0.8, 200,
+                             0, 1)
+    glass = sd.add_material([0.0, 0.0, 0.0], 0.0, [1, 1, 1], 0.1, 100, 1,
+                            1.5)
+    sd.add_plane_points([0, -0.5, 0], [1, -0.5, 0], [0, -0.5, -1], diffuse)
+    sd.add_sphere([-1.2, 0.3, 0], 0.8, mirror)
+    sd.add_sphere([1.0, 0.2, 1.0], 0.7, glass)
+    sd.add_triangle([-0.5, -0.4, 2.0], [0.5, -0.4, 2.0], [0, 0.7, 1.8],
+                    diffuse)
+    sd.add_box([-0.4, -0.5, -1.5], [0.6, 0.5, -0.6], mirror)
+    sd.add_light([4, 6, 4], [1, 1, 1])
+    sd.bg_color = np.array([0.3, 0.5, 0.9], np.float32)
+    return sd
+
+
+def jax_render_image(jscene, cfg):
+    """The JAX package's image of a deterministic config: its render_tile
+    over the whole frame, run op by op (un-jitted) so that configs of one
+    scene share compiled ops; render_image runs the same function under
+    jit."""
+    cam = jscene.camera
+    ys, xs = np.meshgrid(np.arange(cam.res_y, dtype=np.float32),
+                         np.arange(cam.res_x, dtype=np.float32),
+                         indexing="ij")
+    img = render_tile(jscene, jnp.asarray(xs.reshape(-1)),
+                      jnp.asarray(ys.reshape(-1)), cfg, jax.random.PRNGKey(0))
+    return np.asarray(img).reshape(cam.res_y, cam.res_x, 3)
+
+
+def random_rays(n, seed, lo, hi):
+    """(origins, unit directions) as float32 NumPy arrays from a seed."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return o, d

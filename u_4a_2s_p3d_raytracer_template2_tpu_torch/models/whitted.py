@@ -1,0 +1,276 @@
+"""Whitted ray tracer — the reference's rayTracing/renderScene
+(main.cpp:530-832) as an iterative level sweep over a static binary
+recursion tree; the counterpart of
+``u_4a_2s_p3d_raytracer_template2_tpu/models/whitted.py``.
+
+Depth-``D`` recursion with (reflection, refraction) children becomes ``D``
+levels; level ``l`` holds ``R·2^l`` ray slots (slot ``2i`` = reflection
+child, ``2i+1`` = refraction child of slot ``i``). The forward sweep traces
+and locally shades each level; the backward sweep folds children into
+parents with ``local + KR·specColor·refl + (1-KR)·refr`` (main.cpp:719).
+Everything is masked rather than branched: inactive slots trace with
+direction (0,0,1) and contribute zero.
+
+``engine="megakernel"`` hands the whole tree to one CUDA kernel on CUDA
+tensors (models/whitted_megakernel.py). Distribution mode (AA, DoF, motion
+blur, jittered soft shadows, fuzzy reflection), the skybox, the wavefront
+engine and the accelerators are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import constants as C
+from ..core.types import RenderConfig, Rays, Scene, clamp01, dot, normalize
+from ..ops import intersect, shade
+from ..ops.camera import primary_rays
+
+_EPS = C.EPSILON
+
+
+def check_config(cfg: RenderConfig) -> None:
+    """Raise NotImplementedError for a config outside the ported envelope."""
+    if cfg.anti_aliasing or cfg.depth_of_field or cfg.motion_blur:
+        raise NotImplementedError(
+            "anti-aliasing, depth of field and motion blur are not ported "
+            "yet (ROADMAP.md, queue 1, item 7 'Distribution mode and "
+            "skybox')")
+    if cfg.fuzzy_reflection:
+        raise NotImplementedError(
+            "fuzzy reflection is not ported yet (ROADMAP.md, queue 1, item 7 "
+            "'Distribution mode and skybox')")
+    if cfg.engine == "wavefront":
+        raise NotImplementedError(
+            "the wavefront engine is not ported yet (ROADMAP.md, queue 1, "
+            "item 8 'Wavefront engine')")
+    if cfg.engine not in ("sweep", "megakernel"):
+        raise ValueError(f"unknown engine {cfg.engine!r}")
+
+
+def trace_closest(scene: Scene, rays: Rays):
+    """Closest hit, brute force; returns (t, obj_id)."""
+    return intersect.closest_hit_brute(scene.prims, rays)
+
+
+def trace_shadow(scene: Scene, rays: Rays, max_t):
+    """Any-hit occlusion, brute force."""
+    return intersect.any_hit_brute(scene.prims, rays, max_t)
+
+
+# ---------------------------------------------------------------------------
+# direct lighting (processLight + the 4x4 soft-shadow grid, main.cpp:593-630)
+
+
+def direct_lighting(scene: Scene, rays: Rays, hit_point, precise, normal,
+                    mat: shade.MatView, active, cfg: RenderConfig):
+    color = torch.zeros_like(hit_point)
+    max_t = C.BIG if cfg.shadow_unbounded else 1.0
+
+    def one_sample(position, light_color):
+        Lv = position - hit_point  # unnormalized (main.cpp:627)
+        facing = dot(Lv, normal) > 0.0
+        occluded = trace_shadow(scene, Rays(precise, Lv, rays.time), max_t)
+        lit = active & facing & ~occluded
+        return shade.blinn_phong(Lv, lit, light_color, mat, rays.direction,
+                                 normal)
+
+    for li in range(max(scene.n_lights, 1)):
+        lpos = scene.lights.position[li]
+        lcol = scene.lights.color[li][None, :]
+        if cfg.soft_shadow:
+            # 4x4 grid of light positions, each 1/16 of the color
+            # (main.cpp:601-618): spacing 0.125, start at pos - 0.25
+            distance = 0.5 / 4.0
+            start = -distance * 0.5 * 4.0
+            for i in range(4):
+                for j in range(4):
+                    off = torch.tensor(
+                        [start + j * distance, start + i * distance, 0.0],
+                        dtype=lpos.dtype, device=lpos.device)
+                    color = color + one_sample((lpos + off)[None, :],
+                                               lcol / 16.0)
+        else:
+            color = color + one_sample(lpos[None, :], lcol)
+    return color
+
+
+# ---------------------------------------------------------------------------
+# one recursion level
+
+
+def _level_step(scene: Scene, rays: Rays, active, ior_in, cfg: RenderConfig,
+                spawn: bool):
+    """Trace + locally shade one level; optionally emit children."""
+    t_disc, obj_id = trace_closest(scene, rays)
+    hit = active & (obj_id >= 0)
+
+    params, ptype, mat_id = intersect.gather_prims(scene.prims, obj_id)
+    present = (scene.prims.n_sph > 0, scene.prims.n_tri > 0,
+               scene.prims.n_pl > 0, scene.prims.n_box > 0)
+    # re-intersection of the winner primitive; borderline hits the
+    # re-derivation rejects under f32 re-association fall back to the
+    # traversal's t
+    t = intersect.per_ray_t(params, ptype, rays.origin, rays.direction,
+                            present)
+    t = torch.where(t >= C.BIG, t_disc, t)
+    t = torch.where(hit, t, 1.0)
+
+    hit_point = rays.origin + rays.direction * t[:, None]
+    normal = normalize(intersect.per_ray_normal(
+        params, ptype, hit_point, rays.origin, rays.direction, present))
+    precise = hit_point + normal * _EPS
+
+    mat = shade.gather_materials(scene.materials, mat_id)
+    local = direct_lighting(scene, rays, hit_point, precise, normal, mat,
+                            hit, cfg)
+
+    miss = active & (obj_id < 0)
+    bg = scene.bg_color[None, :].expand(local.shape)
+
+    if not spawn:
+        # depth == MAX_DEPTH leaf: clamp local color (main.cpp:632-634)
+        color = torch.where(hit[:, None], clamp01(local), 0.0)
+        return torch.where(miss[:, None], bg, color), None
+
+    # flip the normal for secondary-ray math only (main.cpp:639-643)
+    inside = dot(rays.direction, normal) > 0.0
+    nf = torch.where(inside[:, None], -normal, normal)
+
+    # reflection child (main.cpp:646-667)
+    refl_dir = normalize(shade.reflect_dir(rays.direction, nf))
+    refl_active = hit & (mat.ks > 0.0)
+    refl_rays = Rays(precise, refl_dir, rays.time)
+
+    # refraction child (main.cpp:671-697); inactive lanes get a finite
+    # default direction
+    ro = shade.refract(rays.direction, nf, inside, ior_in, mat.ior,
+                       cfg.refraction_mode)
+    refr_active = hit & (mat.transmit != 0.0) & ro.can_refract
+    default_dir = torch.tensor([0.0, 0.0, 1.0], dtype=local.dtype,
+                               device=local.device).expand(ro.direction.shape)
+    refr_dir = torch.where(refr_active[:, None], ro.direction, default_dir)
+    refr_origin = torch.where(refr_active[:, None],
+                              hit_point + refr_dir * 0.001, precise)
+    refr_rays = Rays(refr_origin, refr_dir, rays.time)
+
+    kr = shade.fresnel_kr(ro, ior_in, mat.transmit, mat.ks, cfg.fresnel_mode)
+
+    local_color = torch.where(hit[:, None], local, 0.0)
+    local_color = torch.where(miss[:, None], bg, local_color)
+
+    children = dict(
+        refl=(refl_rays, refl_active, ior_in),
+        refr=(refr_rays, refr_active, ro.new_ior),
+    )
+    fold = dict(kr=kr, spec_color=mat.spec_color, hit=hit)
+    return local_color, (children, fold)
+
+
+def _interleave(a, b):
+    """[R,...],[R,...] -> [2R,...] with a at even, b at odd slots."""
+    return torch.stack([a, b], dim=1).reshape((-1,) + tuple(a.shape[1:]))
+
+
+def trace_rays(scene: Scene, rays: Rays, cfg: RenderConfig) -> torch.Tensor:
+    """Color for a batch of primary rays — the full Whitted tree. [R,3]
+
+    Subtrees that can never activate are pruned statically: reflection
+    children exist only if some material has Ks>0 (main.cpp:646), refraction
+    children only if some material has T!=0 (main.cpp:671).
+    """
+    check_config(cfg)
+    R = rays.origin.shape[0]
+    dev = rays.origin.device
+    spawn_refl = scene.has_reflective
+    spawn_refr = scene.has_transmissive
+    ones_b = torch.ones(R, dtype=torch.bool, device=dev)
+    ones_f = torch.ones(R, dtype=rays.origin.dtype, device=dev)
+
+    if not (spawn_refl or spawn_refr):
+        # no secondary rays possible: single unclamped local+bg level
+        local_color, _ = _level_step(scene, rays, ones_b, ones_f, cfg, True)
+        return local_color
+
+    levels = []
+    cur_rays, cur_active, cur_ior = rays, ones_b, ones_f
+    for lvl in range(cfg.max_depth):
+        spawn = lvl < cfg.max_depth - 1
+        color, nxt = _level_step(scene, cur_rays, cur_active, cur_ior, cfg,
+                                 spawn)
+        if not spawn:
+            break
+        children, fold = nxt
+        levels.append((color, fold))
+        refl_rays, refl_act, refl_ior = children["refl"]
+        refr_rays, refr_act, refr_ior = children["refr"]
+        if spawn_refl and spawn_refr:
+            cur_rays = Rays(
+                _interleave(refl_rays.origin, refr_rays.origin),
+                _interleave(refl_rays.direction, refr_rays.direction),
+                _interleave(refl_rays.time, refr_rays.time),
+            )
+            cur_active = _interleave(refl_act, refr_act)
+            cur_ior = _interleave(refl_ior, refr_ior)
+        elif spawn_refl:
+            cur_rays, cur_active, cur_ior = refl_rays, refl_act, refl_ior
+        else:
+            cur_rays, cur_active, cur_ior = refr_rays, refr_act, refr_ior
+
+    # backward fold: children -> parents (main.cpp:719)
+    child_color = color
+    for local_color, fold in reversed(levels):
+        if spawn_refl and spawn_refr:
+            refl, refr = child_color[0::2], child_color[1::2]
+        elif spawn_refl:
+            refl, refr = child_color, 0.0
+        else:
+            refl, refr = 0.0, child_color
+        kr = fold["kr"][:, None]
+        combined = (local_color + refl * kr * fold["spec_color"]
+                    + refr * (1.0 - kr))
+        # only hits spawn children; misses keep their bg color untouched
+        child_color = torch.where(fold["hit"][:, None], combined, local_color)
+    return child_color
+
+
+# ---------------------------------------------------------------------------
+# pixel loop (renderScene, main.cpp:732-832)
+
+
+def render_tile(scene: Scene, px: torch.Tensor, py: torch.Tensor,
+                cfg: RenderConfig) -> torch.Tensor:
+    """Render a flat batch of pixel indices px, py -> [R,3] colors in [0,1].
+
+    On CUDA tensors ``engine="megakernel"`` launches the CUDA kernel or
+    raises; on CPU tensors it runs the kernel's plain version.
+    """
+    rays = primary_rays(scene.camera, px + 0.5, py + 0.5,
+                        depth_of_field=cfg.depth_of_field,
+                        motion_blur=cfg.motion_blur)
+    if cfg.engine == "megakernel":
+        from .whitted_megakernel import trace_rays_megakernel
+
+        return trace_rays_megakernel(scene, rays, cfg)
+    return clamp01(trace_rays(scene, rays, cfg))
+
+
+def pixel_grid(res_x: int, res_y: int, device) -> tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """Flat (px, py) pixel indices, row-major with row 0 at the bottom."""
+    ys, xs = torch.meshgrid(
+        torch.arange(res_y, dtype=torch.float32, device=device),
+        torch.arange(res_x, dtype=torch.float32, device=device),
+        indexing="ij")
+    return xs.reshape(-1), ys.reshape(-1)
+
+
+def render_image(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
+    """Full-frame render -> [res_y, res_x, 3] float image in [0,1] on the
+    scene's device.
+
+    Row y=0 is the bottom scanline, as in the reference's framebuffer
+    (main.cpp:749-805 fills bottom-up).
+    """
+    cam = scene.camera
+    px, py = pixel_grid(cam.res_x, cam.res_y, scene.device)
+    return render_tile(scene, px, py, cfg).reshape(cam.res_y, cam.res_x, 3)
