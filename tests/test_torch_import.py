@@ -20,6 +20,13 @@ def test_port_imports_no_jax():
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted_megakernel\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.core.convert\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.timing\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.pathtracer\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.pt_megakernel\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.glsl_scene\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.sampling\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.glsl_hash\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.checkpoint\n"
+        "import chip_smoke, chip_faults\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'u_4a_2s_p3d_raytracer_template2_tpu'\n"
         "       or m.startswith('u_4a_2s_p3d_raytracer_template2_tpu.')]\n"
@@ -108,3 +115,20 @@ def test_cli_render_cpu(tmp_path):
     want = render_image(scene, RenderConfig(max_depth=3))
     np.testing.assert_array_equal(_read_png(path),
                                   u8_from_float(want.numpy())[::-1])
+
+
+def test_cli_without_a_card_refuses_the_default_device(tmp_path, capsys):
+    """No entry point drops to the CPU unless asked: without --device the
+    CLI wants the card, and without one it exits naming --device cpu."""
+    import pytest
+
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("the refusal is only observable without a card")
+    for argv in (["render", "--res", "8"], ["pathtrace", "--res", "8"]):
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv + ["-o", str(tmp_path / "x.png")])
+        assert exc.value.code != 0
+        assert "--device cpu" in capsys.readouterr().err
+    assert not (tmp_path / "x.png").exists()

@@ -115,3 +115,30 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.whitted_megakernel(tbl, lt, bg, o, o, mk.shape_of(scene),
                                    pt.RenderConfig())
+
+
+def test_whitted_work_counts_the_kernels_walk():
+    """The work that sets the kernel's bound in chip_smoke.py: every node
+    tests all 12 primitives of mount_low; each (hit, light) pair that faces
+    the light casts a shadow ray that tests primitives up to its first
+    occluder."""
+    import chip_smoke
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.camera import (
+        pinhole_rays,
+    )
+
+    scene = pt.build_scene(mount_scene(res=16), device=CPU)
+    px, py = pixel_grid(16, 16, CPU)
+    r = pinhole_rays(scene.camera, px + 0.5, py + 0.5)
+    w = chip_smoke.whitted_work(scene, r.origin, r.direction,
+                                pt.RenderConfig(engine="megakernel"))
+    assert 256 <= w["tests"] <= 256 * 4
+    assert 0 < w["hits"] <= w["tests"] and w["pairs"] == w["hits"]
+    assert 0 < w["feelers"] < w["pairs"]  # some hits face away
+    tests = w["tri_tests"] + w["sph_tests"]
+    assert w["feelers"] <= tests < 12 * w["feelers"]  # some stop early
+    assert w["tri_tests"] <= 8 * w["feelers"]
+    assert w["sph_tests"] <= 4 * w["feelers"]
+    with pytest.raises(NotImplementedError, match="point lights"):
+        chip_smoke.whitted_work(scene, r.origin, r.direction,
+                                pt.RenderConfig(soft_shadow=True))

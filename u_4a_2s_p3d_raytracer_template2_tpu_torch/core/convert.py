@@ -10,6 +10,10 @@ jax: the caller does the ``np.asarray``.
 ``res_y``, ``accel_type``, ``spp``, ``n_objects``, ``n_lights``,
 ``has_reflective``, ``has_transmissive``, ``has_skybox``). Keys the port has
 no field for (the accelerator tables, ``tri_mo``, ``sph_k``) are ignored.
+
+``pt_scene_from_arrays`` does the same for the path tracer's ``PTScene``:
+its leaves keyed by field name (``"sp_center0"``, ``"tri_mat"``,
+``"light_pos"``) and ``"materials.<field>"`` for the materials.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from . import constants as C
+from ..models.pathtracer import PTMaterials, PTScene
 from .types import Camera, Lights, Materials, Primitives, Scene
 
 
@@ -62,3 +67,14 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
         has_reflective=bool(meta["has_reflective"]),
         has_transmissive=bool(meta["has_transmissive"]),
     )
+
+
+def pt_scene_from_arrays(arrays: dict[str, np.ndarray], device) -> PTScene:
+    def t(key):
+        return torch.from_numpy(np.array(arrays[key])).to(device)
+
+    mats = PTMaterials(**{f: t(f"materials.{f}")
+                          for f in _fields(PTMaterials)})
+    return PTScene(materials=mats, **{
+        f.name: t(f.name) for f in dataclasses.fields(PTScene)
+        if f.init and f.name != "materials"})

@@ -2,8 +2,9 @@
 ``u_4a_2s_p3d_raytracer_template2_tpu/utils/timing.py``.
 
 Every call is timed between two CUDA events on the current stream, and the
-result is the median after warm-up. Frames are distinct work: the pixel
-grid drifts by 0.37 px per frame (the drift of ``bench.py``), so no frame
+result is the median after warm-up. Frames are distinct work: a Whitted
+frame's pixel grid drifts by 0.37 px per frame (the drift of ``bench.py``),
+and a path-tracer frame draws from a generator of its own seed, so no frame
 repeats another's inputs. Without a card these raise: a time here is a
 device measurement.
 """
@@ -54,3 +55,22 @@ def mrays_per_s(scene: Scene, frame_time_ms: float) -> float:
     cam = scene.camera
     rays = cam.res_x * cam.res_y * (1 + scene.n_lights)
     return rays / (frame_time_ms * 1e-3) / 1e6
+
+
+def pt_frame_ms(frame_fn, *, device, frames: int = 21,
+                warmup: int = 3) -> float:
+    """Median ms of a path-tracer frame ``frame_fn(generator)`` (e.g.
+    ``models.pt_megakernel.make_render_frame``) over ``frames`` frames, each
+    drawing from a ``torch.Generator`` on ``device`` with a seed of its own;
+    the generators are made before the timed calls."""
+    if torch.device(device).type != "cuda":
+        raise RuntimeError(f"frame timing needs a CUDA device, not {device}")
+    gens = [(torch.Generator(device=device).manual_seed(1000 + i),)
+            for i in range(frames)]
+    return cuda_ms(frame_fn, gens, warmup=warmup)
+
+
+def mpaths_per_s(res_x: int, res_y: int, frame_time_ms: float) -> float:
+    """Path-tracer rate: res_x·res_y paths (1 spp) per frame, as the JAX
+    bench's Mpaths/s."""
+    return res_x * res_y / (frame_time_ms * 1e-3) / 1e6
