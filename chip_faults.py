@@ -1,15 +1,20 @@
-"""Planted faults in the path-tracer kernel, held to chip_smoke.py's limits.
+"""Planted faults in the port's kernels, held to chip_smoke.py's limits.
 
     python3 chip_faults.py       # from the root of a checkout; needs one card
 
-Builds copies of csrc/pt_megakernel.cu with one fault planted in each (under
-build/faults/, one nvcc per copy, all started together), runs the sound
-kernel and every faulty one through chip_smoke.py's path-tracer cases
-(chip_smoke.pt_cases) against the plain version on the same rays and
-uniforms, and prints, for each case, the share of pixels beyond 2e-3, the
-mean and max abs difference, and whether the case's limits
-(chip_smoke.PT_LIMITS) reject it. Exits non-zero if a limit rejects the
-sound kernel or no case rejects a faulty one.
+Builds copies of csrc/pt_megakernel.cu and csrc/bvh_walk.cu with one fault
+planted in each (under build/faults/, one nvcc per copy, all started
+together), and runs the sound kernels and every faulty one through
+chip_smoke.py's cases against the plain versions on the same inputs:
+  * the path tracer's (chip_smoke.pt_cases), printing the share of pixels
+    beyond 2e-3 and the mean and max abs difference of each, and whether
+    the case's limits (chip_smoke.PT_LIMITS) reject it;
+  * the BVH walk's (chip_smoke.bvh_cases), printing the share of rays whose
+    closest-hit ids differ, the largest relative t difference and the share
+    of occlusion results that differ, and whether chip_smoke.BVH_LIMITS
+    reject it.
+Exits non-zero if a limit rejects a sound kernel or no case rejects a faulty
+one.
 """
 import concurrent.futures
 import ctypes
@@ -24,7 +29,7 @@ import chip_smoke
 ROOT = Path(__file__).resolve().parent
 
 # (name, text of csrc/pt_megakernel.cu, its faulty replacement)
-FAULTS = (
+PT_FAULTS = (
     ("no dielectric highlight",
      "mtype == kMetal ? albedo : v3(0.004f, 0.004f, 0.004f)",
      "mtype == kMetal ? albedo : v3(0.f, 0.f, 0.f)"),
@@ -46,56 +51,58 @@ FAULTS = (
 )
 
 
-def build_fault(index, old, new):
-    """Compile csrc/pt_megakernel.cu with ``old`` replaced by ``new``."""
+# (name, text of csrc/bvh_walk.cu, its faulty replacement)
+BVH_FAULTS = (
+    ("slab test without the safe inverse",
+     "r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);",
+     "r.ix = 1.f / r.dx; r.iy = 1.f / r.dy; r.iz = 1.f / r.dz;"),
+    ("leaf loop skips its last primitive",
+     "for (int i = m.x; i < m.x + m.y; ++i) {",
+     "for (int i = m.x; i < m.x + m.y - 1; ++i) {"),
+    ("any hit ignores max_t",
+     "if (row_t<COUNT>(T.rows, i, r, rank, id, w) < max_t) return true;",
+     "if (row_t<COUNT>(T.rows, i, r, rank, id, w) < kBig) return true;"),
+)
+
+
+def build_fault(source, index, old, new):
+    """Compile csrc/<source>.cu with ``old`` replaced by ``new``."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.kernels import build as kb
 
-    src = (kb.CSRC / "pt_megakernel.cu").read_text()
+    src = (kb.CSRC / f"{source}.cu").read_text()
     if src.count(old) != 1:
-        raise AssertionError(f"fault {index}: {old!r} is not in the source "
-                             "exactly once")
+        raise AssertionError(f"{source} fault {index}: {old!r} is not in the "
+                             "source exactly once")
     out_dir = ROOT / "build" / "faults"
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = out_dir / f"pt_fault{index}.cu"
+    cu = out_dir / f"{source}_fault{index}.cu"
     cu.write_text(src.replace(old, new))
-    lib = out_dir / f"libpt_fault{index}.so"
-    subprocess.run([kb.nvcc(), *kb.NVCC_FLAGS, "-o", str(lib), str(cu)],
+    lib = out_dir / f"lib{source}_fault{index}.so"
+    subprocess.run([kb.nvcc(), *kb.flags(source), "-o", str(lib), str(cu)],
                    check=True, capture_output=True, text=True)
     return lib
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_faults: torch.cuda.is_available() is false",
-              file=sys.stderr)
-        return 1
-    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+def entry_of(lib, name, like):
+    """``name`` of the library ``lib`` with the C types of ``like``."""
+    fn = getattr(ctypes.CDLL(str(lib)), name)
+    fn.restype, fn.argtypes = like.restype, like.argtypes
+    return fn
+
+
+def pt_verdicts(dev, kernels, sound, faulty):
+    """Names of the path-tracer kernels the limits judge wrongly."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
         pt_megakernel as ptk,
     )
 
-    dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}")
-    with concurrent.futures.ThreadPoolExecutor(len(FAULTS) + 1) as pool:
-        sound = pool.submit(kernels._pt_entry)
-        libs = list(pool.map(lambda f: build_fault(f[0], *f[1][1:]),
-                             enumerate(FAULTS)))
-    sound = sound.result()
     cases = list(chip_smoke.pt_cases(dev))
     wants = [ptk.trace_rays_plain(tables, *args, cfg)
              for _, _, tables, args, cfg in cases]
-
     failed = []
-    for name, lib in [("sound", None)] + [(f[0], lib)
-                                          for f, lib in zip(FAULTS, libs)]:
-        entry = sound
-        if lib is not None:
-            entry = ctypes.CDLL(str(lib)).pt_megakernel_launch
-            entry.restype, entry.argtypes = sound.restype, sound.argtypes
+    for name, lib in [("sound", None)] + faulty:
+        entry = sound if lib is None else entry_of(
+            lib, "pt_megakernel_launch", sound)
         kernels._pt_entry = lambda entry=entry: entry
         rejected = 0
         for (label, (max_bad, max_mean), tables, args, cfg), want in zip(
@@ -111,8 +118,63 @@ def main() -> int:
                   f"{'rejected' if out else 'passed'}")
         if (name == "sound") == (rejected > 0):
             failed.append(name)
+    return failed
+
+
+def bvh_verdicts(dev, kernels, sound, faulty):
+    """Names of the BVH walk's kernels the limits judge wrongly."""
+    cases = list(chip_smoke.bvh_cases(dev))
+    wants = [chip_smoke.bvh_run(query, tables, args, kernel=False)
+             for _, tables, query, args in cases]
+    failed = []
+    for name, lib in [("sound", None)] + faulty:
+        entries = {n: sound[n] if lib is None else entry_of(lib, n, sound[n])
+                   for n in sound}
+        kernels._bvh_entry = lambda n, entries=entries: entries[n]
+        rejected = 0
+        for (label, tables, query, args), want in zip(cases, wants):
+            reading = chip_smoke.bvh_agreement(
+                query, chip_smoke.bvh_run(query, tables, args), want)
+            out = chip_smoke.bvh_rejects(reading)
+            rejected += bool(out)
+            print(f"{name} | {label} ({query}): " + ", ".join(
+                f"{k} {v:.3g}" for k, v in reading.items())
+                + f"; {'rejected by ' + ', '.join(out) if out else 'passed'}")
+        if (name == "sound") == (rejected > 0):
+            failed.append(name)
+    return failed
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_faults: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    jobs = ([("pt_megakernel", i, f) for i, f in enumerate(PT_FAULTS)]
+            + [("bvh_walk", i, f) for i, f in enumerate(BVH_FAULTS)])
+    bvh_names = ("bvh_closest_launch", "bvh_any_launch")
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 2) as pool:
+        pt_sound = pool.submit(kernels._pt_entry)
+        bvh_sound = pool.submit(lambda: {n: kernels._bvh_entry(n)
+                                         for n in bvh_names})
+        libs = list(pool.map(lambda j: build_fault(j[0], j[1], *j[2][1:]),
+                             jobs))
+    faulty = {src: [(f[0], lib) for (s, _, f), lib in zip(jobs, libs)
+                    if s == src] for src in ("pt_megakernel", "bvh_walk")}
+    failed = (pt_verdicts(dev, kernels, pt_sound.result(),
+                          faulty["pt_megakernel"])
+              + bvh_verdicts(dev, kernels, bvh_sound.result(),
+                             faulty["bvh_walk"]))
     print(f"chip_faults ({card}): " + (
-        "the limits pass the sound kernel and reject every fault"
+        "the limits pass the sound kernels and reject every fault"
         if not failed else f"wrong verdict for: {', '.join(failed)}"))
     return 1 if failed else 0
 

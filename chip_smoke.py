@@ -4,9 +4,9 @@
 
 Phases, each raising on failure:
   1. device: require CUDA; print the card's name and power limit;
-  2. build: compile csrc/whitted_megakernel.cu and csrc/pt_megakernel.cu
-     with nvcc, one process each, started together; print the build times
-     and ptxas's register and spill report.
+  2. build: compile csrc/whitted_megakernel.cu, csrc/pt_megakernel.cu and
+     csrc/bvh_walk.cu with nvcc, one process each, started together; print
+     the build times and ptxas's register and spill report.
   Whitted path (mount_low 512x512, depth 4):
   3. kernel against plain: the CUDA kernel against its plain PyTorch version
      on the same rays, at 64x64 depth 4 (mount_low under all 12 Fresnel x
@@ -31,6 +31,23 @@ Phases, each raising on failure:
   8. timing: kernel and plain version alone, a whole megakernel frame and
      its breakdown under torch.profiler, and the live bounces per path that
      set the kernel's bound.
+  BVH path (the sphere field of 7,396 spheres, 512x512, depth 4, sweep):
+  9. the walk's kernels (closest, any, fused multi-light any) against their
+     plain version on the same rays under BVH_LIMITS (bvh_cases): the main
+     path's primary rays, level-1 rays and shadow segments with their dead
+     masks, the 18,496-sphere field's primary rays, and a soup of all four
+     primitive types with incoherent and axis-parallel rays; the fused
+     launch against one launch per light, exactly;
+  10. main path: render_image of the field with the walk's launch counters
+     reset just before and read just after; accel_impl="multi" gives the
+     same image through the fused walk; at 128x128 the BVH image against
+     brute force; the PNG; the CLI render command on the built-in sphere
+     field and random scene with --accel 2;
+  11. timing: each kernel alone on the main path's primary and level-1
+     queries, as device time with the launches queued (utils/timing
+     .queued_ms) and as CUDA-event time per call, its plain version, the
+     bound from the kernel's own work counters, a whole frame and its
+     breakdown under torch.profiler with the walk's share of device time.
 The line before the last is a JSON object of the kernels; the last line is
 the JSON device record.
 """
@@ -273,11 +290,13 @@ def bound(flops, n_bytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def profile_frames(label, frame, args_of, card, frames=20):
+def profile_frames(label, frame, args_of, card, frames=20, share_of=()):
     """One frame's breakdown under torch.profiler over ``frames`` frames
     ``frame(*args_of(i))``: host wall time, device busy time (the union of
     the device's kernel and copy intervals), the device's idle share, device
-    operations per frame and the busiest kernels."""
+    operations per frame and the busiest kernels; with ``share_of``, the
+    device time of the kernels whose names hold one of those strings, and
+    its share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     frame(*args_of(0))
@@ -311,6 +330,11 @@ def profile_frames(label, frame, args_of, card, frames=20):
           f"{len(device) / frames:.1f} device ops/frame; busiest: "
           + "; ".join(f"{name[:90]} {us / 1e3 / frames:.4f} ms/frame"
                       for name, us in top))
+    if share_of:
+        ms = sum(us for name, us in by_name.items()
+                 if any(s in name for s in share_of)) / 1e3 / frames
+        print(f"profile {label}: kernels named {'/'.join(share_of)} "
+              f"{ms:.4f} ms/frame, {100 * ms / busy_ms:.1f}% of device busy")
 
 
 def whitted_work(scene, o, d, cfg):
@@ -440,6 +464,254 @@ def pt_work(scene, cfg, rays, uni):
     return w
 
 
+# ---------------------------------------------------------------------------
+# the BVH walk (csrc/bvh_walk.cu)
+
+# The walk's kernels against their plain version on the same rays, per case:
+# the share of rays whose closest-hit ids differ, the largest t difference
+# relative to max(t, 1) where they agree, and the share of occlusion results
+# that differ. The kernel is built without multiply-add contraction
+# (kernels/build.py), so its f32 operations are the plain version's one for
+# one and the sound kernel reads 0 on all three.
+BVH_LIMITS = {"ids": 1e-4, "t_rel": 1e-5, "occ": 1e-4}
+# Operations per test in the walk's bound: a node's slab test about 20; a
+# plane about 12 and a box about 30, beside the per-test model above
+NODE_TEST, PLANE_TEST, BOX_TEST = 20, 12, 30
+FIELD_SIDE = 86    # the main scene: 7,396 spheres (the balls_high class)
+BIG_SIDE = 136     # 18,496 spheres: a tree of more than 16 leaves (K5a)
+
+
+def camera_rays(scene, drift=0.0):
+    """Contiguous (o, d) of a scene's primary rays, the pixel grid moved
+    ``drift`` pixels along x."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+        pixel_grid,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.camera import (
+        pinhole_rays,
+    )
+
+    cam = scene.camera
+    px, py = pixel_grid(cam.res_x, cam.res_y, scene.device)
+    r = pinhole_rays(cam, px + 0.5 + drift, py + 0.5)
+    return r.origin.contiguous(), r.direction.contiguous()
+
+
+def main_path_queries(scene, rays, active, ior, cfg):
+    """One level of the main path below its closest hits: one
+    models/whitted._level_step on ``rays``, with the shadow queries it hands
+    to the walk recorded as (origin, segment, max_t, dead), one per light.
+    Returns (queries, children) where children is the next level's (rays,
+    active, ior), reflection slots first."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import packets
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Rays
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import whitted
+
+    queries = []
+    walk = packets.packet_any_hit
+
+    def record(pt, r, max_t, dead=None):
+        queries.append((r.origin.contiguous(), r.direction.contiguous(),
+                        float(max_t), dead))
+        return walk(pt, r, max_t, dead)
+
+    packets.packet_any_hit = record
+    try:
+        _, (children, _) = whitted._level_step(scene, rays, active, ior, cfg,
+                                               True)
+    finally:
+        packets.packet_any_hit = walk
+    kids = [children["refl"], children["refr"]]
+    return queries, (
+        Rays(*(torch.cat([getattr(k[0], f) for k in kids]).contiguous()
+               for f in ("origin", "direction", "time"))),
+        torch.cat([k[1] for k in kids]), torch.cat([k[2] for k in kids]))
+
+
+def soup_scene(n_tri=2000, n_sph=2000, seed=0):
+    """tests/test_packets.py::soup at 2,000 triangles and 2,000 spheres in a
+    10-unit cube, with a plane at y = -8, a box at the cube's corner and
+    two lights; BVH."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.io.p3f import SceneDef
+
+    rng = np.random.default_rng(seed)
+    sd = SceneDef()
+    sd.accel_type = C.ACCEL_BVH
+    sd.set_camera(eye=[0, 0, 12], at=[0, 0, 0], up=[0, 1, 0], fov=45,
+                  hither=0.01, res_x=64, res_y=64, aperture_ratio=0,
+                  focal_ratio=1)
+    m = sd.add_material([0.7, 0.7, 0.7], 1.0, [1, 1, 1], 0.1, 20, 0, 1)
+    for _ in range(n_sph):
+        sd.add_sphere(rng.uniform(-5, 5, 3), rng.uniform(0.1, 0.5), m)
+    for _ in range(n_tri):
+        base = rng.uniform(-5, 5, 3)
+        sd.add_triangle(base, base + rng.uniform(-0.8, 0.8, 3),
+                        base + rng.uniform(-0.8, 0.8, 3), m)
+    sd.add_plane_points([0, -8, 0], [1, -8, 0], [0, -8, 1], m)
+    sd.add_box([-6, -6, -6], [-5.2, -5.2, -5.2], m)
+    sd.add_light([10, 10, 10], [1, 1, 1])
+    sd.add_light([-10, 8, 5], [1, 1, 1])
+    return sd
+
+
+def bvh_cases(dev):
+    """The walk's kernel-against-plain cases as (label, tables, query,
+    args); query "closest" takes (o, d), "any" (o, d, max_t, dead) and
+    "multi" (o, dirs [L, R, 3], max_t, dead [L, R]). The main scene at
+    512x512: its primary rays, its level-1 reflection and refraction rays,
+    and its shadow segments at the primary hits with their dead masks, per
+    light and fused over both, at max_t 1 (the main path's) and unbounded;
+    the 18,496-sphere field's primary rays; a soup of 2,000 triangles,
+    2,000 spheres, a plane and a box with incoherent rays and segments, and
+    axis-parallel rays started on the box's face."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        Rays,
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import scenes
+
+    field = build_scene(scenes.sphere_field_scene(n_side=FIELD_SIDE,
+                                                  res=RES), device=dev)
+    tag = f"field{FIELD_SIDE} {RES}x{RES}"
+    o, d = camera_rays(field)
+    yield f"{tag} primary rays", field.packets, "closest", (o, d)
+    R = o.shape[0]
+    queries, (kids, _, _) = main_path_queries(
+        field, Rays.make(o, d), torch.ones(R, dtype=torch.bool, device=dev),
+        torch.ones(R, device=dev), RenderConfig())
+    yield (f"{tag} level-1 reflection and refraction rays", field.packets,
+           "closest", (kids.origin, kids.direction))
+    for max_t in (1.0, C.BIG):
+        for li, (so, sd, _, dead) in enumerate(queries):
+            yield (f"{tag} shadow segments, light {li}, max_t {max_t:g}",
+                   field.packets, "any", (so, sd, max_t, dead))
+        yield (f"{tag} shadow segments of both lights fused, max_t "
+               f"{max_t:g}", field.packets, "multi",
+               (queries[0][0], torch.stack([q[1] for q in queries]), max_t,
+                torch.stack([q[3] for q in queries])))
+    del field, queries, kids
+
+    big = build_scene(scenes.sphere_field_scene(n_side=BIG_SIDE, res=RES),
+                      device=dev)
+    yield (f"field{BIG_SIDE} {RES}x{RES} primary rays", big.packets,
+           "closest", camera_rays(big))
+    del big
+
+    soup = build_scene(soup_scene(), device=dev).packets
+    rng = np.random.default_rng(1)
+    n = 65536
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    o = rng.uniform(-8, 8, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = t(o), t(d)
+    yield "soup incoherent rays", soup, "closest", (o, d)
+    segs = t(rng.uniform(-8, 8, (2, n, 3))) - o  # unnormalized, to points
+    dead = t(rng.uniform(size=(2, n)) < 0.3, torch.bool)
+    for max_t in (1.0, C.BIG):
+        for i in range(2):
+            yield (f"soup segments {i}, max_t {max_t:g}", soup, "any",
+                   (o, segs[i], max_t, dead[i]))
+        yield (f"soup segments fused, max_t {max_t:g}", soup, "multi",
+               (o, segs, max_t, dead))
+    # rays in the box's x = -6 face moving along y or z, as the sweep's
+    # inactive slots move along z: only the safe inverse keeps their slab
+    # tests free of 0 * inf
+    m = 4096
+    o = np.stack([np.full(m, -6.0), rng.uniform(-7, -4, m),
+                  rng.uniform(-6.5, -4.7, m)], 1)
+    d = np.zeros((m, 3))
+    d[np.arange(m), rng.integers(1, 3, m)] = rng.choice([-1.0, 1.0], m)
+    o, d = t(o), t(d)
+    yield "soup axis-parallel rays in a box face", soup, "closest", (o, d)
+    yield ("soup axis-parallel segments in a box face, max_t 1e+30", soup,
+           "any", (o, d * 3.0, C.BIG, None))
+
+
+def bvh_run(query, tables, args, kernel=True):
+    """One case's answer from the kernel or from its plain version."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import packets
+
+    if query == "closest":
+        fn = kernels.bvh_closest if kernel else packets.closest_hit_plain
+        return fn(tables, *args)
+    if query == "any":
+        fn = kernels.bvh_any if kernel else packets.any_hit_plain
+        return fn(tables, *args)
+    if kernel:
+        return kernels.bvh_any_multi(tables, *args)
+    o, dirs, max_t, dead = args
+    return torch.stack([packets.any_hit_plain(tables, o, dirs[i], max_t,
+                                              dead[i])
+                        for i in range(dirs.shape[0])])
+
+
+def bvh_agreement(query, got, want):
+    """Readings of a kernel's answer against the plain version's: closest
+    hits {"ids": share of rays whose ids differ, "t_rel": largest t
+    difference relative to max(t, 1) where they agree, "err": largest abs t
+    difference there}; occlusion {"occ": share that differs, "err": 1.0 if
+    any does}."""
+    if query == "closest":
+        (t, obj), (tp, objp) = got, want
+        hit = (obj == objp) & (objp >= 0)
+        dt = (t - tp).abs()[hit]
+        return {"ids": float((obj != objp).double().mean()),
+                "t_rel": float((dt / tp[hit].abs().clamp(min=1.0)).max())
+                if dt.numel() else 0.0,
+                "err": float(dt.max()) if dt.numel() else 0.0}
+    diff = got != want
+    return {"occ": float(diff.double().mean()), "err": float(diff.any())}
+
+
+def bvh_rejects(reading):
+    """The limits of BVH_LIMITS that ``reading`` breaks."""
+    return [k for k, limit in BVH_LIMITS.items() if reading.get(k, 0.0) > limit]
+
+
+def bvh_work(query, tables, args):
+    """(GFLOP, MB, bound ms, bound by) of one launch on ``args``, from the
+    work the kernel's own walk counts: node box tests and primitive tests
+    per type (its per-ray counters), against rays in, results out and the
+    tables once."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+
+    o = args[0]
+    R = o.shape[0]
+    counts = torch.zeros((R, kernels.WORK_COUNTS), dtype=torch.int32,
+                         device=o.device)
+    fn = {"closest": kernels.bvh_closest, "any": kernels.bvh_any,
+          "multi": kernels.bvh_any_multi}[query]
+    fn(tables, *args, counts=counts)
+    nodes, tris, sphs, planes, boxes = counts.sum(dim=0, dtype=torch.int64
+                                                  ).tolist()
+    flops = (nodes * NODE_TEST + tris * TRI_TEST + planes * PLANE_TEST
+             + boxes * BOX_TEST
+             + sphs * (SPH_CLOSEST if query == "closest" else SPH_ANY))
+    n_bytes = 4 * sum(t.numel() for t in (tables.nodes, tables.rows,
+                                          tables.planes))
+    if query == "closest":
+        n_bytes += R * (24 + 8)           # o, d in; t, id out
+    else:
+        sets = args[1].shape[0] if query == "multi" else 1
+        n_bytes += R * 12 + sets * R * (12 + 1 + 1)  # o; d, dead in; occ
+    ms, by = bound(flops, n_bytes)
+    print(f"  work: {nodes / R:.3f} node tests, {tris / R:.3f} triangle, "
+          f"{sphs / R:.3f} sphere, {planes / R:.3f} plane and {boxes / R:.3f} "
+          f"box tests per ray; {flops / 1e9:.4f} GFLOP, {n_bytes / 1e6:.4f} "
+          f"MB; bound {ms:.5f} ms ({by})")
+    return flops, n_bytes, ms, by
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -485,6 +757,7 @@ def main() -> int:
         mpaths_per_s,
         mrays_per_s,
         pt_frame_ms,
+        queued_ms,
     )
 
     t_start = time.perf_counter()
@@ -501,7 +774,7 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
 
     # 2. build, one nvcc per source, all started together
-    names = ("whitted_megakernel", "pt_megakernel")
+    names = ("whitted_megakernel", "pt_megakernel", "bvh_walk")
 
     def timed_build(name):
         t0 = time.perf_counter()
@@ -739,7 +1012,135 @@ def main() -> int:
     print(f"path-tracer phases {time.perf_counter() - t_pt:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    # 9. BVH walk: kernels against plain on the same rays
+    t_bvh = time.perf_counter()
+    bvh_err = {"closest": 0.0, "any": 0.0, "multi": 0.0}
+    for label, tables, query, args in bvh_cases(dev):
+        got = bvh_run(query, tables, args)
+        want = bvh_run(query, tables, args, kernel=False)
+        torch.cuda.synchronize()
+        reading = bvh_agreement(query, got, want)
+        print(f"compare {label} ({query}): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in reading.items()))
+        if bvh_rejects(reading):
+            raise AssertionError(f"{label}: the BVH kernel and its plain "
+                                 f"version disagree beyond {BVH_LIMITS}")
+        if query == "multi":
+            o_s, dirs, max_t, dead = args
+            singles = torch.stack([
+                kernels.bvh_any(tables, o_s, dirs[i], max_t, dead[i])
+                for i in range(dirs.shape[0])])
+            if not torch.equal(got, singles):
+                raise AssertionError(f"{label}: the fused launch differs "
+                                     "from one launch per light")
+        bvh_err[query] = max(bvh_err[query], reading["err"])
+
+    # 10. BVH main path through the entry points a user calls
+    field = build_scene(scenes.sphere_field_scene(n_side=FIELD_SIDE,
+                                                  res=RES), device=dev)
+    cfg_bvh = RenderConfig()
+    walk_kernels = (kernels.bvh_closest, kernels.bvh_any,
+                    kernels.bvh_any_multi)
+    for k in walk_kernels:
+        k.launches = 0
+    img = render_image(field, cfg_bvh)
+    torch.cuda.synchronize()
+    bvh_launches = [k.launches for k in walk_kernels]
+    print(f"main path: render_image field{FIELD_SIDE} ({field.n_objects} "
+          f"objects, {field.packets.nodes.shape[0]} nodes, depth "
+          f"{field.packets.depth}) {RES}x{RES} depth {cfg_bvh.max_depth} "
+          f"accel bvh, launches closest/any/multi {bvh_launches}")
+    if bvh_launches[0] < 1 or bvh_launches[1] < 1:
+        raise AssertionError("the BVH main path did not launch the walk")
+    if img.shape != (RES, RES, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"bad BVH image: {tuple(img.shape)}")
+    if float(img.min()) < 0.0 or float(img.max()) > 1.0:
+        raise AssertionError("BVH image outside [0, 1]")
+    print(f"BVH image mean {float(img.mean()):.5f}")
+    save_png(str(ROOT / "build" / "field_smoke.png"), img)
+    for k in walk_kernels:
+        k.launches = 0
+    img_multi = render_image(field, RenderConfig(accel_impl="multi"))
+    torch.cuda.synchronize()
+    multi_launches = kernels.bvh_any_multi.launches
+    print(f"main path, accel_impl='multi': launches closest/any/multi "
+          f"{[k.launches for k in walk_kernels]}")
+    if multi_launches < 1:
+        raise AssertionError("accel_impl='multi' did not launch the fused "
+                             "walk")
+    if not torch.equal(img_multi, img):
+        raise AssertionError("accel_impl='multi' changed the image")
+    small = build_scene(scenes.sphere_field_scene(n_side=FIELD_SIDE,
+                                                  res=128), device=dev)
+    bad, err = bad_fraction(render_image(small, cfg_bvh), render_image(
+        small, RenderConfig(accel_impl="brute")))
+    print(f"field{FIELD_SIDE} 128x128, BVH against brute force: "
+          f"{bad * 100:.3f}% pixels beyond {ATOL}, max abs err {err:.3g}")
+    if bad > MAX_BAD:
+        raise AssertionError("the BVH image disagrees with brute force")
+    del small
+    for extra in (["--builtin", "spheres", "--res", str(RES)],
+                  ["--builtin", "random"]):
+        out = subprocess.run(
+            [sys.executable, "-m",
+             "u_4a_2s_p3d_raytracer_template2_tpu_torch.cli", "render",
+             *extra, "--accel", "2", "-o", f"build/{extra[1]}.png"],
+            cwd=ROOT, check=True, capture_output=True, text=True).stdout
+        print("  cli: " + out.strip().replace("\n", "\n  cli: "))
+
+    # 11. BVH timing: the walk alone on the main path's queries of drifting
+    # frames, its bound from the kernel's own work counters; whole frames
+    bvh_inputs = []
+    for i in range(7):
+        o, d = camera_rays(field, 0.37 * i)
+        R = o.shape[0]
+        q0, (r1, a1, ior1) = main_path_queries(
+            field, Rays.make(o, d), torch.ones(R, dtype=torch.bool,
+                                               device=dev),
+            torch.ones(R, device=dev), cfg_bvh)
+        q1, _ = main_path_queries(field, r1, a1, ior1, cfg_bvh)
+        bvh_inputs.append(((o, d), (r1.origin, r1.direction), q0, q1))
+    pk = field.packets
+    bvh_times = {}
+    for label, query, pick in (
+            ("closest, primary", "closest", lambda x: x[0]),
+            ("closest, level 1", "closest", lambda x: x[1]),
+            ("any, primary hits, light 0", "any", lambda x: x[2][0]),
+            ("any, level-1 hits, light 0", "any", lambda x: x[3][0]),
+            ("multi, primary hits, both lights", "multi",
+             lambda x: (x[2][0][0], torch.stack([q[1] for q in x[2]]),
+                        x[2][0][2], torch.stack([q[3] for q in x[2]])))):
+        args = [(pk, *pick(x)) for x in bvh_inputs]
+        k_ms = queued_ms(lambda *a: bvh_run(query, a[0], a[1:]), args)
+        call_ms = cuda_ms(lambda *a: bvh_run(query, a[0], a[1:]), args)
+        p_ms = cuda_ms(lambda *a: bvh_run(query, a[0], a[1:], kernel=False),
+                       args[:3], warmup=1)
+        print(f"bvh {label}: kernel {k_ms:.4f} ms on the device ({call_ms:.4f} "
+              f"ms a call from an idle device, host included), plain "
+              f"{p_ms:.4f} ms ({args[0][1].shape[0]} rays, field{FIELD_SIDE} "
+              f"{RES}x{RES}, {card})")
+        bvh_times[label] = (k_ms, p_ms, bvh_work(query, pk, args[0][1:]))
+    del bvh_inputs
+    bvh_ms = frame_ms(field, cfg_bvh)
+    print(f"frame BVH sweep: {bvh_ms:.4f} ms, {mrays_per_s(field, bvh_ms):.2f} "
+          f"Mrays/s (primary+shadow), field{FIELD_SIDE} {RES}x{RES} depth "
+          f"{cfg_bvh.max_depth}, {card}")
+    profile_frames(f"BVH frame, sweep engine, field{FIELD_SIDE} {RES}x{RES}",
+                   render_tile, lambda i: (field, px + 0.37 * i, py, cfg_bvh),
+                   card, frames=5, share_of=("closest_kernel", "any_kernel"))
+    print(f"BVH phases {time.perf_counter() - t_bvh:.1f} s; all "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    def bvh_entry(name, query, label, replaces, launches, **extra):
+        k_ms, p_ms, (_, _, b_ms, b_by) = bvh_times[label]
+        return {"name": name, "route": "cuda", "source": src + "bvh_walk.cu",
+                "replaces": pk_src + replaces, **extra,
+                "launches": launches, "max_abs_err": bvh_err[query],
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}
+
     src = "u_4a_2s_p3d_raytracer_template2_tpu_torch/csrc/"
+    pk_src = "u_4a_2s_p3d_raytracer_template2_tpu/accel/packets.py"
     print(json.dumps({"kernels": [{
         "name": "whitted_megakernel",
         "route": "cuda",
@@ -768,7 +1169,14 @@ def main() -> int:
         "bound_ms": pt_bound_ms,
         "bound_by": pt_bound_by,
         "library_ms": None,
-    }]}))
+    },
+        bvh_entry("bvh_walk closest", "closest", "closest, primary", ":770",
+                  bvh_launches[0], also_replaces=pk_src + ":843"),
+        bvh_entry("bvh_walk any", "any", "any, primary hits, light 0",
+                  ":813", bvh_launches[1]),
+        bvh_entry("bvh_walk any multi", "multi",
+                  "multi, primary hits, both lights", ":729", multi_launches),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,7 +19,11 @@ from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted_megakernel import 
     scene_tables,
 )
 from test_whitted_vs_oracle import mixed_scene as oracle_mixed_scene
-from torch_parity import jax_scene_to_port, mixed_scene
+from torch_parity import (  # one_torch_thread: an autouse fixture
+    jax_scene_to_port,
+    mixed_scene,
+    one_torch_thread,
+)
 
 CPU = torch.device("cpu")
 
@@ -91,9 +95,10 @@ def test_mixed_recipe_is_the_oracle_tests_scene():
 
 
 def test_unported_scene_features_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.build_scene(pscenes.sphere_field_scene(n_side=2, res=8),
-                       device=CPU)  # BVH by default
+    # a BVH scene builds (its tables: tests/test_torch_bvh_build.py)
+    field = pt.build_scene(pscenes.sphere_field_scene(n_side=2, res=8),
+                           device=CPU)
+    assert field.accel_type == C.ACCEL_BVH and field.packets is not None
     sd = pscenes.mount_scene(res=8)
     sd.skybox_dir = "skybox"
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -23,10 +23,14 @@ from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.glsl_scene import (
     glsl_camera,
     glsl_world,
 )
-from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.scenes import mount_scene
+from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.scenes import (
+    mount_scene,
+    sphere_field_scene,
+)
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
     render_image,
 )
+import chip_smoke
 
 ATOL = 2e-3       # tests/conftest.assert_images_close
 MAX_BAD = 0.01
@@ -114,3 +118,73 @@ def test_pt_kernel_rejects_grad_and_cpu_tensors():
     with pytest.raises(ValueError):
         kernels.pt_megakernel(tables, o.detach().cpu(), d.cpu(), tm.cpu(),
                               uni.cpu(), pt.PTConfig())
+
+
+def _soup(dev, n=400):
+    return build_scene(chip_smoke.soup_scene(n_tri=n, n_sph=n), device=dev)
+
+
+@pytest.mark.cuda
+def test_bvh_kernels_match_plain_on_a_mixed_soup():
+    """Closest, any (max_t 1 and unbounded, with dead lanes) and the fused
+    multi-light any against the plain walk on incoherent rays through all
+    four primitive types, under chip_smoke.BVH_LIMITS; the fused launch
+    equals one launch per set."""
+    dev = _cuda()
+    tables = _soup(dev).packets
+    g = torch.Generator(device=dev).manual_seed(0)
+    o = torch.rand(8192, 3, device=dev, generator=g) * 16 - 8
+    d = torch.nn.functional.normalize(
+        torch.randn(8192, 3, device=dev, generator=g), dim=-1)
+    segs = torch.rand(2, 8192, 3, device=dev, generator=g) * 16 - 8 - o
+    dead = torch.rand(2, 8192, device=dev, generator=g) < 0.3
+    before = [k.launches for k in (kernels.bvh_closest, kernels.bvh_any,
+                                   kernels.bvh_any_multi)]
+    cases = [("closest", (o, d))]
+    for max_t in (1.0, 1e30):
+        cases += [("any", (o, segs[0], max_t, dead[0])),
+                  ("any", (o, segs[1], max_t, None)),
+                  ("multi", (o, segs, max_t, dead))]
+    for query, args in cases:
+        got = chip_smoke.bvh_run(query, tables, args)
+        want = chip_smoke.bvh_run(query, tables, args, kernel=False)
+        reading = chip_smoke.bvh_agreement(query, got, want)
+        assert not chip_smoke.bvh_rejects(reading), (query, reading)
+        if query == "multi":
+            assert torch.equal(got, torch.stack([
+                kernels.bvh_any(tables, o, segs[i], args[2], dead[i])
+                for i in range(2)]))
+    after = [k.launches for k in (kernels.bvh_closest, kernels.bvh_any,
+                                  kernels.bvh_any_multi)]
+    assert [a - b for a, b in zip(after, before)] == [1, 8, 2]
+
+
+@pytest.mark.cuda
+def test_bvh_render_matches_brute_force_on_the_card():
+    dev = _cuda()
+    scene = build_scene(sphere_field_scene(n_side=16, res=32), device=dev)
+    before = kernels.bvh_closest.launches
+    got = render_image(scene, RenderConfig())
+    assert kernels.bvh_closest.launches > before
+    want = render_image(scene, RenderConfig(accel_impl="brute"))
+    assert got.shape == (32, 32, 3) and bool(torch.isfinite(got).all())
+    assert _bad_fraction(got, want) <= MAX_BAD
+
+
+@pytest.mark.cuda
+def test_bvh_kernels_reject_grad_and_cpu_tensors():
+    dev = _cuda()
+    tables = _soup(dev, n=8).packets
+    o = torch.zeros(4, 3, device=dev, requires_grad=True)
+    d = torch.ones(4, 3, device=dev)
+    with pytest.raises(NotImplementedError):
+        kernels.bvh_closest(tables, o, d)
+    with pytest.raises(NotImplementedError):
+        kernels.bvh_any(tables, o, d, 1.0)
+    with pytest.raises(ValueError):
+        kernels.bvh_closest(tables, o.detach().cpu(), d.cpu())
+    with pytest.raises(ValueError):
+        kernels.bvh_any(tables, o.detach(), d.cpu(), 1.0)
+    with pytest.raises(ValueError):
+        kernels.bvh_any_multi(tables, o.detach(), d[None], 1.0,
+                              torch.zeros(1, 4, dtype=torch.bool))

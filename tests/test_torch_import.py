@@ -26,6 +26,10 @@ def test_port_imports_no_jax():
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.sampling\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.glsl_hash\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.checkpoint\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.accel.packets\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.accel.sah\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.accel.bvh\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.scenes\n"
         "import chip_smoke, chip_faults\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'u_4a_2s_p3d_raytracer_template2_tpu'\n"

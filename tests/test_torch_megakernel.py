@@ -35,7 +35,11 @@ from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
     render_tile,
 )
 from conftest import assert_images_close
-from torch_parity import jax_scene_to_port, mixed_scene
+from torch_parity import (  # one_torch_thread: an autouse fixture
+    jax_scene_to_port,
+    mixed_scene,
+    one_torch_thread,
+)
 
 CPU = torch.device("cpu")
 

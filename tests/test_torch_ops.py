@@ -27,7 +27,12 @@ from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Rays
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import camera as pcam
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect as pint
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import shade as pshade
-from torch_parity import jax_scene_to_port, mixed_scene, random_rays
+from torch_parity import (  # one_torch_thread: an autouse fixture
+    jax_scene_to_port,
+    mixed_scene,
+    one_torch_thread,
+    random_rays,
+)
 
 N = 4096
 

@@ -31,7 +31,11 @@ from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import glsl_hash
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import sampling
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import checkpoint
 from test_pt_megakernel import tiny_world
-from torch_parity import assert_pt_close, jax_pt_scene_to_port
+from torch_parity import (  # one_torch_thread: an autouse fixture
+    assert_pt_close,
+    jax_pt_scene_to_port,
+    one_torch_thread,
+)
 
 CPU = torch.device("cpu")
 

@@ -13,7 +13,12 @@ from u_4a_2s_p3d_raytracer_template2_tpu.models import scenes as jscenes
 from conftest import assert_images_close
 from oracle import Oracle
 from test_whitted_vs_oracle import sphere_plane_scene
-from torch_parity import jax_render_image, jax_scene_to_port, mixed_scene
+from torch_parity import (  # one_torch_thread: an autouse fixture
+    jax_render_image,
+    jax_scene_to_port,
+    mixed_scene,
+    one_torch_thread,
+)
 
 
 def _render_both(sd, **cfg):

@@ -7,6 +7,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from u_4a_2s_p3d_raytracer_template2_tpu.models.whitted import render_tile
@@ -104,3 +105,16 @@ def random_rays(n, seed, lo, hi):
     d = rng.normal(size=(n, 3))
     d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
     return o, d
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Run a test's PyTorch ops on one thread. The suite runs several
+    worker processes on a few cores, and PyTorch's intra-op threads in each
+    of them contend for the same cores: with them, the port's tests took
+    twice the CPU time under six workers. Import it into a test module to
+    apply it there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -1,0 +1,322 @@
+"""The port's BVH accelerator: one SAH tree over every bounded primitive,
+walked per ray; the counterpart of
+``u_4a_2s_p3d_raytracer_template2_tpu/accel/packets.py``, whose public names
+it keeps.
+
+The JAX module walks per-type treelets of 128-lane leaf chunks with one
+Pallas program per 256-ray packet (K5a-K5d). On a GPU a thread walks its own
+ray with a small stack, so the layout here is the GPU's:
+
+  * ``nodes`` [Nn, 8] f32: bmin(3), bmax(3), then two int32 stored as bits:
+    internal ``(left child, 0)`` with the right child at ``left + 1``; leaf
+    ``(first row, count > 0)``. Node 0 is the root. The boxes are
+    ``sah_build``'s, over ``object_bounds`` (triangles ε-padded).
+  * ``rows`` [P, 16] f32: every triangle, sphere and box in leaf order, as
+    the 12 parameters of ``prims.params``, the type code and the global
+    object id (int32 bits), and 2 pad floats (64 bytes a row).
+  * ``planes`` [Kp, 16] f32 in the same row layout: planes have no box and
+    are tested beside the tree.
+
+``csrc/bvh_walk.cu`` walks these tables on CUDA tensors
+(``kernels.bvh_closest``, ``bvh_any``, ``bvh_any_multi``). The plain
+version below walks the same tables level by level on any device, with the
+primitive tests of ``ops/intersect.py`` and brute force's tie rule (the
+smallest t, then type order triangle, sphere, plane, box, then the lowest
+object id), so on the CPU it returns exactly what brute force returns. The
+dispatch functions run the plain version on CPU tensors and the kernel on
+CUDA tensors, never one in place of the other. JAX's ``multi_supported``
+has no counterpart: the fused multi-light walk takes any tree, where JAX's
+kernel had a ceiling of 96 leaf chunks.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core import constants as C
+from ..core.types import Rays
+from ..ops import intersect
+from .bvh import object_bounds
+from .sah import sah_build
+
+LEAF_SIZE = 4      # primitives per leaf: a thread's leaf visit tests each
+STACK_DEPTH = 64   # the kernel's per-thread stack (kStack in bvh_walk.cu)
+ROW_W = 16         # floats per primitive row
+NODE_W = 8         # floats per node
+_RANK = {C.TRIANGLE: 0, C.SPHERE: 1, C.PLANE: 2, C.AABOX: 3}
+_CHUNK = 1 << 16   # rays per step of the plain walk (bounds its frontier)
+
+
+@dataclasses.dataclass(frozen=True)
+class PacketTables:
+    """The tree and its primitive rows on one device (see the module
+    docstring for the layout)."""
+
+    nodes: torch.Tensor   # [Nn, NODE_W] f32
+    rows: torch.Tensor    # [P, ROW_W] f32
+    planes: torch.Tensor  # [Kp, ROW_W] f32
+    depth: int = 1        # nodes on the longest root-to-leaf path
+
+
+def _rows(params: np.ndarray, ptype: np.ndarray, ids: np.ndarray):
+    r = np.zeros((len(ids), ROW_W), np.float32)
+    r[:, :12] = params[ids]
+    bits = r.view(np.int32)
+    bits[:, 12] = ptype[ids]
+    bits[:, 13] = ids
+    return r
+
+
+def _depth(nmeta: np.ndarray) -> int:
+    depth, level, frontier = 0, 0, [0]
+    while frontier:
+        level += 1
+        nxt = []
+        for n in frontier:
+            a, leaf = nmeta[n]
+            if leaf:
+                depth = max(depth, level)
+            else:
+                nxt += [a, a + 1]
+        frontier = nxt
+    return depth
+
+
+def build_packets(params: np.ndarray, ptype: np.ndarray, *,
+                  device) -> PacketTables | None:
+    """Host build of the tree over the objects ``params`` [N, 12],
+    ``ptype`` [N] (no padding rows), uploaded to ``device``. None when no
+    object has a box (planes only). Raises if the tree is deeper than the
+    kernel's stack."""
+    params = np.asarray(params, np.float32)
+    ptype = np.asarray(ptype)
+    bounded = np.nonzero((ptype == C.TRIANGLE) | (ptype == C.SPHERE)
+                         | (ptype == C.AABOX))[0]
+    if len(bounded) == 0:
+        return None
+    bmin, bmax = object_bounds(params, ptype)
+    _, nbox, nmeta, chunk_prims = sah_build(bmin[bounded], bmax[bounded],
+                                            leaf_size=LEAF_SIZE)
+    depth = _depth(nmeta)
+    if depth > STACK_DEPTH:
+        raise ValueError(f"BVH depth {depth} exceeds the walk's stack of "
+                         f"{STACK_DEPTH}")
+
+    # leaf rows in chunk order; a leaf's meta becomes (first row, count)
+    counts = (chunk_prims >= 0).sum(axis=1)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    order = bounded[chunk_prims[chunk_prims >= 0]]
+    leaf = nmeta[:, 1] == 1
+    chunk = np.where(leaf, nmeta[:, 0], 0)
+    meta = np.where(leaf[:, None],
+                    np.stack([starts[chunk], counts[chunk]], 1),
+                    np.stack([nmeta[:, 0], np.zeros_like(nmeta[:, 0])], 1))
+    nodes = np.zeros((nbox.shape[0], NODE_W), np.float32)
+    nodes[:, :6] = nbox
+    nodes.view(np.int32)[:, 6:8] = meta
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    planes = np.nonzero(ptype == C.PLANE)[0]
+    return PacketTables(nodes=t(nodes), rows=t(_rows(params, ptype, order)),
+                        planes=t(_rows(params, ptype, planes)), depth=depth)
+
+
+# ---------------------------------------------------------------------------
+# the plain version: a level-by-level walk of (ray, node) pairs
+
+
+def _meta(pt: PacketTables):
+    """(first child or row [Nn] i64, leaf row count [Nn] i64)."""
+    m = pt.nodes[:, 6:8].contiguous().view(torch.int32).long()
+    return m[:, 0], m[:, 1]
+
+
+def _slab(nodes, node, o, inv):
+    """Entry and exit t of rays (o, inv) through the boxes of ``node``."""
+    box = nodes[node]
+    lo = (box[:, 0:3] - o) * inv
+    hi = (box[:, 3:6] - o) * inv
+    return (torch.minimum(lo, hi).amax(dim=-1),
+            torch.maximum(lo, hi).amin(dim=-1))
+
+
+def _row_t(rows, o, d, inv):
+    """Each row's primitive test against its own ray: t [M], BIG on miss
+    (the formulas of ops/intersect.py)."""
+    code = rows[:, 12].contiguous().view(torch.int32)
+    t = torch.full(code.shape, C.BIG, dtype=o.dtype, device=o.device)
+    for c in (C.TRIANGLE, C.SPHERE, C.PLANE, C.AABOX):
+        sel = torch.nonzero(code == c).squeeze(1)
+        if sel.numel():
+            p = rows[sel]
+            t[sel] = intersect._prim_t(
+                c, [p[:, k] for k in range(12)], intersect._cols3(o[sel]),
+                intersect._cols3(d[sel]), intersect._cols3(inv[sel]))
+    return t
+
+
+def _row_key(rows):
+    """Tie key of each row: type rank << 32 | object id (int64)."""
+    bits = rows[:, 12:14].contiguous().view(torch.int32).long()
+    rank = torch.zeros_like(bits[:, 0])
+    for c, k in _RANK.items():
+        rank = torch.where(bits[:, 0] == c, k, rank)
+    return (rank << 32) | bits[:, 1]
+
+
+def _leaf_pairs(ray, start, count):
+    """Expand (ray, leaf) pairs into (ray, row) pairs."""
+    pr = ray.repeat_interleave(count)
+    first = torch.cumsum(count, 0) - count
+    pos = torch.arange(pr.numel(), device=ray.device)
+    return pr, start.repeat_interleave(count) + pos - first.repeat_interleave(
+        count)
+
+
+def _walk(pt: PacketTables, o, d, inv, keep, fold):
+    """Visit the tree for rays (o, d): expand the frontier of (ray, node)
+    pairs one level at a time, keeping a pair while ``keep(ray, tn, tf)``
+    holds for its box, and hand each leaf's (ray, row) pairs and their t to
+    ``fold(ray, row, t)`` before the next level is culled."""
+    first, count = _meta(pt)
+    ray = torch.arange(o.shape[0], device=o.device)
+    node = torch.zeros_like(ray)
+    while ray.numel():
+        tn, tf = _slab(pt.nodes, node, o[ray], inv[ray])
+        k = keep(ray, tn, tf)
+        ray, node = ray[k], node[k]
+        leaf = count[node] > 0
+        if bool(leaf.any()):
+            ln = node[leaf]
+            pr, row = _leaf_pairs(ray[leaf], first[ln], count[ln])
+            fold(pr, row, _row_t(pt.rows[row], o[pr], d[pr], inv[pr]))
+        ray = ray[~leaf].repeat(2)
+        a = first[node[~leaf]]
+        node = torch.cat([a, a + 1])
+
+
+def _closest_chunk(pt: PacketTables, o, d):
+    R = o.shape[0]
+    inv = intersect._safe_inv(d)
+    best_t = torch.full((R,), C.BIG, dtype=o.dtype, device=o.device)
+    none = torch.iinfo(torch.int64).max
+    best_k = torch.full((R,), none, dtype=torch.int64, device=o.device)
+    keys = _row_key(pt.rows)
+
+    def offer(ray, t, key):
+        nonlocal best_t, best_k
+        hit = t < C.BIG
+        ray, t, key = ray[hit], t[hit], key[hit]
+        t_min = torch.full_like(best_t, C.BIG).scatter_reduce(
+            0, ray, t, "amin")
+        at = t == t_min[ray]
+        k_min = torch.full_like(best_k, none).scatter_reduce(
+            0, ray[at], key[at], "amin")
+        better = (t_min < best_t) | ((t_min == best_t) & (k_min < best_k))
+        best_t = torch.where(better, t_min, best_t)
+        best_k = torch.where(better, k_min, best_k)
+
+    n_pl = pt.planes.shape[0]
+    if n_pl:
+        ray = torch.arange(R, device=o.device).repeat_interleave(n_pl)
+        row = torch.arange(n_pl, device=o.device).repeat(R)
+        offer(ray, _row_t(pt.planes[row], o[ray], d[ray], inv[ray]),
+              _row_key(pt.planes)[row])
+    _walk(pt, o, d, inv,
+          lambda ray, tn, tf: (tn <= tf) & (tf >= 0.0) & (tn <= best_t[ray]),
+          lambda ray, row, t: offer(ray, t, keys[row]))
+    obj = (best_k & 0xFFFFFFFF).to(torch.int32)
+    return best_t, torch.where(best_t >= C.BIG, -1, obj)
+
+
+def closest_hit_plain(pt: PacketTables, o, d):
+    """(t [R], obj_id [R] int32, -1 on a miss) of rays (o, d) [R, 3]."""
+    parts = [_closest_chunk(pt, o[s:s + _CHUNK], d[s:s + _CHUNK])
+             for s in range(0, o.shape[0], _CHUNK)]
+    if not parts:
+        return o.new_zeros((0,)), torch.zeros(0, dtype=torch.int32,
+                                              device=o.device)
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _any_chunk(pt: PacketTables, o, d, max_t, dead):
+    R = o.shape[0]
+    inv = intersect._safe_inv(d)
+    occ = (dead.clone() if dead is not None
+           else torch.zeros(R, dtype=torch.bool, device=o.device))
+
+    def mark(ray, row, t):
+        occ[ray[t < max_t]] = True
+
+    n_pl = pt.planes.shape[0]
+    if n_pl:
+        ray = torch.arange(R, device=o.device).repeat_interleave(n_pl)
+        row = torch.arange(n_pl, device=o.device).repeat(R)
+        mark(ray, row, _row_t(pt.planes[row], o[ray], d[ray], inv[ray]))
+    _walk(pt, o, d, inv,
+          lambda ray, tn, tf: ((tn <= tf) & (tf >= 0.0) & (tn < max_t)
+                               & ~occ[ray]),
+          mark)
+    return occ
+
+
+def any_hit_plain(pt: PacketTables, o, d, max_t: float, dead=None):
+    """[R] bool: does any primitive hit rays (o, d) at t < max_t? ``dead``
+    lanes [R] bool report occluded without a walk."""
+    return torch.cat([
+        _any_chunk(pt, o[s:s + _CHUNK], d[s:s + _CHUNK], max_t,
+                   None if dead is None else dead[s:s + _CHUNK])
+        for s in range(0, o.shape[0], _CHUNK)]
+        or [torch.zeros(0, dtype=torch.bool, device=o.device)])
+
+
+# ---------------------------------------------------------------------------
+# dispatch: the plain version on CPU tensors, the kernel on CUDA tensors
+
+
+def packet_closest_hit(pt: PacketTables, rays: Rays):
+    """Closest hit of ``rays`` through the tree and the planes: (t [R],
+    obj_id [R] int32), obj_id -1 on a miss."""
+    o = rays.origin.contiguous()
+    d = rays.direction.contiguous()
+    if o.device.type == "cpu":
+        return closest_hit_plain(pt, o, d)
+    from ..kernels import bvh_closest
+
+    return bvh_closest(pt, o, d)
+
+
+def packet_any_hit(pt: PacketTables, rays: Rays, max_t: float, dead=None):
+    """Occlusion [R] bool of segments ``rays`` (origin + t·direction, t <
+    max_t). ``dead`` [R] bool marks lanes the caller masks downstream: they
+    report occluded without a walk."""
+    o = rays.origin.contiguous()
+    d = rays.direction.contiguous()
+    if o.device.type == "cpu":
+        return any_hit_plain(pt, o, d, float(max_t), dead)
+    from ..kernels import bvh_any
+
+    return bvh_any(pt, o, d, float(max_t), dead)
+
+
+def packet_any_hit_multi(pt: PacketTables, origin, dirs, max_t: float,
+                         dead=None):
+    """L occlusion queries per ray that share ``origin`` [R, 3]: ``dirs``
+    a sequence of L [R, 3] segment vectors, ``dead`` None or L [R] bool
+    masks. [L, R] bool, equal to L ``packet_any_hit`` calls; one kernel
+    launch on CUDA tensors."""
+    o = origin.contiguous()
+    if o.device.type == "cpu":
+        return torch.stack([
+            any_hit_plain(pt, o, dv.contiguous(), float(max_t),
+                          None if dead is None else dead[i])
+            for i, dv in enumerate(dirs)])
+    from ..kernels import bvh_any_multi
+
+    return bvh_any_multi(pt, o, torch.stack(list(dirs)),
+                         float(max_t),
+                         None if dead is None else torch.stack(list(dead)))

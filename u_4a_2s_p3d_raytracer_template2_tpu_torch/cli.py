@@ -11,7 +11,9 @@ Usage::
 Both run on the CUDA card unless ``--device cpu`` is given; without a card
 they exit with an error rather than fall back to the CPU.
 
-``render`` renders a built-in scene, writes the PNG, and prints the frame
+``render`` renders a built-in scene (mount_low, the sphere field or the
+random scene, with the scene's accelerator unless ``--accel`` says
+otherwise), writes the PNG, and prints the frame
 time and the rate in Mrays/s (primary + shadow rays). On a CUDA device the
 time is the median of CUDA-event frame times; on the CPU it is one host
 wall-clock render, labelled as such.
@@ -43,19 +45,23 @@ def cmd_render(args) -> None:
     from .models.whitted import render_image
     from .utils.timing import frame_ms, mrays_per_s
 
-    make_scene = {"mount": scenes.mount_scene,
-                  "spheres": scenes.sphere_field_scene}[args.builtin]
-    sd = make_scene(res=args.res)
-    # the port traces brute force only (accelerators: ROADMAP.md queue 1)
-    scene = build_scene(sd, device=torch.device(args.device),
-                        accel=C.ACCEL_NONE)
+    sd = {"mount": scenes.mount_scene,
+          "spheres": scenes.sphere_field_scene,
+          "random": scenes.random_scene}[args.builtin]()
+    if args.res:
+        sd.camera["res_x"] = sd.camera["res_y"] = args.res
+    scene = build_scene(sd, device=torch.device(args.device), accel=args.accel)
     cfg = RenderConfig(max_depth=args.depth, engine=args.engine,
                        fresnel_mode=args.fresnel,
-                       refraction_mode=args.refraction)
+                       refraction_mode=args.refraction,
+                       accel_impl=args.accel_impl)
     cam = scene.camera
+    accel = {C.ACCEL_NONE: "none", C.ACCEL_GRID: "grid",
+             C.ACCEL_BVH: "bvh"}[scene.accel_type]
     print(f"Resolution {cam.res_x}x{cam.res_y}, {scene.n_objects} objects, "
           f"{scene.n_lights} lights, depth {cfg.max_depth}, engine "
-          f"{cfg.engine}, device {scene.device}")
+          f"{cfg.engine}, accel {accel} ({cfg.accel_impl}), device "
+          f"{scene.device}")
 
     t0 = time.perf_counter()
     img = render_image(scene, cfg)
@@ -113,8 +119,18 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="u_4a_2s_p3d_raytracer_template2_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     pr = sub.add_parser("render", help="render a built-in scene to PNG")
-    pr.add_argument("--builtin", choices=["mount", "spheres"], default="mount")
-    pr.add_argument("--res", type=int, default=512)
+    pr.add_argument("--builtin", choices=["mount", "spheres", "random"],
+                    default="mount")
+    pr.add_argument("--accel", type=int, default=None,
+                    help="0 none, 1 grid, 2 bvh (default: scene's)")
+    pr.add_argument("--accel-impl", dest="accel_impl", default="auto",
+                    choices=["auto", "packets", "clusters", "perray",
+                             "brute"],
+                    help="BVH- and grid-mode traversal: auto, packets and "
+                    "clusters walk the BVH (the CUDA walk on a CUDA device), "
+                    "brute tests every primitive; perray is not ported yet")
+    pr.add_argument("--res", type=int, default=None,
+                    help="square resolution (default: scene's)")
     pr.add_argument("--depth", type=int, default=4)
     pr.add_argument("--engine", choices=["sweep", "megakernel"],
                     default="sweep",

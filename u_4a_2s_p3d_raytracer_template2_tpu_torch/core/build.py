@@ -1,9 +1,11 @@
 """SceneDef (host NumPy) -> Scene (tensors on one device, padded shapes).
 
 The counterpart of ``u_4a_2s_p3d_raytracer_template2_tpu/core/build.py``
-(``build_camera``, ``build_scene``) for scenes without an accelerator: the
-tables are computed with the same NumPy operations, so they equal the JAX
-build exactly.
+(``build_camera``, ``build_scene``): the tables are computed with the same
+NumPy operations, so they equal the JAX build exactly. A BVH or grid scene
+also gets the port's BVH tables (``accel/packets.build_packets``), built once
+on the host and uploaded; a grid scene routes to the same walk, as the JAX
+package does on the TPU.
 """
 from __future__ import annotations
 
@@ -53,17 +55,12 @@ def build_camera(cam: dict, *, device) -> Camera:
 
 
 def build_scene(sd, *, device, accel: Optional[int] = None) -> Scene:
-    """Pad a SceneDef and upload it to ``device``.
+    """Pad a SceneDef and upload it to ``device``; ``accel`` overrides the
+    scene's accelerator (ACCEL_NONE, ACCEL_GRID or ACCEL_BVH).
 
-    Only ``accel=ACCEL_NONE`` (brute force) is ported; a grid or BVH scene,
-    or one with an ``env`` skybox, raises ``NotImplementedError``.
+    A scene with an ``env`` skybox raises ``NotImplementedError``.
     """
     accel_type = sd.accel_type if accel is None else accel
-    if accel_type != C.ACCEL_NONE:
-        raise NotImplementedError(
-            f"accel={accel_type}: accelerators are not ported yet "
-            "(ROADMAP.md, queue 1, item 9 'Accelerators'); pass "
-            "accel=ACCEL_NONE for brute force")
     if sd.skybox_dir is not None:
         raise NotImplementedError(
             "skybox scenes are not ported yet (ROADMAP.md, queue 1, item 7 "
@@ -116,6 +113,12 @@ def build_scene(sd, *, device, accel: Optional[int] = None) -> Scene:
         lt[i] = light
     lights = Lights(position=t(lt[:, 0:3]), color=t(lt[:, 3:6]))
 
+    packets = None
+    if accel_type in (C.ACCEL_BVH, C.ACCEL_GRID) and n_obj > 0:
+        from ..accel.packets import build_packets
+
+        packets = build_packets(params[:n_obj], ptype[:n_obj], device=device)
+
     return Scene(
         prims=Primitives(
             params=t(params), ptype=t(ptype), mat_id=t(mat_id),
@@ -133,4 +136,5 @@ def build_scene(sd, *, device, accel: Optional[int] = None) -> Scene:
         n_lights=len(sd.lights),
         has_reflective=bool((mats[:, 7] > 0).any()),
         has_transmissive=bool((mats[:, 9] != 0).any()),
+        packets=packets,
     )

@@ -9,7 +9,9 @@ jax: the caller does the ``np.asarray``.
 ``meta`` holds the static fields (``n_tri`` ... ``n_box``, ``res_x``,
 ``res_y``, ``accel_type``, ``spp``, ``n_objects``, ``n_lights``,
 ``has_reflective``, ``has_transmissive``, ``has_skybox``). Keys the port has
-no field for (the accelerator tables, ``tri_mo``, ``sph_k``) are ignored.
+no field for (the accelerator tables, ``tri_mo``, ``sph_k``) are ignored: a
+BVH or grid scene gets the port's own BVH tables, rebuilt from its
+primitives.
 
 ``pt_scene_from_arrays`` does the same for the path tracer's ``PTScene``:
 its leaves keyed by field name (``"sp_center0"``, ``"tri_mat"``,
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from . import constants as C
+from ..accel.packets import build_packets
 from ..models.pathtracer import PTMaterials, PTScene
 from .types import Camera, Lights, Materials, Primitives, Scene
 
@@ -33,10 +36,6 @@ def _fields(cls) -> list[str]:
 
 def scene_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
                       device) -> Scene:
-    if int(meta["accel_type"]) != C.ACCEL_NONE:
-        raise NotImplementedError(
-            "accelerator tables are not ported yet (ROADMAP.md, queue 1, "
-            "item 9 'Accelerators')")
     if meta.get("has_skybox"):
         raise NotImplementedError(
             "skybox scenes are not ported yet (ROADMAP.md, queue 1, item 7 "
@@ -54,6 +53,12 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
                                          ).to(device)
         return cls(**kw)
 
+    n_obj = int(meta["n_objects"])
+    packets = None
+    if int(meta["accel_type"]) in (C.ACCEL_BVH, C.ACCEL_GRID) and n_obj > 0:
+        packets = build_packets(np.asarray(arrays["prims.params"])[:n_obj],
+                                np.asarray(arrays["prims.ptype"])[:n_obj],
+                                device=device)
     return Scene(
         prims=group("prims", Primitives, ("n_tri", "n_sph", "n_pl", "n_box")),
         materials=group("materials", Materials),
@@ -66,6 +71,7 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
         n_lights=int(meta["n_lights"]),
         has_reflective=bool(meta["has_reflective"]),
         has_transmissive=bool(meta["has_transmissive"]),
+        packets=packets,
     )
 
 

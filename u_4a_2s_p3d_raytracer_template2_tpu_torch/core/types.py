@@ -11,12 +11,14 @@ Parameter block layout by type (``ptype``):
   SPHERE   : center(3), radius(1)             — scene.cpp:149-186
   AABOX    : min(3), max(3)                   — scene.cpp:188-283
 
-The BVH, grid, cluster and packet tables of the JAX scene are not ported yet
-(ROADMAP.md, queue 1, accelerators).
+A BVH or grid scene carries the port's BVH tables in ``Scene.packets``
+(``accel/packets.py``); the JAX scene's reference BVH, grid and cluster tables
+have no counterpart yet (ROADMAP.md, queue 1, item 9).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Optional
 
 import torch
 
@@ -105,6 +107,9 @@ class Scene:
     # only for Ks>0; main.cpp:671 refraction only for T!=0)
     has_reflective: bool = True
     has_transmissive: bool = True
+    # the BVH walk's tables (accel.packets.PacketTables) of a BVH or grid
+    # scene with at least one bounded primitive; None otherwise
+    packets: Optional[Any] = None
     # data an engine derives from the scene once and reuses on every frame
     # (the megakernel's packed tables); not part of the scene's value, and
     # dataclasses.replace starts a new one
@@ -189,7 +194,11 @@ class RenderConfig:
     wavefront_defer_sky: bool = False
     megakernel_interpret: bool = False
 
-    # BVH-mode traversal implementation; the port traces brute force only.
+    # BVH- and grid-mode traversal (models/whitted._bvh_impl): "auto",
+    # "packets", "clusters" and "multi" walk the scene's BVH tables
+    # ("multi" also fuses a hit's hard-shadow queries over its lights into
+    # one launch); "brute" tests every primitive; "perray" (the reference
+    # BVH walk and grid DDA) is not ported yet and raises.
     accel_impl: str = "auto"
 
     def with_scene_flags(self, scene: Scene) -> "RenderConfig":

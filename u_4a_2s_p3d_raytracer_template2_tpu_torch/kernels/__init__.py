@@ -46,9 +46,29 @@ def _pt_entry():
     return fn
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device, numel=None):
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name}: want a contiguous float32 tensor on "
+@functools.cache
+def _bvh_entry(name: str):
+    fn = getattr(load("bvh_walk"), name)
+    fn.restype = ctypes.c_int
+    if name == "bvh_closest_launch":
+        fn.argtypes = ([ctypes.c_void_p]                         # stream
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]  # o, d, R
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int]  # tables
+                       + [ctypes.c_void_p] * 3)          # t, id, counts
+    else:
+        fn.argtypes = ([ctypes.c_void_p]                         # stream
+                       + [ctypes.c_void_p] * 2                   # o, dirs
+                       + [ctypes.c_int] * 2 + [ctypes.c_float]   # L, R, max_t
+                       + [ctypes.c_void_p]                       # dead
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int]  # tables
+                       + [ctypes.c_void_p] * 2)          # out, counts
+    return fn
+
+
+def _check(name: str, t: torch.Tensor, device: torch.device, numel=None,
+           dtype=torch.float32):
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous {dtype} tensor on "
                          f"{device}, got {t.dtype} on {t.device}")
     if numel is not None and t.numel() != numel:
         raise ValueError(f"{name}: want {numel} elements, got {t.numel()}")
@@ -145,3 +165,107 @@ def pt_megakernel(tables, o, d, time, uni, cfg) -> torch.Tensor:
 
 
 pt_megakernel.launches = 0
+
+
+# per-ray work counters of the BVH walk: node box tests, then triangle,
+# sphere, plane and box tests
+WORK_COUNTS = 5
+
+
+def _bvh_args(tables, o, d, counts):
+    """Check the BVH walk's tables, rays and counter buffer; returns the
+    device, the ray count and the table arguments of the C entry points."""
+    if o.device.type != "cuda":
+        raise ValueError(f"the BVH walk runs on CUDA tensors, not {o.device}")
+    dev = o.device
+    R = o.shape[0]
+    if o.dim() != 2 or o.shape[1] != 3 or d.shape[-2:] != o.shape:
+        raise ValueError(f"rays: want o [R,3] and directions [..., R, 3], "
+                         f"got {tuple(o.shape)} and {tuple(d.shape)}")
+    _check("o", o, dev)
+    _check("d", d, dev)
+    _check("nodes", tables.nodes, dev)
+    _check("rows", tables.rows, dev)
+    _check("planes", tables.planes, dev)
+    # the kernel reads nodes and rows as float4
+    for name, t in (("nodes", tables.nodes), ("rows", tables.rows),
+                    ("planes", tables.planes)):
+        if t.dim() != 2 or t.shape[1] not in (8, 16) or t.data_ptr() % 16:
+            raise ValueError(f"{name}: want 16-byte aligned rows of 8 or 16 "
+                             f"floats, got {tuple(t.shape)}")
+    if counts is not None:
+        _check("counts", counts, dev, WORK_COUNTS * R, torch.int32)
+    return dev, R, [tables.nodes.data_ptr(), tables.rows.data_ptr(),
+                    tables.planes.data_ptr(), tables.planes.shape[0]]
+
+
+def bvh_closest(tables, o, d, counts=None):
+    """(t [R], obj_id [R] int32, -1 on a miss) of rays (o, d) [R,3] through
+    the BVH walk on the card (csrc/bvh_walk.cu). ``tables`` is
+    ``accel.packets.PacketTables``; ``counts``, an optional int32
+    [R, WORK_COUNTS], receives each ray's node box, triangle, sphere, plane
+    and box tests (the main path passes None)."""
+    dev, R, tbl = _bvh_args(tables, o, d, counts)
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    obj = torch.empty(R, dtype=torch.int32, device=dev)
+    if R == 0:
+        return t, obj
+    with torch.cuda.device(dev):
+        rc = _bvh_entry("bvh_closest_launch")(
+            torch.cuda.current_stream(dev).cuda_stream, o.data_ptr(),
+            d.data_ptr(), R, *tbl, t.data_ptr(), obj.data_ptr(),
+            None if counts is None else counts.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"bvh_closest launch failed: CUDA error {rc}")
+    bvh_closest.launches += 1
+    return t, obj
+
+
+bvh_closest.launches = 0
+
+
+def _bvh_any(tables, o, dirs, max_t, dead, counts):
+    dev, R, tbl = _bvh_args(tables, o, dirs, counts)
+    L = dirs.shape[0]
+    if dead is not None:
+        _check("dead", dead, dev, L * R, torch.bool)
+    out = torch.empty((L, R), dtype=torch.bool, device=dev)
+    if R == 0 or L == 0:
+        return out, False
+    with torch.cuda.device(dev):
+        rc = _bvh_entry("bvh_any_launch")(
+            torch.cuda.current_stream(dev).cuda_stream, o.data_ptr(),
+            dirs.data_ptr(), L, R, max_t,
+            None if dead is None else dead.data_ptr(), *tbl, out.data_ptr(),
+            None if counts is None else counts.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"bvh_any launch failed: CUDA error {rc}")
+    return out, True
+
+
+def bvh_any(tables, o, d, max_t: float, dead=None, counts=None):
+    """Occlusion [R] bool of segments o + t·d, t < ``max_t``, through the
+    BVH walk on the card; ``dead`` [R] bool lanes report occluded without a
+    walk. ``counts`` as for ``bvh_closest``."""
+    out, launched = _bvh_any(tables, o, d[None], max_t,
+                             None if dead is None else dead[None], counts)
+    bvh_any.launches += launched
+    return out[0]
+
+
+bvh_any.launches = 0
+
+
+def bvh_any_multi(tables, o, dirs, max_t: float, dead=None, counts=None):
+    """Occlusion [L, R] bool of L segment sets ``dirs`` [L, R, 3] that share
+    the origins ``o`` [R, 3], in one launch: equal to L ``bvh_any`` calls.
+    ``dead`` None or [L, R] bool. ``counts`` sums each ray's work over the L
+    sets."""
+    if dirs.dim() != 3:
+        raise ValueError(f"dirs: want [L, R, 3], got {tuple(dirs.shape)}")
+    out, launched = _bvh_any(tables, o, dirs, max_t, dead, counts)
+    bvh_any_multi.launches += launched
+    return out
+
+
+bvh_any_multi.launches = 0

@@ -5,7 +5,8 @@
 (P3D_Scenes/mount_low.p3f: 8 triangles forming a mountain, 4 transmissive
 spheres with ior 1.6, one light) so the port renders it without the reference
 checkout. ``sphere_field_scene`` is the deterministic sphere field of the
-balls_high shape.
+balls_high shape; ``random_scene`` the RTiOW-style generator
+(scene.cpp:677-751).
 """
 from __future__ import annotations
 
@@ -84,4 +85,50 @@ def sphere_field_scene(n_side: int = 16, res: int = 512,
                                     0.7, 20, 1, 1.5)
             sd.add_sphere([x, y, rng.uniform(-0.3, 0.0)],
                           rng.uniform(0.15, 0.28), m)
+    return sd
+
+
+def random_scene(res_x: int = 800, res_y: int = 600, seed: int = 0) -> SceneDef:
+    """RTiOW-style random scene (create_random_scene, scene.cpp:677-751):
+    ground sphere + 10x10 grid of diffuse/metal/glass spheres + 3 heroes,
+    BVH accel, 3 lights."""
+    rng = np.random.default_rng(seed)
+    sd = SceneDef()
+    sd.accel_type = C.ACCEL_BVH
+    sd.spp = 0
+    sd.bg_color = np.array([0.5, 0.7, 1.0], np.float32)
+    sd.set_camera(eye=[-5.312192, 4.456562, 11.963158], at=[0, 0, 0],
+                  up=[0, 1, 0], fov=45, hither=0.01, res_x=res_x, res_y=res_y,
+                  aperture_ratio=0, focal_ratio=1.5)
+    for pos in ([7, 10, -5], [-7, 10, -5], [0, 10, 7]):
+        sd.add_light(pos, [1, 1, 1])
+
+    ground = sd.add_material([0.5, 0.5, 0.5], 1.0, [0, 0, 0], 0.0, 10, 0, 1)
+    sd.add_sphere([0, -1000, 0], 1000.0, ground)
+
+    for a in range(-5, 5):
+        for b in range(-5, 5):
+            choose = rng.uniform()
+            center = np.array([a + 0.9 * rng.uniform(), 0.2,
+                               b + 0.9 * rng.uniform()])
+            if np.linalg.norm(center - np.array([4.0, 0.2, 0.0])) <= 0.9:
+                continue
+            if choose < 0.4:
+                m = sd.add_material(rng.uniform(0, 1, 3), 1.0,
+                                    [0, 0, 0], 0.0, 10, 0, 1)
+            elif choose < 0.9:
+                m = sd.add_material([0, 0, 0], 0.0,
+                                    rng.uniform(0.5, 1, 3), 1.0, 220, 0, 1)
+            else:
+                m = sd.add_material([0, 0, 0], 0.0, [1, 1, 1],
+                                    0.7, 20, 1, 1.5)
+            sd.add_sphere(center, 0.2, m)
+
+    glass = sd.add_material([0, 0, 0], 0.0, [1, 1, 1], 0.7, 20, 1, 1.5)
+    sd.add_sphere([0, 1, 0], 1.0, glass)
+    brown = sd.add_material([0.4, 0.2, 0.1], 0.9, [1, 1, 1], 0.1, 10, 0, 1)
+    sd.add_sphere([-4, 1, 0], 1.0, brown)
+    metal = sd.add_material([0.4, 0.2, 0.1], 0.0, [0.7, 0.6, 0.5], 1.0,
+                            220, 0, 1)
+    sd.add_sphere([4, 1, 0], 1.0, metal)
     return sd

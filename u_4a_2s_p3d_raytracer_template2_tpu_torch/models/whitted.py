@@ -12,9 +12,12 @@ Everything is masked rather than branched: inactive slots trace with
 direction (0,0,1) and contribute zero.
 
 ``engine="megakernel"`` hands the whole tree to one CUDA kernel on CUDA
-tensors (models/whitted_megakernel.py). Distribution mode (AA, DoF, motion
-blur, jittered soft shadows, fuzzy reflection), the skybox, the wavefront
-engine and the accelerators are not ported yet and raise.
+tensors (models/whitted_megakernel.py). In a BVH or grid scene the sweep's
+closest-hit and shadow queries walk the scene's BVH tables
+(accel/packets.py: the CUDA walk on CUDA tensors, its plain version on CPU
+tensors). Distribution mode (AA, DoF, motion blur, jittered soft shadows,
+fuzzy reflection), the skybox, the wavefront engine, and the reference BVH
+walk and grid DDA (``accel_impl="perray"``) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -47,14 +50,77 @@ def check_config(cfg: RenderConfig) -> None:
         raise ValueError(f"unknown engine {cfg.engine!r}")
 
 
-def trace_closest(scene: Scene, rays: Rays):
-    """Closest hit, brute force; returns (t, obj_id)."""
+# ---------------------------------------------------------------------------
+# closest-hit and shadow dispatch (JAX models/whitted.py:45-199)
+
+_PERRAY = ("accel_impl='perray' (the reference BVH walk and the grid DDA of "
+           "accel/traverse.py) is not ported yet (ROADMAP.md, queue 1, item 9 "
+           "'Accelerators')")
+
+
+def _bvh_impl(cfg: RenderConfig | None) -> str:
+    """Resolve ``cfg.accel_impl`` for a BVH or grid scene: "walk" (the
+    BVH walk of accel/packets.py, for "auto", "packets", "clusters" and
+    "multi") or "brute"."""
+    impl = cfg.accel_impl if cfg is not None else "auto"
+    if impl in ("auto", "packets", "clusters", "multi"):
+        return "walk"
+    if impl == "brute":
+        return "brute"
+    if impl == "perray":
+        raise NotImplementedError(_PERRAY)
+    raise ValueError(f"unknown accel_impl {impl!r}")
+
+
+def _walks(scene: Scene, cfg: RenderConfig | None) -> bool:
+    return (scene.accel_type in (C.ACCEL_BVH, C.ACCEL_GRID)
+            and _bvh_impl(cfg) == "walk" and scene.packets is not None)
+
+
+def trace_closest(scene: Scene, rays: Rays, cfg: RenderConfig | None = None):
+    """Closest hit via the scene's accelerator; returns (t, obj_id)."""
+    if _walks(scene, cfg):
+        from ..accel.packets import packet_closest_hit
+
+        return packet_closest_hit(scene.packets, rays)
     return intersect.closest_hit_brute(scene.prims, rays)
 
 
-def trace_shadow(scene: Scene, rays: Rays, max_t):
-    """Any-hit occlusion, brute force."""
+def _grid_initfail(scene: Scene, cfg: RenderConfig | None) -> bool:
+    return (scene.accel_type == C.ACCEL_GRID and cfg is not None
+            and cfg.reference_grid_shadow_initfail)
+
+
+def trace_shadow(scene: Scene, rays: Rays, max_t,
+                 cfg: RenderConfig | None = None, dead=None):
+    """Any-hit occlusion via the scene's accelerator. ``dead`` [R] bool
+    marks lanes the caller masks downstream: the walk reports them occluded
+    without walking; brute force ignores it."""
+    if _grid_initfail(scene, cfg):
+        raise NotImplementedError(
+            "reference_grid_shadow_initfail needs the grid DDA: " + _PERRAY)
+    if _walks(scene, cfg):
+        from ..accel.packets import packet_any_hit
+
+        return packet_any_hit(scene.packets, rays, max_t, dead)
     return intersect.any_hit_brute(scene.prims, rays, max_t)
+
+
+def _shadow_multi_rows(scene: Scene, cfg: RenderConfig, hit_point, precise,
+                       normal, active):
+    """[L, R] hard-shadow occlusion of every light in one fused walk
+    (accel/packets.packet_any_hit_multi) under ``accel_impl="multi"`` with
+    two or more lights; None where the per-light queries apply."""
+    if (cfg.accel_impl != "multi" or scene.n_lights < 2
+            or not _walks(scene, cfg) or _grid_initfail(scene, cfg)):
+        return None
+    from ..accel.packets import packet_any_hit_multi
+
+    Lvs = [scene.lights.position[li][None, :] - hit_point
+           for li in range(scene.n_lights)]
+    dead = [~(active & (dot(Lv, normal) > 0.0)) for Lv in Lvs]
+    max_t = C.BIG if cfg.shadow_unbounded else 1.0
+    return packet_any_hit_multi(scene.packets, precise, Lvs, max_t, dead)
 
 
 # ---------------------------------------------------------------------------
@@ -65,11 +131,18 @@ def direct_lighting(scene: Scene, rays: Rays, hit_point, precise, normal,
                     mat: shade.MatView, active, cfg: RenderConfig):
     color = torch.zeros_like(hit_point)
     max_t = C.BIG if cfg.shadow_unbounded else 1.0
+    multi_occ = None
+    if not cfg.soft_shadow:
+        multi_occ = _shadow_multi_rows(scene, cfg, hit_point, precise,
+                                       normal, active)
 
-    def one_sample(position, light_color):
+    def one_sample(position, light_color, occluded=None):
         Lv = position - hit_point  # unnormalized (main.cpp:627)
         facing = dot(Lv, normal) > 0.0
-        occluded = trace_shadow(scene, Rays(precise, Lv, rays.time), max_t)
+        if occluded is None:
+            # lanes whose contribution is masked below need no walk
+            occluded = trace_shadow(scene, Rays(precise, Lv, rays.time),
+                                    max_t, cfg, dead=~(active & facing))
         lit = active & facing & ~occluded
         return shade.blinn_phong(Lv, lit, light_color, mat, rays.direction,
                                  normal)
@@ -90,7 +163,9 @@ def direct_lighting(scene: Scene, rays: Rays, hit_point, precise, normal,
                     color = color + one_sample((lpos + off)[None, :],
                                                lcol / 16.0)
         else:
-            color = color + one_sample(lpos[None, :], lcol)
+            color = color + one_sample(
+                lpos[None, :], lcol,
+                None if multi_occ is None else multi_occ[li])
     return color
 
 
@@ -101,7 +176,7 @@ def direct_lighting(scene: Scene, rays: Rays, hit_point, precise, normal,
 def _level_step(scene: Scene, rays: Rays, active, ior_in, cfg: RenderConfig,
                 spawn: bool):
     """Trace + locally shade one level; optionally emit children."""
-    t_disc, obj_id = trace_closest(scene, rays)
+    t_disc, obj_id = trace_closest(scene, rays, cfg)
     hit = active & (obj_id >= 0)
 
     params, ptype, mat_id = intersect.gather_prims(scene.prims, obj_id)

@@ -35,6 +35,33 @@ def cuda_ms(fn, args_list, *, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, args_list, *, rounds: int = 5, hold_cycles: int = 10**8
+              ) -> float:
+    """Device ms per call of ``fn(*args)`` over ``args_list``, the median of
+    ``rounds`` rounds. In each round the calls are queued behind a device
+    sleep of ``hold_cycles`` clock cycles (about 50 ms), and the events
+    around them start when the sleep ends, so the host's launch overhead
+    never leaves the device waiting: the time of the kernels and their gaps
+    alone. ``cuda_ms`` instead times each call from an idle device, host
+    overhead included, which is most of a call that runs for tens of
+    microseconds."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA-event timing needs a CUDA device")
+    fn(*args_list[0])
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold_cycles)
+        start.record()
+        for args in args_list:
+            fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(args_list))
+    return statistics.median(times)
+
+
 def frame_ms(scene: Scene, cfg: RenderConfig, *, frames: int = 21,
              warmup: int = 3) -> float:
     """Median ms of a full-frame ``render_tile`` over ``frames`` frames."""
