@@ -2,7 +2,8 @@
 
     python3 chip_faults.py       # from the root of a checkout; needs one card
 
-Builds copies of csrc/pt_megakernel.cu and csrc/bvh_walk.cu with one fault
+Builds copies of csrc/pt_megakernel.cu, csrc/bvh_walk.cu and
+csrc/brute_intersect.cu (with the headers they include) with one fault
 planted in each (under build/faults/, one nvcc per copy, all started
 together), and runs the sound kernels and every faulty one through
 chip_smoke.py's cases against the plain versions on the same inputs:
@@ -12,7 +13,9 @@ chip_smoke.py's cases against the plain versions on the same inputs:
   * the BVH walk's (chip_smoke.bvh_cases), printing the share of rays whose
     closest-hit ids differ, the largest relative t difference and the share
     of occlusion results that differ, and whether chip_smoke.BVH_LIMITS
-    reject it.
+    reject it;
+  * the brute-force kernels' (chip_smoke.brute_cases) with the same
+    readings, judged by chip_smoke.BRUTE_LIMITS.
 Exits non-zero if a limit rejects a sound kernel or no case rejects a faulty
 one.
 """
@@ -65,20 +68,41 @@ BVH_FAULTS = (
 )
 
 
+# (name, text of csrc/brute_intersect.cu or of the tests it shares with the
+# walk, csrc/prim_tests.cuh, and its faulty replacement)
+BRUTE_FAULTS = (
+    ("tie rule keeps the higher id",
+     "(rank == brank && id < bid)", "(rank == brank && id > bid)"),
+    ("tile loop drops the last partial tile",
+     "return (n + tile - 1) / tile;", "return n / tile;"),
+    ("any hit ignores max_t",
+     "return t < max_t;", "return t < kBig;"),
+    ("sphere test always takes the larger root",
+     "float t = lo < 0.f ? hi : lo;", "float t = hi;"),
+)
+
+
 def build_fault(source, index, old, new):
-    """Compile csrc/<source>.cu with ``old`` replaced by ``new``."""
+    """Compile csrc/<source>.cu with ``old`` replaced by ``new``, in the
+    source or in a header it includes (csrc/*.cuh): copies of both in a
+    directory of the fault's own, so the copy's includes find the faulty
+    header first."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.kernels import build as kb
 
-    src = (kb.CSRC / f"{source}.cu").read_text()
-    if src.count(old) != 1:
+    files = [kb.CSRC / f"{source}.cu", *sorted(kb.CSRC.glob("*.cuh"))]
+    texts = {f.name: f.read_text() for f in files}
+    where = [name for name, text in texts.items() if old in text]
+    if len(where) != 1 or texts[where[0]].count(old) != 1:
         raise AssertionError(f"{source} fault {index}: {old!r} is not in the "
-                             "source exactly once")
-    out_dir = ROOT / "build" / "faults"
+                             "source and its headers exactly once")
+    texts[where[0]] = texts[where[0]].replace(old, new)
+    out_dir = ROOT / "build" / "faults" / f"{source}_fault{index}"
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = out_dir / f"{source}_fault{index}.cu"
-    cu.write_text(src.replace(old, new))
+    for name, text in texts.items():
+        (out_dir / name).write_text(text)
     lib = out_dir / f"lib{source}_fault{index}.so"
-    subprocess.run([kb.nvcc(), *kb.flags(source), "-o", str(lib), str(cu)],
+    subprocess.run([kb.nvcc(), *kb.flags(source), "-o", str(lib),
+                    str(out_dir / f"{source}.cu")],
                    check=True, capture_output=True, text=True)
     return lib
 
@@ -133,9 +157,33 @@ def bvh_verdicts(dev, kernels, sound, faulty):
         kernels._bvh_entry = lambda n, entries=entries: entries[n]
         rejected = 0
         for (label, tables, query, args), want in zip(cases, wants):
-            reading = chip_smoke.bvh_agreement(
+            reading = chip_smoke.hit_agreement(
                 query, chip_smoke.bvh_run(query, tables, args), want)
-            out = chip_smoke.bvh_rejects(reading)
+            out = chip_smoke.rejects(reading, chip_smoke.BVH_LIMITS)
+            rejected += bool(out)
+            print(f"{name} | {label} ({query}): " + ", ".join(
+                f"{k} {v:.3g}" for k, v in reading.items())
+                + f"; {'rejected by ' + ', '.join(out) if out else 'passed'}")
+        if (name == "sound") == (rejected > 0):
+            failed.append(name)
+    return failed
+
+
+def brute_verdicts(dev, kernels, sound, faulty):
+    """Names of the brute-force kernels the limits judge wrongly."""
+    cases = list(chip_smoke.brute_cases(dev))
+    wants = [chip_smoke.brute_plain(query, prims, args)
+             for _, prims, _, query, args in cases]
+    failed = []
+    for name, lib in [("sound", None)] + faulty:
+        entries = {n: sound[n] if lib is None else entry_of(lib, n, sound[n])
+                   for n in sound}
+        kernels._brute_entry = lambda n, entries=entries: entries[n]
+        rejected = 0
+        for (label, _, tables, query, args), want in zip(cases, wants):
+            reading = chip_smoke.hit_agreement(
+                query, chip_smoke.brute_run(query, tables, args), want)
+            out = chip_smoke.rejects(reading, chip_smoke.BRUTE_LIMITS)
             rejected += bool(out)
             print(f"{name} | {label} ({query}): " + ", ".join(
                 f"{k} {v:.3g}" for k, v in reading.items())
@@ -159,20 +207,27 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
     jobs = ([("pt_megakernel", i, f) for i, f in enumerate(PT_FAULTS)]
-            + [("bvh_walk", i, f) for i, f in enumerate(BVH_FAULTS)])
+            + [("bvh_walk", i, f) for i, f in enumerate(BVH_FAULTS)]
+            + [("brute_intersect", i, f) for i, f in enumerate(BRUTE_FAULTS)])
     bvh_names = ("bvh_closest_launch", "bvh_any_launch")
-    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 2) as pool:
+    brute_names = ("brute_closest_launch", "brute_any_launch")
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 3) as pool:
         pt_sound = pool.submit(kernels._pt_entry)
         bvh_sound = pool.submit(lambda: {n: kernels._bvh_entry(n)
                                          for n in bvh_names})
+        brute_sound = pool.submit(lambda: {n: kernels._brute_entry(n)
+                                           for n in brute_names})
         libs = list(pool.map(lambda j: build_fault(j[0], j[1], *j[2][1:]),
                              jobs))
     faulty = {src: [(f[0], lib) for (s, _, f), lib in zip(jobs, libs)
-                    if s == src] for src in ("pt_megakernel", "bvh_walk")}
+                    if s == src]
+              for src in ("pt_megakernel", "bvh_walk", "brute_intersect")}
     failed = (pt_verdicts(dev, kernels, pt_sound.result(),
                           faulty["pt_megakernel"])
               + bvh_verdicts(dev, kernels, bvh_sound.result(),
-                             faulty["bvh_walk"]))
+                             faulty["bvh_walk"])
+              + brute_verdicts(dev, kernels, brute_sound.result(),
+                               faulty["brute_intersect"]))
     print(f"chip_faults ({card}): " + (
         "the limits pass the sound kernels and reject every fault"
         if not failed else f"wrong verdict for: {', '.join(failed)}"))

@@ -4,9 +4,10 @@
 
 Phases, each raising on failure:
   1. device: require CUDA; print the card's name and power limit;
-  2. build: compile csrc/whitted_megakernel.cu, csrc/pt_megakernel.cu and
-     csrc/bvh_walk.cu with nvcc, one process each, started together; print
-     the build times and ptxas's register and spill report.
+  2. build: compile csrc/whitted_megakernel.cu, csrc/pt_megakernel.cu,
+     csrc/bvh_walk.cu and csrc/brute_intersect.cu with nvcc, one process
+     each, started together; print the build times and ptxas's register and
+     spill report.
   Whitted path (mount_low 512x512, depth 4):
   3. kernel against plain: the CUDA kernel against its plain PyTorch version
      on the same rays, at 64x64 depth 4 (mount_low under all 12 Fresnel x
@@ -48,6 +49,32 @@ Phases, each raising on failure:
      .queued_ms) and as CUDA-event time per call, its plain version, the
      bound from the kernel's own work counters, a whole frame and its
      breakdown under torch.profiler with the walk's share of device time.
+  Brute-force path (the same field under ACCEL_NONE, 512x512, depth 4,
+  sweep):
+  12. the kernels (closest, any) against their plain version on the same
+     rays under BRUTE_LIMITS (brute_cases), the plain version PLAIN_BATCH
+     rays a call: the main path's primary rays, level-1 rays and shadow
+     segments with their dead masks at max_t 1 and unbounded; the soup's
+     triangles alone, spheres alone and both tables with incoherent rays,
+     segments and axis-parallel rays; twinned primitives in shuffled rows,
+     where only the tie rule decides;
+  13. main path: render_image of the field with the launch counters reset
+     just before and read just after (4 closest, 8 any-hit, no walk); the
+     image against the BVH walk's of phase 10; the soup at 512x512 the same
+     way; the PNGs; the CLI render command with --accel 0;
+  14. timing: each kernel alone on the main path's primary and level-1
+     queries and per table mix (the field's spheres alone, the soup's
+     triangles alone), as device time with the launches queued, its plain
+     version on one batch, the bound from the kernel's own work counters
+     (its tests by where each ended, BRUTE_STAGE_OPS), whole frames and a
+     frame's breakdown under torch.profiler with the kernels' share of
+     device time. Each K4 entry of the kernels line gives the rays its "ms"
+     and its "plain_ms" were timed on ("rays", "plain_rays").
+On a card, brute-force queries of more than 48 primitives go through the
+brute-force kernels, so the plain sweep that phase 3 holds the Whitted
+kernel against runs them on its 66-primitive field, and phase 10's 128x128
+brute force is them too; both comparisons stay sound, since phase 12 holds
+the brute-force kernels against their own plain version.
 The line before the last is a JSON object of the kernels; the last line is
 the JSON device record.
 """
@@ -500,27 +527,32 @@ def camera_rays(scene, drift=0.0):
 def main_path_queries(scene, rays, active, ior, cfg):
     """One level of the main path below its closest hits: one
     models/whitted._level_step on ``rays``, with the shadow queries it hands
-    to the walk recorded as (origin, segment, max_t, dead), one per light.
-    Returns (queries, children) where children is the next level's (rays,
-    active, ior), reflection slots first."""
+    to the walk or to brute force recorded as (origin, segment, max_t,
+    dead), one per light. Returns (queries, children) where children is the
+    next level's (rays, active, ior), reflection slots first."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import packets
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Rays
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import whitted
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
 
     queries = []
-    walk = packets.packet_any_hit
+    walk, brute = packets.packet_any_hit, intersect.any_hit_brute
 
-    def record(pt, r, max_t, dead=None):
-        queries.append((r.origin.contiguous(), r.direction.contiguous(),
-                        float(max_t), dead))
-        return walk(pt, r, max_t, dead)
+    def record(fn):
+        def recorded(tables, r, max_t, dead=None, *rest):
+            queries.append((r.origin.contiguous(), r.direction.contiguous(),
+                            float(max_t), dead))
+            return fn(tables, r, max_t, dead, *rest)
+        return recorded
 
-    packets.packet_any_hit = record
+    packets.packet_any_hit = record(walk)
+    intersect.any_hit_brute = record(brute)
     try:
         _, (children, _) = whitted._level_step(scene, rays, active, ior, cfg,
                                                True)
     finally:
         packets.packet_any_hit = walk
+        intersect.any_hit_brute = brute
     kids = [children["refl"], children["refr"]]
     return queries, (
         Rays(*(torch.cat([getattr(k[0], f) for k in kids]).contiguous()
@@ -528,10 +560,10 @@ def main_path_queries(scene, rays, active, ior, cfg):
         torch.cat([k[1] for k in kids]), torch.cat([k[2] for k in kids]))
 
 
-def soup_scene(n_tri=2000, n_sph=2000, seed=0):
+def soup_scene(n_tri=2000, n_sph=2000, seed=0, res=64):
     """tests/test_packets.py::soup at 2,000 triangles and 2,000 spheres in a
     10-unit cube, with a plane at y = -8, a box at the cube's corner and
-    two lights; BVH."""
+    two lights, at res x res; BVH."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.io.p3f import SceneDef
 
@@ -539,7 +571,7 @@ def soup_scene(n_tri=2000, n_sph=2000, seed=0):
     sd = SceneDef()
     sd.accel_type = C.ACCEL_BVH
     sd.set_camera(eye=[0, 0, 12], at=[0, 0, 0], up=[0, 1, 0], fov=45,
-                  hither=0.01, res_x=64, res_y=64, aperture_ratio=0,
+                  hither=0.01, res_x=res, res_y=res, aperture_ratio=0,
                   focal_ratio=1)
     m = sd.add_material([0.7, 0.7, 0.7], 1.0, [1, 1, 1], 0.1, 20, 0, 1)
     for _ in range(n_sph):
@@ -655,7 +687,7 @@ def bvh_run(query, tables, args, kernel=True):
                         for i in range(dirs.shape[0])])
 
 
-def bvh_agreement(query, got, want):
+def hit_agreement(query, got, want):
     """Readings of a kernel's answer against the plain version's: closest
     hits {"ids": share of rays whose ids differ, "t_rel": largest t
     difference relative to max(t, 1) where they agree, "err": largest abs t
@@ -673,9 +705,10 @@ def bvh_agreement(query, got, want):
     return {"occ": float(diff.double().mean()), "err": float(diff.any())}
 
 
-def bvh_rejects(reading):
-    """The limits of BVH_LIMITS that ``reading`` breaks."""
-    return [k for k, limit in BVH_LIMITS.items() if reading.get(k, 0.0) > limit]
+def rejects(reading, limits):
+    """The limits of ``limits`` (BVH_LIMITS, BRUTE_LIMITS) that ``reading``
+    breaks."""
+    return [k for k, limit in limits.items() if reading.get(k, 0.0) > limit]
 
 
 def bvh_work(query, tables, args):
@@ -709,6 +742,233 @@ def bvh_work(query, tables, args):
           f"{sphs / R:.3f} sphere, {planes / R:.3f} plane and {boxes / R:.3f} "
           f"box tests per ray; {flops / 1e9:.4f} GFLOP, {n_bytes / 1e6:.4f} "
           f"MB; bound {ms:.5f} ms ({by})")
+    return flops, n_bytes, ms, by
+
+
+# ---------------------------------------------------------------------------
+# the brute-force kernels (csrc/brute_intersect.cu)
+
+# The brute-force kernels against their plain version on the same rays,
+# per case: the readings of hit_agreement, with BVH_LIMITS' values. The
+# kernels are built without multiply-add contraction, so the sound kernels
+# read 0 on all three (chip_faults.py plants faults that they reject).
+BRUTE_LIMITS = {"ids": 1e-4, "t_rel": 1e-5, "occ": 1e-4}
+# Rays per call of the plain version on the card: its [R, 2048]
+# temporaries take 268 MB each at this size; a whole 512x512 level at once
+# would need tens of GB.
+PLAIN_BATCH = 32768
+# Operations of one brute-force test by where it ended, in the kernels'
+# counter order (kernels.BRUTE_COUNTS): a triangle test at the det gate,
+# the u gate, the v gate, with its t; a sphere test at the discriminant,
+# with its roots. Counted from csrc/prim_tests.cuh, each add, subtract,
+# multiply, divide, square root, min, max and compare one operation
+# (negation, abs and selects none): 15, 27, 45 and 52 for a triangle, 20
+# and 30 for a sphere, plus the one compare that folds the test's t into
+# the ray's answer (t < kBig in a closest hit, t < max_t in an any hit).
+BRUTE_STAGE_OPS = (16, 28, 46, 53, 21, 31)
+
+
+def tie_scene(n=256, seed=3):
+    """``n`` random spheres and ``n`` random triangles, each added twice,
+    so that a ray that hits one hits its twin at the same t; and the unit
+    sphere at the origin under a triangle in z = 1 that a ray down the z
+    axis meets at the same t (4 from z = 5)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.io.p3f import SceneDef
+
+    rng = np.random.default_rng(seed)
+    sd = SceneDef()
+    sd.accel_type = C.ACCEL_NONE
+    sd.set_camera(eye=[0, 0, 12], at=[0, 0, 0], up=[0, 1, 0], fov=45,
+                  hither=0.01, res_x=16, res_y=16, aperture_ratio=0,
+                  focal_ratio=1)
+    m = sd.add_material([0.7, 0.7, 0.7], 1.0, [1, 1, 1], 0.1, 20, 0, 1)
+    for _ in range(n):
+        c, r = rng.uniform(-6, 6, 3), rng.uniform(0.1, 0.5)
+        sd.add_sphere(c, r, m)
+        sd.add_sphere(c, r, m)
+    for _ in range(n):
+        base = rng.uniform(-6, 6, 3)
+        tri = (base, base + rng.uniform(-0.8, 0.8, 3),
+               base + rng.uniform(-0.8, 0.8, 3))
+        sd.add_triangle(*tri, m)
+        sd.add_triangle(*tri, m)
+    sd.add_sphere([0, 0, 0], 1.0, m)
+    sd.add_triangle([-2, -2, 1], [2, -2, 1], [0, 2, 1], m)
+    sd.add_light([10, 10, 10], [1, 1, 1])
+    return sd
+
+
+def subset(prims, tri=True, sph=True):
+    """``prims`` with only its triangles, only its spheres, or both: the
+    plain version's view of a kernel table of those types."""
+    import dataclasses
+
+    return dataclasses.replace(prims, n_tri=prims.n_tri if tri else 0,
+                               n_sph=prims.n_sph if sph else 0, n_pl=0,
+                               n_box=0)
+
+
+def brute_cases(dev):
+    """The brute-force kernels' kernel-against-plain cases as (label,
+    prims, tables, query, args): the plain version reads ``prims``, the
+    kernel ``tables``; query "closest" takes (o, d), "any" (o, d, max_t,
+    dead). The main scene under ACCEL_NONE at 512x512: its primary rays,
+    its level-1 reflection and refraction rays, and its shadow segments at
+    the primary hits with their dead masks, at max_t 1 (the main path's)
+    and unbounded. The soup of 2,000 triangles and 2,000 spheres with
+    incoherent rays and segments (30% dead) through its triangles alone
+    (K4e, K4d), its spheres alone (K4a, K4c) and both (K4b), and
+    axis-parallel rays; tie_scene's rays aimed at twinned primitives and
+    down the z axis, with the kernel's rows in a random order."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        Rays,
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import scenes
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
+
+    field = build_scene(scenes.sphere_field_scene(
+        n_side=FIELD_SIDE, res=RES, accel=C.ACCEL_NONE), device=dev)
+    tables = intersect.brute_tables(field.prims)
+    tag = f"field{FIELD_SIDE} brute {RES}x{RES}"
+    o, d = camera_rays(field)
+    yield f"{tag} primary rays", field.prims, tables, "closest", (o, d)
+    R = o.shape[0]
+    queries, (kids, _, _) = main_path_queries(
+        field, Rays.make(o, d), torch.ones(R, dtype=torch.bool, device=dev),
+        torch.ones(R, device=dev), RenderConfig())
+    yield (f"{tag} level-1 reflection and refraction rays", field.prims,
+           tables, "closest", (kids.origin, kids.direction))
+    for max_t in (1.0, C.BIG):
+        for li, (so, sd, _, dead) in enumerate(queries):
+            yield (f"{tag} shadow segments, light {li}, max_t {max_t:g}",
+                   field.prims, tables, "any", (so, sd, max_t, dead))
+    del field, queries, kids
+
+    soup = build_scene(soup_scene(), device=dev, accel=C.ACCEL_NONE).prims
+    rng = np.random.default_rng(2)
+    n = 65536
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    o = rng.uniform(-8, 8, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = t(o), t(d)
+    segs = t(rng.uniform(-8, 8, (n, 3))) - o  # unnormalized, to points
+    dead = t(rng.uniform(size=n) < 0.3, torch.bool)
+    for label, tri, sph in (("triangles", True, False),
+                            ("spheres", False, True),
+                            ("triangles and spheres", True, True)):
+        part = subset(soup, tri, sph)
+        tb = intersect.brute_tables(part)
+        yield f"soup {label}, incoherent rays", part, tb, "closest", (o, d)
+        for max_t in (1.0, C.BIG):
+            yield (f"soup {label}, segments, max_t {max_t:g}", part, tb,
+                   "any", (o, segs, max_t, dead))
+    # rays along the axes, as the sweep's inactive slots move along z
+    m = 4096
+    ax = np.zeros((m, 3))
+    ax[np.arange(m), rng.integers(0, 3, m)] = rng.choice([-1.0, 1.0], m)
+    ax_o = t(rng.uniform(-6, 6, (m, 3)))
+    both = subset(soup)
+    tb = intersect.brute_tables(both)
+    yield ("soup triangles and spheres, axis-parallel rays", both, tb,
+           "closest", (ax_o, t(ax)))
+    yield ("soup triangles and spheres, axis-parallel segments, max_t 1",
+           both, tb, "any", (ax_o, t(ax * 3.0), 1.0, None))
+    del soup, both
+
+    ties = build_scene(tie_scene(), device=dev).prims
+    tb = intersect.brute_tables(ties)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    ps = torch.randperm(tb.n_sph, generator=g).to(dev)
+    pt = torch.randperm(tb.n_tri, generator=g).to(dev)
+    shuffled = intersect.BruteTables(
+        tb.sph[ps].contiguous(), tb.sph_ids[ps].contiguous(),
+        tb.tri[pt].contiguous(), tb.n_sph, tb.n_tri)
+    p = ties.params[:ties.n_sph + ties.n_tri]
+    kind = ties.ptype[:p.shape[0]]
+    sph_c = p[kind == C.SPHERE][:, 0:3]
+    tri = p[kind == C.TRIANGLE]
+    tri_c = tri[:, 0:3] + (tri[:, 3:6] + tri[:, 6:9]) / 3.0
+    k = torch.arange(4096, device=dev)
+    aims = torch.cat([sph_c[k % sph_c.shape[0]], tri_c[k % tri_c.shape[0]],
+                      torch.zeros(64, 3, device=dev)])
+    o = torch.cat([t(rng.uniform(-8, 8, (2 * 4096, 3))),
+                   t([[0.0, 0.0, 5.0]] * 64)])
+    seg = (aims - o) * 1.1  # just past the aimed primitive
+    d = torch.nn.functional.normalize(seg, dim=-1).contiguous()
+    yield ("twinned primitives, rows shuffled, aimed rays", ties, shuffled,
+           "closest", (o, d))
+    yield ("twinned primitives, rows shuffled, aimed segments, max_t 1",
+           ties, shuffled, "any", (o, seg.contiguous(), 1.0, None))
+
+
+def brute_run(query, tables, args, **kw):
+    """One case's answer from the kernel."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+
+    fn = kernels.brute_closest if query == "closest" else kernels.brute_any
+    return fn(tables, *args, **kw)
+
+
+def brute_plain(query, prims, args, batch=PLAIN_BATCH):
+    """One case's answer from the plain version, ``batch`` rays a call."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Rays
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
+
+    o, d = args[0], args[1]
+    parts = []
+    for s in range(0, o.shape[0], batch):
+        rays = Rays.make(o[s:s + batch], d[s:s + batch])
+        if query == "closest":
+            parts.append(intersect.closest_hit_plain(prims, rays))
+        else:
+            dead = args[3]
+            parts.append(intersect.any_hit_plain(
+                prims, rays, args[2],
+                None if dead is None else dead[s:s + batch]))
+    if query == "closest":
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+    return torch.cat(parts)
+
+
+def brute_work(query, tables, args):
+    """(GFLOP, MB, bound ms, bound by) of one launch on ``args``, from the
+    tests the kernel's own counters record by where each ended (every ray
+    tests every row in a closest hit; an any hit stops at its first
+    occluder, dead lanes test nothing), each charged BRUTE_STAGE_OPS,
+    against rays in, results out and the tables once."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+
+    o = args[0]
+    R = o.shape[0]
+    counts = torch.zeros((R, kernels.BRUTE_COUNTS), dtype=torch.int32,
+                         device=o.device)
+    brute_run(query, tables, args, counts=counts)
+    stages = counts.sum(dim=0, dtype=torch.int64).tolist()
+    flops = sum(n * ops for n, ops in zip(stages, BRUTE_STAGE_OPS))
+    tris, sphs = sum(stages[:4]), sum(stages[4:])
+    n_bytes = 20 * tables.n_sph + 48 * tables.n_tri
+    if query == "closest":
+        n_bytes += R * (24 + 8)            # o, d in; t, id out
+    else:
+        n_bytes += R * (24 + 1 + (args[3] is not None))  # o, d, dead; occ
+    ms, by = bound(flops, n_bytes)
+    print(f"  work: {tris / R:.3f} triangle tests per ray (ended at det "
+          f"{stages[0] / R:.3f}, u {stages[1] / R:.3f}, v {stages[2] / R:.3f}"
+          f", with t {stages[3] / R:.3f}), {sphs / R:.3f} sphere tests (at "
+          f"the discriminant {stages[4] / R:.3f}, with roots "
+          f"{stages[5] / R:.3f}); {flops / 1e9:.4f} GFLOP, "
+          f"{n_bytes / 1e6:.4f} MB; bound {ms:.5f} ms ({by})")
     return flops, n_bytes, ms, by
 
 
@@ -747,6 +1007,7 @@ def main() -> int:
         render_image,
         render_tile,
     )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.camera import (
         pinhole_rays,
     )
@@ -774,7 +1035,8 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
 
     # 2. build, one nvcc per source, all started together
-    names = ("whitted_megakernel", "pt_megakernel", "bvh_walk")
+    names = ("whitted_megakernel", "pt_megakernel", "bvh_walk",
+             "brute_intersect")
 
     def timed_build(name):
         t0 = time.perf_counter()
@@ -1019,10 +1281,10 @@ def main() -> int:
         got = bvh_run(query, tables, args)
         want = bvh_run(query, tables, args, kernel=False)
         torch.cuda.synchronize()
-        reading = bvh_agreement(query, got, want)
+        reading = hit_agreement(query, got, want)
         print(f"compare {label} ({query}): " + ", ".join(
             f"{k} {v:.3g}" for k, v in reading.items()))
-        if bvh_rejects(reading):
+        if rejects(reading, BVH_LIMITS):
             raise AssertionError(f"{label}: the BVH kernel and its plain "
                                  f"version disagree beyond {BVH_LIMITS}")
         if query == "multi":
@@ -1131,6 +1393,147 @@ def main() -> int:
     print(f"BVH phases {time.perf_counter() - t_bvh:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    # 12. brute force: the kernels against their plain version on the same
+    # rays
+    t_brute = time.perf_counter()
+    brute_err = {"closest": 0.0, "any": 0.0}
+    for label, prims, tables, query, args in brute_cases(dev):
+        got = brute_run(query, tables, args)
+        want = brute_plain(query, prims, args)
+        torch.cuda.synchronize()
+        reading = hit_agreement(query, got, want)
+        print(f"compare {label} ({query}, {args[0].shape[0]} rays): "
+              + ", ".join(f"{k} {v:.3g}" for k, v in reading.items()))
+        if rejects(reading, BRUTE_LIMITS):
+            raise AssertionError(f"{label}: the brute-force kernel and its "
+                                 f"plain version disagree beyond "
+                                 f"{BRUTE_LIMITS}")
+        brute_err[query] = max(brute_err[query], reading["err"])
+
+    # 13. brute-force main path through the entry points a user calls
+    field_nb = build_scene(scenes.sphere_field_scene(
+        n_side=FIELD_SIDE, res=RES, accel=C.ACCEL_NONE), device=dev)
+    brute_kernels = (kernels.brute_closest, kernels.brute_any)
+
+    def brute_frame(scene, label):
+        for k in brute_kernels + walk_kernels:
+            k.launches = 0
+        image = render_image(scene, cfg_bvh)
+        torch.cuda.synchronize()
+        counts = ([k.launches for k in brute_kernels],
+                  [k.launches for k in walk_kernels])
+        print(f"main path: render_image {label} ({scene.n_objects} objects) "
+              f"{RES}x{RES} depth {cfg_bvh.max_depth} accel none, launches "
+              f"brute closest/any {counts[0]}, walk closest/any/multi "
+              f"{counts[1]}")
+        if counts != ([4, 8], [0, 0, 0]):
+            raise AssertionError(f"{label}: want 4 closest and 8 any-hit "
+                                 "brute-force launches and no walk")
+        if image.shape != (RES, RES, 3) or not bool(
+                torch.isfinite(image).all()):
+            raise AssertionError(f"bad brute-force image: "
+                                 f"{tuple(image.shape)}")
+        if float(image.min()) < 0.0 or float(image.max()) > 1.0:
+            raise AssertionError("brute-force image outside [0, 1]")
+        return image, counts[0]
+
+    def against_walk(label, image, walk_image):
+        bad, err = bad_fraction(image, walk_image)
+        same = int((image == walk_image).all(dim=-1).sum())
+        print(f"{label} brute force against the BVH walk: {bad * 100:.3f}% "
+              f"pixels beyond {ATOL}, max abs err {err:.3g}, "
+              f"{same} of {RES * RES} pixels bit-identical")
+        if bad > MAX_BAD:
+            raise AssertionError(f"{label}: the brute-force image disagrees "
+                                 "with the BVH walk's")
+
+    brute_img, brute_launches = brute_frame(field_nb, f"field{FIELD_SIDE}")
+    against_walk(f"field{FIELD_SIDE} {RES}x{RES}", brute_img, img)  # phase 10
+    save_png(str(ROOT / "build" / "field_brute_smoke.png"), brute_img)
+    soup_sd = soup_scene(res=RES)
+    soup_img, _ = brute_frame(build_scene(soup_sd, device=dev,
+                                          accel=C.ACCEL_NONE), "soup")
+    against_walk(f"soup {RES}x{RES}", soup_img,
+                 render_image(build_scene(soup_sd, device=dev), cfg_bvh))
+    save_png(str(ROOT / "build" / "soup_brute_smoke.png"), soup_img)
+    del soup_img
+    out = subprocess.run(
+        [sys.executable, "-m", "u_4a_2s_p3d_raytracer_template2_tpu_torch.cli",
+         "render", "--builtin", "spheres", "--accel", "0", "--res", str(RES),
+         "-o", "build/spheres_brute.png"],
+        cwd=ROOT, check=True, capture_output=True, text=True).stdout
+    print("  cli: " + out.strip().replace("\n", "\n  cli: "))
+
+    # 14. brute-force timing: each kernel alone on the main path's queries
+    # of drifting frames and on the soup's, per table mix; its plain version
+    # on one batch; its bound from its own work counters; whole frames
+    main_tb = intersect.brute_tables(field_nb.prims)
+    sph_tb = intersect.brute_tables(subset(field_nb.prims, tri=False))
+    soup_nb = build_scene(soup_scene(res=RES), device=dev,
+                          accel=C.ACCEL_NONE)
+    tri_prims = subset(soup_nb.prims, sph=False)
+    tri_tb = intersect.brute_tables(tri_prims)
+
+    def queries_of(scene, drift):
+        o, d = camera_rays(scene, drift)
+        R = o.shape[0]
+        q0, (r1, a1, ior1) = main_path_queries(
+            scene, Rays.make(o, d), torch.ones(R, dtype=torch.bool,
+                                               device=dev),
+            torch.ones(R, device=dev), cfg_bvh)
+        q1, _ = main_path_queries(scene, r1, a1, ior1, cfg_bvh)
+        return (o, d), (r1.origin, r1.direction), q0, q1
+
+    field_q = [queries_of(field_nb, 0.37 * i) for i in range(7)]
+    soup_q = [queries_of(soup_nb, 0.37 * i)[::2] for i in range(7)]
+    brute_times = {}
+    for label, query, prims, tb, inputs, pick in (
+            ("closest, primary, main table (K4b)", "closest",
+             field_nb.prims, main_tb, field_q, lambda x: x[0]),
+            ("closest, level 1, main table", "closest", field_nb.prims,
+             main_tb, field_q, lambda x: x[1]),
+            ("any, primary hits, light 0, main table", "any",
+             field_nb.prims, main_tb, field_q, lambda x: x[2][0]),
+            ("any, level-1 hits, light 0, main table", "any",
+             field_nb.prims, main_tb, field_q, lambda x: x[3][0]),
+            ("closest, primary, field spheres (K4a)", "closest",
+             subset(field_nb.prims, tri=False), sph_tb, field_q,
+             lambda x: x[0]),
+            ("any, primary hits, light 0, field spheres (K4c)", "any",
+             subset(field_nb.prims, tri=False), sph_tb, field_q,
+             lambda x: x[2][0]),
+            ("closest, primary, soup triangles (K4e)", "closest", tri_prims,
+             tri_tb, soup_q, lambda x: x[0]),
+            ("any, primary hits, light 0, soup triangles (K4d)", "any",
+             tri_prims, tri_tb, soup_q, lambda x: x[1][0])):
+        args = [(tb, *pick(x)) for x in inputs]
+        k_ms = queued_ms(lambda *a: brute_run(query, a[0], a[1:]), args)
+        batch = [(query, prims, tuple(a[:PLAIN_BATCH]
+                                      if torch.is_tensor(a) else a
+                                      for a in x[1:])) for x in args[:3]]
+        p_ms = cuda_ms(brute_plain, batch, warmup=1)
+        print(f"brute {label}: kernel {k_ms:.4f} ms on the device "
+              f"({args[0][1].shape[0]} rays, {tb.n_tri} triangles, "
+              f"{tb.n_sph} spheres), plain {p_ms:.4f} ms on "
+              f"{batch[0][2][0].shape[0]} of them ({card})")
+        brute_times[label] = (k_ms, p_ms, args[0][1].shape[0],
+                              batch[0][2][0].shape[0],
+                              brute_work(query, tb, args[0][1:]))
+    del field_q, soup_q
+    brute_ms = frame_ms(field_nb, cfg_bvh)
+    print(f"frame brute sweep: {brute_ms:.4f} ms, "
+          f"{mrays_per_s(field_nb, brute_ms):.2f} Mrays/s (primary+shadow), "
+          f"field{FIELD_SIDE} {RES}x{RES} depth {cfg_bvh.max_depth}, {card}")
+    soup_ms = frame_ms(soup_nb, cfg_bvh)
+    print(f"frame brute sweep: {soup_ms:.4f} ms, soup {RES}x{RES} depth "
+          f"{cfg_bvh.max_depth}, {card}")
+    profile_frames(f"brute frame, sweep engine, field{FIELD_SIDE} "
+                   f"{RES}x{RES}", render_tile,
+                   lambda i: (field_nb, px + 0.37 * i, py, cfg_bvh), card,
+                   frames=5, share_of=("closest_kernel", "any_kernel"))
+    print(f"brute-force phases {time.perf_counter() - t_brute:.1f} s; all "
+          f"{time.perf_counter() - t_start:.1f} s")
+
     def bvh_entry(name, query, label, replaces, launches, **extra):
         k_ms, p_ms, (_, _, b_ms, b_by) = bvh_times[label]
         return {"name": name, "route": "cuda", "source": src + "bvh_walk.cu",
@@ -1139,8 +1542,20 @@ def main() -> int:
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None}
 
+    def brute_entry(name, query, label, replaces):
+        k_ms, p_ms, rays, plain_rays, (_, _, b_ms, b_by) = brute_times[label]
+        return {"name": name, "route": "cuda",
+                "source": src + "brute_intersect.cu",
+                "replaces": pi_src + replaces,
+                "entry": f"brute_{query}_launch", "timed_on": label,
+                "launches": brute_launches[query == "any"],
+                "max_abs_err": brute_err[query], "ms": k_ms,
+                "rays": rays, "plain_ms": p_ms, "plain_rays": plain_rays,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
     src = "u_4a_2s_p3d_raytracer_template2_tpu_torch/csrc/"
     pk_src = "u_4a_2s_p3d_raytracer_template2_tpu/accel/packets.py"
+    pi_src = "u_4a_2s_p3d_raytracer_template2_tpu/ops/pallas_intersect.py"
     print(json.dumps({"kernels": [{
         "name": "whitted_megakernel",
         "route": "cuda",
@@ -1176,6 +1591,18 @@ def main() -> int:
                   ":813", bvh_launches[1]),
         bvh_entry("bvh_walk any multi", "multi",
                   "multi, primary hits, both lights", ":729", multi_launches),
+        brute_entry("brute_intersect closest, spheres (K4a)", "closest",
+                    "closest, primary, field spheres (K4a)", ":186"),
+        brute_entry("brute_intersect closest, triangles and spheres (K4b)",
+                    "closest", "closest, primary, main table (K4b)", ":377"),
+        brute_entry("brute_intersect any, spheres (K4c)", "any",
+                    "any, primary hits, light 0, field spheres (K4c)",
+                    ":525"),
+        brute_entry("brute_intersect any, triangles (K4d)", "any",
+                    "any, primary hits, light 0, soup triangles (K4d)",
+                    ":553"),
+        brute_entry("brute_intersect closest, triangles (K4e)", "closest",
+                    "closest, primary, soup triangles (K4e)", ":590"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

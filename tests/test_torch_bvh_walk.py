@@ -233,16 +233,16 @@ def test_chip_smoke_records_the_main_paths_queries():
     assert 0 < int(active.sum()) < 2 * R
 
     want = packets.closest_hit_plain(scene.packets, o, d)
-    assert not chip_smoke.bvh_rejects(
-        chip_smoke.bvh_agreement("closest", want, want))
+    assert not chip_smoke.rejects(
+        chip_smoke.hit_agreement("closest", want, want), chip_smoke.BVH_LIMITS)
     t, obj = want[0].clone(), want[1].clone()
     obj[0] = 7 if obj[0] != 7 else 8
-    reading = chip_smoke.bvh_agreement("closest", (t, obj), want)
-    assert chip_smoke.bvh_rejects(reading) == ["ids"]
+    reading = chip_smoke.hit_agreement("closest", (t, obj), want)
+    assert chip_smoke.rejects(reading, chip_smoke.BVH_LIMITS) == ["ids"]
     hit = int(torch.nonzero(want[1] >= 0)[0])
     t[hit] *= 1.0 + 1e-4
-    reading = chip_smoke.bvh_agreement("closest", (t, want[1]), want)
-    assert chip_smoke.bvh_rejects(reading) == ["t_rel"]
+    reading = chip_smoke.hit_agreement("closest", (t, want[1]), want)
+    assert chip_smoke.rejects(reading, chip_smoke.BVH_LIMITS) == ["t_rel"]
     occ = packets.any_hit_plain(scene.packets, *queries[0])
-    assert chip_smoke.bvh_rejects(
-        chip_smoke.bvh_agreement("any", ~occ, occ)) == ["occ"]
+    assert chip_smoke.rejects(chip_smoke.hit_agreement("any", ~occ, occ),
+                              chip_smoke.BVH_LIMITS) == ["occ"]

@@ -11,7 +11,10 @@ import torch
 
 from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import build_scene
-from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import RenderConfig
+from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+    Rays,
+    RenderConfig,
+)
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import pathtracer as pt
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
     pt_megakernel as ptk,
@@ -148,8 +151,9 @@ def test_bvh_kernels_match_plain_on_a_mixed_soup():
     for query, args in cases:
         got = chip_smoke.bvh_run(query, tables, args)
         want = chip_smoke.bvh_run(query, tables, args, kernel=False)
-        reading = chip_smoke.bvh_agreement(query, got, want)
-        assert not chip_smoke.bvh_rejects(reading), (query, reading)
+        reading = chip_smoke.hit_agreement(query, got, want)
+        assert not chip_smoke.rejects(reading, chip_smoke.BVH_LIMITS), (
+            query, reading)
         if query == "multi":
             assert torch.equal(got, torch.stack([
                 kernels.bvh_any(tables, o, segs[i], args[2], dead[i])
@@ -188,3 +192,79 @@ def test_bvh_kernels_reject_grad_and_cpu_tensors():
     with pytest.raises(ValueError):
         kernels.bvh_any_multi(tables, o.detach(), d[None], 1.0,
                               torch.zeros(1, 4, dtype=torch.bool))
+
+
+@pytest.mark.cuda
+def test_brute_kernels_match_plain_on_a_mixed_soup():
+    """Closest and any hit (max_t 1 and unbounded, with and without dead
+    lanes) over the soup's triangles alone, spheres alone and both tables
+    against the plain version, under chip_smoke.BRUTE_LIMITS; a render of
+    the whole soup (planes and the box folded after the kernels) against
+    the BVH walk's; the counters' instantiation answers the same and
+    records every test of a closest hit at one of its stages."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
+
+    dev = _cuda()
+    soup = _soup(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    o = torch.rand(8192, 3, device=dev, generator=g) * 16 - 8
+    d = torch.nn.functional.normalize(
+        torch.randn(8192, 3, device=dev, generator=g), dim=-1)
+    segs = torch.rand(8192, 3, device=dev, generator=g) * 16 - 8 - o
+    dead = torch.rand(8192, device=dev, generator=g) < 0.3
+    before = [k.launches for k in (kernels.brute_closest, kernels.brute_any)]
+    for tri, sph in ((True, False), (False, True), (True, True)):
+        prims = chip_smoke.subset(soup.prims, tri, sph)
+        tables = intersect.brute_tables(prims)
+        cases = [("closest", (o, d))] + [
+            ("any", (o, segs, max_t, dd)) for max_t in (1.0, C.BIG)
+            for dd in (dead, None)]
+        for query, args in cases:
+            got = chip_smoke.brute_run(query, tables, args)
+            want = chip_smoke.brute_plain(query, prims, args)
+            reading = chip_smoke.hit_agreement(query, got, want)
+            assert not chip_smoke.rejects(reading, chip_smoke.BRUTE_LIMITS), (
+                tri, sph, query, reading)
+    after = [k.launches for k in (kernels.brute_closest, kernels.brute_any)]
+    assert [a - b for a, b in zip(after, before)] == [3, 12]
+    sd = chip_smoke.soup_scene(n_tri=400, n_sph=400, res=32)
+    brute = build_scene(sd, device=dev, accel=C.ACCEL_NONE)
+    got = render_image(brute, RenderConfig())
+    assert kernels.brute_closest.launches == after[0] + 4
+    want = render_image(build_scene(sd, device=dev), RenderConfig())
+    assert got.shape == (32, 32, 3) and bool(torch.isfinite(got).all())
+    assert _bad_fraction(got, want) <= MAX_BAD
+    tables = brute.brute
+    counts = torch.zeros((8192, kernels.BRUTE_COUNTS), dtype=torch.int32,
+                         device=dev)
+    counted = kernels.brute_closest(tables, o, d, counts=counts)
+    plain = kernels.brute_closest(tables, o, d)
+    assert all(torch.equal(a, b) for a, b in zip(counted, plain))
+    assert bool((counts[:, :4].sum(dim=1) == tables.n_tri).all())
+    assert bool((counts[:, 4:].sum(dim=1) == tables.n_sph).all())
+
+
+@pytest.mark.cuda
+def test_brute_kernels_reject_grad_and_cpu_tensors():
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
+
+    dev = _cuda()
+    tables = intersect.brute_tables(_soup(dev, n=8).prims)
+    o = torch.zeros(4, 3, device=dev, requires_grad=True)
+    d = torch.ones(4, 3, device=dev)
+    with pytest.raises(NotImplementedError):
+        kernels.brute_closest(tables, o, d)
+    with pytest.raises(NotImplementedError):
+        kernels.brute_any(tables, o, d, 1.0)
+    with pytest.raises(ValueError):
+        kernels.brute_closest(tables, o.detach().cpu(), d.cpu())
+    with pytest.raises(ValueError):
+        kernels.brute_any(tables, o.detach(), d.cpu(), 1.0)
+    with pytest.raises(ValueError):
+        kernels.brute_any(tables, o.detach(), d, 1.0,
+                          torch.zeros(4, dtype=torch.bool))
+    # the dispatch launches only on the scene's packed tables
+    soup = _soup(dev)
+    with pytest.raises(ValueError, match="Scene.brute"):
+        intersect.closest_hit_brute(soup.prims, Rays.make(o.detach(), d))

@@ -30,6 +30,8 @@ def test_port_imports_no_jax():
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.accel.sah\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.accel.bvh\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.scenes\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.intersect\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.kernels.build\n"
         "import chip_smoke, chip_faults\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'u_4a_2s_p3d_raytracer_template2_tpu'\n"

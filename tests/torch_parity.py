@@ -84,6 +84,25 @@ def mixed_scene(sd, res=24):
     return sd
 
 
+def soup(sd, n_sph, n_tri, seed=2):
+    """tests/test_accel.random_sphere_soup's shapes on either package's
+    SceneDef: ``n_sph`` spheres and ``n_tri`` triangles in an 8-unit
+    cube."""
+    rng = np.random.default_rng(seed)
+    sd.set_camera(eye=[0, 0, 12], at=[0, 0, 0], up=[0, 1, 0], fov=45,
+                  hither=0.01, res_x=16, res_y=16, aperture_ratio=0,
+                  focal_ratio=1)
+    m = sd.add_material([0.7, 0.7, 0.7], 1.0, [1, 1, 1], 0.3, 20, 0, 1)
+    for _ in range(n_sph):
+        sd.add_sphere(rng.uniform(-4, 4, 3), rng.uniform(0.2, 0.8), m)
+    for _ in range(n_tri):
+        base = rng.uniform(-4, 4, 3)
+        sd.add_triangle(base, base + rng.uniform(-1, 1, 3),
+                        base + rng.uniform(-1, 1, 3), m)
+    sd.add_light([10, 10, 10], [1, 1, 1])
+    return sd
+
+
 def jax_render_image(jscene, cfg):
     """The JAX package's image of a deterministic config: its render_tile
     over the whole frame, run op by op (un-jitted) so that configs of one

@@ -5,7 +5,8 @@ The counterpart of ``u_4a_2s_p3d_raytracer_template2_tpu/core/build.py``
 NumPy operations, so they equal the JAX build exactly. A BVH or grid scene
 also gets the port's BVH tables (``accel/packets.build_packets``), built once
 on the host and uploaded; a grid scene routes to the same walk, as the JAX
-package does on the TPU.
+package does on the TPU. Every scene gets the brute-force kernels' tables
+(``ops/intersect.brute_tables``), packed once on its device.
 """
 from __future__ import annotations
 
@@ -119,13 +120,16 @@ def build_scene(sd, *, device, accel: Optional[int] = None) -> Scene:
 
         packets = build_packets(params[:n_obj], ptype[:n_obj], device=device)
 
+    from ..ops.intersect import brute_tables
+
+    prims = Primitives(
+        params=t(params), ptype=t(ptype), mat_id=t(mat_id),
+        tri_p=tri_p, tri_ids=tri_ids, sph_p=sph_p, sph_ids=sph_ids,
+        pl_p=pl_p, pl_ids=pl_ids, box_p=box_p, box_ids=box_ids,
+        n_tri=n_tri, n_sph=n_sph, n_pl=n_pl, n_box=n_box,
+    )
     return Scene(
-        prims=Primitives(
-            params=t(params), ptype=t(ptype), mat_id=t(mat_id),
-            tri_p=tri_p, tri_ids=tri_ids, sph_p=sph_p, sph_ids=sph_ids,
-            pl_p=pl_p, pl_ids=pl_ids, box_p=box_p, box_ids=box_ids,
-            n_tri=n_tri, n_sph=n_sph, n_pl=n_pl, n_box=n_box,
-        ),
+        prims=prims,
         materials=materials,
         lights=lights,
         camera=build_camera(sd.camera, device=device),
@@ -137,4 +141,5 @@ def build_scene(sd, *, device, accel: Optional[int] = None) -> Scene:
         has_reflective=bool((mats[:, 7] > 0).any()),
         has_transmissive=bool((mats[:, 9] != 0).any()),
         packets=packets,
+        brute=brute_tables(prims),
     )

@@ -11,7 +11,7 @@ jax: the caller does the ``np.asarray``.
 ``has_reflective``, ``has_transmissive``, ``has_skybox``). Keys the port has
 no field for (the accelerator tables, ``tri_mo``, ``sph_k``) are ignored: a
 BVH or grid scene gets the port's own BVH tables, rebuilt from its
-primitives.
+primitives, and every scene the brute-force kernels' tables.
 
 ``pt_scene_from_arrays`` does the same for the path tracer's ``PTScene``:
 its leaves keyed by field name (``"sp_center0"``, ``"tri_mat"``,
@@ -27,6 +27,7 @@ import torch
 from . import constants as C
 from ..accel.packets import build_packets
 from ..models.pathtracer import PTMaterials, PTScene
+from ..ops.intersect import brute_tables
 from .types import Camera, Lights, Materials, Primitives, Scene
 
 
@@ -59,8 +60,9 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
         packets = build_packets(np.asarray(arrays["prims.params"])[:n_obj],
                                 np.asarray(arrays["prims.ptype"])[:n_obj],
                                 device=device)
+    prims = group("prims", Primitives, ("n_tri", "n_sph", "n_pl", "n_box"))
     return Scene(
-        prims=group("prims", Primitives, ("n_tri", "n_sph", "n_pl", "n_box")),
+        prims=prims,
         materials=group("materials", Materials),
         lights=group("lights", Lights),
         camera=group("camera", Camera, ("res_x", "res_y")),
@@ -72,6 +74,7 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
         has_reflective=bool(meta["has_reflective"]),
         has_transmissive=bool(meta["has_transmissive"]),
         packets=packets,
+        brute=brute_tables(prims),
     )
 
 

@@ -110,6 +110,9 @@ class Scene:
     # the BVH walk's tables (accel.packets.PacketTables) of a BVH or grid
     # scene with at least one bounded primitive; None otherwise
     packets: Optional[Any] = None
+    # the brute-force kernels' tables (ops.intersect.BruteTables) of the
+    # triangles and spheres, packed once per scene
+    brute: Optional[Any] = None
     # data an engine derives from the scene once and reuses on every frame
     # (the megakernel's packed tables); not part of the scene's value, and
     # dataclasses.replace starts a new one

@@ -30,7 +30,8 @@
 //     read-only cache; no shared memory;
 //   * the primitive tests are the brute-force formulas of ops/intersect.py
 //     (direct (o-c) sphere form, Moller-Trumbore with |det| > eps and
-//     t > eps, slab boxes, planes), and ties resolve as brute force does:
+//     t > eps, shared with brute_intersect.cu in prim_tests.cuh; slab
+//     boxes, planes), and ties resolve as brute force does:
 //     the smallest t, then type order triangle, sphere, plane, box, then the
 //     lowest object id; planes, which have no box, are tested first, beside
 //     the tree;
@@ -42,16 +43,16 @@
 // plane and box tests) each thread records its walk's work, summed over its
 // segment sets; the main path passes null and runs the instantiation
 // without counters.
-// All math is f32 with IEEE division and square root; nvcc contracts
-// multiply-adds (its default), as for the other kernels (kernels/build.py).
+// All math is f32 with IEEE division and square root, built without
+// multiply-add contraction (kernels/build.NO_CONTRACTION).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "prim_tests.cuh"
+
 namespace {
 
-constexpr float kEps = 1e-3f;   // core/constants.EPSILON
-constexpr float kBig = 1e30f;   // core/constants.BIG
 constexpr int kStack = 64;      // accel/packets.STACK_DEPTH
 constexpr int kThreads = 128;
 
@@ -62,6 +63,7 @@ constexpr int kSph = 2;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+  float a;  // d.d
 };
 
 struct Work {
@@ -78,46 +80,8 @@ __device__ __forceinline__ Ray make_ray(const float* o, const float* d) {
   r.ox = o[0]; r.oy = o[1]; r.oz = o[2];
   r.dx = d[0]; r.dy = d[1]; r.dz = d[2];
   r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
+  r.a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
   return r;
-}
-
-// ops/intersect._sphere_t_one: p = (center, radius)
-__device__ __forceinline__ float sphere_t(float4 p, const Ray& r) {
-  float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
-  float lx = r.ox - p.x, ly = r.oy - p.y, lz = r.oz - p.z;
-  float b = 2.f * (r.dx * lx + r.dy * ly + r.dz * lz);
-  float cc = lx * lx + ly * ly + lz * lz - p.w * p.w;
-  float delta = b * b - 4.f * a * cc;
-  float sq = delta > 0.f ? sqrtf(delta) : 0.f;
-  float t0 = (-b - sq) / (2.f * a);
-  float t1 = (-b + sq) / (2.f * a);
-  float lo = fminf(t0, t1), hi = fmaxf(t0, t1);
-  float t = lo < 0.f ? hi : lo;
-  return (delta >= 0.f && t >= 0.f) ? t : kBig;
-}
-
-// ops/intersect._triangle_t_one: rows (v0, e1, e2, normal)
-__device__ __forceinline__ float triangle_t(float4 p0, float4 p1, float4 p2,
-                                            const Ray& r) {
-  float v0x = p0.x, v0y = p0.y, v0z = p0.z;
-  float e1x = p0.w, e1y = p1.x, e1z = p1.y;
-  float e2x = p1.z, e2y = p1.w, e2z = p2.x;
-  float hx = r.dy * e2z - r.dz * e2y;
-  float hy = r.dz * e2x - r.dx * e2z;
-  float hz = r.dx * e2y - r.dy * e2x;
-  float det = e1x * hx + e1y * hy + e1z * hz;
-  if (!(fabsf(det) > kEps)) return kBig;
-  float f = 1.f / det;
-  float sx = r.ox - v0x, sy = r.oy - v0y, sz = r.oz - v0z;
-  float u = f * (sx * hx + sy * hy + sz * hz);
-  if (!(u >= 0.f && u <= 1.f)) return kBig;
-  float qx = sy * e1z - sz * e1y;
-  float qy = sz * e1x - sx * e1z;
-  float qz = sx * e1y - sy * e1x;
-  float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-  if (!(v >= 0.f && u + v <= 1.f)) return kBig;
-  float t = f * (e2x * qx + e2y * qy + e2z * qz);
-  return t > kEps ? t : kBig;
 }
 
 // ops/intersect._plane_t_one: p = (normal, d)

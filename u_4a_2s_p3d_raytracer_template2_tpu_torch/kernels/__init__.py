@@ -5,7 +5,7 @@ stream through the ctypes entry point, raises if the launch returned a CUDA
 error, and counts its launches in a plain integer attribute (``.launches``),
 so a run can show that it went through the kernel. Nothing here runs on the
 CPU: the dispatch between a kernel and its plain version lives beside the
-plain version (models/).
+plain version (models/, accel/packets.py, ops/intersect.py).
 """
 from __future__ import annotations
 
@@ -269,3 +269,106 @@ def bvh_any_multi(tables, o, dirs, max_t: float, dead=None, counts=None):
 
 
 bvh_any_multi.launches = 0
+
+
+# per-ray work counters of the brute-force kernels, tests by where they
+# ended (csrc/prim_tests.cuh): triangle tests at the det, u and v gates and
+# with their t, then sphere tests at the discriminant and with their roots
+BRUTE_COUNTS = 6
+
+
+@functools.cache
+def _brute_entry(name: str):
+    fn = getattr(load("brute_intersect"), name)
+    fn.restype = ctypes.c_int
+    tables = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.c_int]
+    if name == "brute_closest_launch":
+        fn.argtypes = ([ctypes.c_void_p]                         # stream
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]  # o, d, R
+                       + tables            # sph, sph_id, n_sph, tri, n_tri
+                       + [ctypes.c_void_p] * 3)          # t, id, counts
+    else:
+        fn.argtypes = ([ctypes.c_void_p]                         # stream
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]  # o, d, R
+                       + [ctypes.c_float, ctypes.c_void_p]       # max_t, dead
+                       + tables
+                       + [ctypes.c_void_p] * 2)          # out, counts
+    return fn
+
+
+def _brute_args(tables, o, d, counts):
+    """Check the brute-force tables, rays and counter buffer; returns the
+    device, the ray count and the table arguments of the C entry points."""
+    if o.device.type != "cuda":
+        raise ValueError(f"the brute-force kernels run on CUDA tensors, not "
+                         f"{o.device}")
+    dev = o.device
+    R = o.shape[0]
+    if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
+        raise ValueError(f"rays: want o, d of shape [R,3], got "
+                         f"{tuple(o.shape)} and {tuple(d.shape)}")
+    _check("o", o, dev)
+    _check("d", d, dev)
+    _check("sph", tables.sph, dev, 4 * tables.n_sph)
+    _check("sph_ids", tables.sph_ids, dev, tables.n_sph, torch.int32)
+    _check("tri", tables.tri, dev, 12 * tables.n_tri)
+    # the kernels read the rows as float4
+    for name, t in (("sph", tables.sph), ("tri", tables.tri)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: want 16-byte aligned rows")
+    if counts is not None:
+        _check("counts", counts, dev, BRUTE_COUNTS * R, torch.int32)
+    return dev, R, [tables.sph.data_ptr(), tables.sph_ids.data_ptr(),
+                    tables.n_sph, tables.tri.data_ptr(), tables.n_tri]
+
+
+def brute_closest(tables, o, d, counts=None):
+    """(t [R], obj_id [R] int32, -1 on a miss) of rays (o, d) [R,3] against
+    every triangle and sphere of ``tables`` (``ops.intersect.BruteTables``)
+    on the card (csrc/brute_intersect.cu). ``counts``, an optional int32
+    [R, BRUTE_COUNTS], receives each ray's triangle and sphere tests by
+    where they ended (the main path passes None)."""
+    dev, R, tbl = _brute_args(tables, o, d, counts)
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    obj = torch.empty(R, dtype=torch.int32, device=dev)
+    if R == 0:
+        return t, obj
+    with torch.cuda.device(dev):
+        rc = _brute_entry("brute_closest_launch")(
+            torch.cuda.current_stream(dev).cuda_stream, o.data_ptr(),
+            d.data_ptr(), R, *tbl, t.data_ptr(), obj.data_ptr(),
+            None if counts is None else counts.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"brute_closest launch failed: CUDA error {rc}")
+    brute_closest.launches += 1
+    return t, obj
+
+
+brute_closest.launches = 0
+
+
+def brute_any(tables, o, d, max_t: float, dead=None, counts=None):
+    """Occlusion [R] bool of segments o + t·d, t < ``max_t``, against every
+    triangle and sphere of ``tables`` on the card; ``dead`` [R] bool lanes
+    report occluded without a test. ``counts`` as for ``brute_closest``,
+    counting the tests each ray ran before its first occluder."""
+    dev, R, tbl = _brute_args(tables, o, d, counts)
+    if dead is not None:
+        _check("dead", dead, dev, R, torch.bool)
+    out = torch.empty(R, dtype=torch.bool, device=dev)
+    if R == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _brute_entry("brute_any_launch")(
+            torch.cuda.current_stream(dev).cuda_stream, o.data_ptr(),
+            d.data_ptr(), R, max_t,
+            None if dead is None else dead.data_ptr(), *tbl, out.data_ptr(),
+            None if counts is None else counts.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"brute_any launch failed: CUDA error {rc}")
+    brute_any.launches += 1
+    return out
+
+
+brute_any.launches = 0

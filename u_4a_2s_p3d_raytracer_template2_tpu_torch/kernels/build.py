@@ -3,8 +3,8 @@ ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface, so it compiles with nvcc
 alone, in seconds, into ``build/kernels/lib<name>_<hash>.so`` at the root of
-the checkout. The hash covers the source and the flags, so a stale library
-is never loaded. nvcc's resource report (``-Xptxas -v``: registers, spills,
+the checkout. The hash covers the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so a stale library is never loaded. nvcc's resource report (``-Xptxas -v``: registers, spills,
 shared memory) is kept beside the library as ``.log``.
 """
 from __future__ import annotations
@@ -33,8 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # than the plain version's on 43 of 262,144 silhouette rays (0.016%) of the
 # 7,396-sphere field at 512x512 (H100 80GB HBM3, 700 W); uncontracted, its
 # f32 operations are the plain version's, one for one. Its slab tests have
-# no multiply-add to contract.
-NO_CONTRACTION = ("bvh_walk",)
+# no multiply-add to contract. The brute-force kernels answer the same
+# question with the same sphere and triangle tests, and are built the same
+# way for the same reason.
+NO_CONTRACTION = ("bvh_walk", "brute_intersect")
 
 
 def flags(name: str) -> tuple[str, ...]:
@@ -51,7 +53,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + "\0".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -15,6 +15,9 @@ direction (0,0,1) and contribute zero.
 tensors (models/whitted_megakernel.py). In a BVH or grid scene the sweep's
 closest-hit and shadow queries walk the scene's BVH tables
 (accel/packets.py: the CUDA walk on CUDA tensors, its plain version on CPU
+tensors); in a brute-force scene (or under ``accel_impl="brute"``) they
+test every primitive (ops/intersect.py: above 48 primitives the CUDA
+brute-force kernels on CUDA tensors, their plain version on CPU
 tensors). Distribution mode (AA, DoF, motion blur, jittered soft shadows,
 fuzzy reflection), the skybox, the wavefront engine, and the reference BVH
 walk and grid DDA (``accel_impl="perray"``) are not ported yet and raise.
@@ -83,7 +86,7 @@ def trace_closest(scene: Scene, rays: Rays, cfg: RenderConfig | None = None):
         from ..accel.packets import packet_closest_hit
 
         return packet_closest_hit(scene.packets, rays)
-    return intersect.closest_hit_brute(scene.prims, rays)
+    return intersect.closest_hit_brute(scene.prims, rays, scene.brute)
 
 
 def _grid_initfail(scene: Scene, cfg: RenderConfig | None) -> bool:
@@ -94,8 +97,8 @@ def _grid_initfail(scene: Scene, cfg: RenderConfig | None) -> bool:
 def trace_shadow(scene: Scene, rays: Rays, max_t,
                  cfg: RenderConfig | None = None, dead=None):
     """Any-hit occlusion via the scene's accelerator. ``dead`` [R] bool
-    marks lanes the caller masks downstream: the walk reports them occluded
-    without walking; brute force ignores it."""
+    marks lanes the caller masks downstream: the walk and brute force report
+    them occluded without a test."""
     if _grid_initfail(scene, cfg):
         raise NotImplementedError(
             "reference_grid_shadow_initfail needs the grid DDA: " + _PERRAY)
@@ -103,7 +106,8 @@ def trace_shadow(scene: Scene, rays: Rays, max_t,
         from ..accel.packets import packet_any_hit
 
         return packet_any_hit(scene.packets, rays, max_t, dead)
-    return intersect.any_hit_brute(scene.prims, rays, max_t)
+    return intersect.any_hit_brute(scene.prims, rays, max_t, dead,
+                                   scene.brute)
 
 
 def _shadow_multi_rows(scene: Scene, cfg: RenderConfig, hit_point, precise,

@@ -40,6 +40,7 @@ from ..core.types import (
     Scene,
     clamp01,
 )
+from ..ops import intersect
 
 MAX_PRIMS = 256      # the JAX megakernels' unroll ceiling, kept as the envelope
 MAX_DEPTH = 8        # deepest tree the kernel is instantiated for
@@ -183,7 +184,8 @@ def reconstruct_scene(shape: StaticShape, tbl, lt, bg) -> Scene:
     return Scene(prims=prims, materials=mats, lights=lights, camera=cam,
                  bg_color=bg, accel_type=C.ACCEL_NONE, spp=0, n_objects=N,
                  n_lights=shape.n_lights, has_reflective=shape.has_refl,
-                 has_transmissive=shape.has_refr)
+                 has_transmissive=shape.has_refr,
+                 brute=intersect.brute_tables(prims))
 
 
 def trace_rays_plain(shape: StaticShape, tbl, lt, bg, o, d,
