@@ -2,10 +2,10 @@
 
     python3 chip_faults.py       # from the root of a checkout; needs one card
 
-Builds copies of csrc/pt_megakernel.cu, csrc/bvh_walk.cu and
-csrc/brute_intersect.cu (with the headers they include) with one fault
-planted in each (under build/faults/, one nvcc per copy, all started
-together), and runs the sound kernels and every faulty one through
+Builds copies of csrc/pt_megakernel.cu, csrc/bvh_walk.cu,
+csrc/brute_intersect.cu and csrc/probes.cu (with the headers they include)
+with one fault planted in each (under build/faults/, one nvcc per copy, all
+started together), and runs the sound kernels and every faulty one through
 chip_smoke.py's cases against the plain versions on the same inputs:
   * the path tracer's (chip_smoke.pt_cases), printing the share of pixels
     beyond 2e-3 and the mean and max abs difference of each, and whether
@@ -15,7 +15,11 @@ chip_smoke.py's cases against the plain versions on the same inputs:
     of occlusion results that differ, and whether chip_smoke.BVH_LIMITS
     reject it;
   * the brute-force kernels' (chip_smoke.brute_cases) with the same
-    readings, judged by chip_smoke.BRUTE_LIMITS.
+    readings, judged by chip_smoke.BRUTE_LIMITS;
+  * the device probes' checks of chip_smoke.py's phase 15: T3's walks of
+    tools/probe_features.walk_cases against the oracle, exactly, in both
+    stack placements, and T1's cheap class against its plain version
+    (tools/roofline_mount.RTOL) and under 1.05 x its class ceiling.
 Exits non-zero if a limit rejects a sound kernel or no case rejects a faulty
 one.
 """
@@ -79,6 +83,16 @@ BRUTE_FAULTS = (
      "return t < max_t;", "return t < kBig;"),
     ("sphere test always takes the larger root",
      "float t = lo < 0.f ? hi : lo;", "float t = hi;"),
+)
+
+
+# (name, text of csrc/probes.cu, its faulty replacement)
+PROBE_FAULTS = (
+    ("T3 stack keeps one entry",
+     "return sp;  // one slot per entry", "return 0;  // one slot per entry"),
+    ("T1 cheap chain idempotent",
+     "if (OP == kCheap) return fabsf(acc - x);",
+     "if (OP == kCheap) return fmaxf(acc, x);"),
 )
 
 
@@ -193,6 +207,40 @@ def brute_verdicts(dev, kernels, sound, faulty):
     return failed
 
 
+def probe_verdicts(dev, kernels, sound, faulty):
+    """Names of the probe kernels that phase 15's checks judge wrongly:
+    each must pass the sound library and reject its fault (T3 on the deep
+    tree, T1's cheap class by its plain version or its ceiling)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        probe_features as pf,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        roofline_mount as rm,
+    )
+
+    failed = []
+    for name, lib in [("sound", None)] + faulty:
+        entries = {n: sound[n] if lib is None else entry_of(lib, n, sound[n])
+                   for n in sound}
+        kernels._probe_entry = lambda n, entries=entries: entries[n]
+        verdicts = []
+        try:
+            pf.check_walks(dev, pf.FIELD_DEPTH)
+            verdicts.append("walk passed")
+        except AssertionError as e:
+            verdicts.append(f"walk rejected ({e})")
+        try:
+            rm.part_rates(dev, ops=("cheap",))
+            verdicts.append("rates passed")
+        except AssertionError as e:
+            verdicts.append(f"rates rejected ({e})")
+        rejected = sum("rejected" in v for v in verdicts)
+        print(f"{name} | probes: {'; '.join(verdicts)}")
+        if (name == "sound") == (rejected > 0):
+            failed.append(name)
+    return failed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_faults: torch.cuda.is_available() is false",
@@ -208,26 +256,33 @@ def main() -> int:
     print(f"card: {card}")
     jobs = ([("pt_megakernel", i, f) for i, f in enumerate(PT_FAULTS)]
             + [("bvh_walk", i, f) for i, f in enumerate(BVH_FAULTS)]
-            + [("brute_intersect", i, f) for i, f in enumerate(BRUTE_FAULTS)])
+            + [("brute_intersect", i, f) for i, f in enumerate(BRUTE_FAULTS)]
+            + [("probes", i, f) for i, f in enumerate(PROBE_FAULTS)])
     bvh_names = ("bvh_closest_launch", "bvh_any_launch")
     brute_names = ("brute_closest_launch", "brute_any_launch")
-    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 3) as pool:
+    probe_names = ("op_rate_launch", "fma_peak_launch", "stack_walk_launch")
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 4) as pool:
         pt_sound = pool.submit(kernels._pt_entry)
         bvh_sound = pool.submit(lambda: {n: kernels._bvh_entry(n)
                                          for n in bvh_names})
         brute_sound = pool.submit(lambda: {n: kernels._brute_entry(n)
                                            for n in brute_names})
+        probe_sound = pool.submit(lambda: {n: kernels._probe_entry(n)
+                                           for n in probe_names})
         libs = list(pool.map(lambda j: build_fault(j[0], j[1], *j[2][1:]),
                              jobs))
     faulty = {src: [(f[0], lib) for (s, _, f), lib in zip(jobs, libs)
                     if s == src]
-              for src in ("pt_megakernel", "bvh_walk", "brute_intersect")}
+              for src in ("pt_megakernel", "bvh_walk", "brute_intersect",
+                          "probes")}
     failed = (pt_verdicts(dev, kernels, pt_sound.result(),
                           faulty["pt_megakernel"])
               + bvh_verdicts(dev, kernels, bvh_sound.result(),
                              faulty["bvh_walk"])
               + brute_verdicts(dev, kernels, brute_sound.result(),
-                               faulty["brute_intersect"]))
+                               faulty["brute_intersect"])
+              + probe_verdicts(dev, kernels, probe_sound.result(),
+                               faulty["probes"]))
     print(f"chip_faults ({card}): " + (
         "the limits pass the sound kernels and reject every fault"
         if not failed else f"wrong verdict for: {', '.join(failed)}"))

@@ -5,9 +5,9 @@
 Phases, each raising on failure:
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile csrc/whitted_megakernel.cu, csrc/pt_megakernel.cu,
-     csrc/bvh_walk.cu and csrc/brute_intersect.cu with nvcc, one process
-     each, started together; print the build times and ptxas's register and
-     spill report.
+     csrc/bvh_walk.cu, csrc/brute_intersect.cu and csrc/probes.cu with nvcc,
+     one process each, started together; print the build times and ptxas's
+     register and spill report.
   Whitted path (mount_low 512x512, depth 4):
   3. kernel against plain: the CUDA kernel against its plain PyTorch version
      on the same rays, at 64x64 depth 4 (mount_low under all 12 Fresnel x
@@ -70,6 +70,17 @@ Phases, each raising on failure:
      frame's breakdown under torch.profiler with the kernels' share of
      device time. Each K4 entry of the kernels line gives the rays its "ms"
      and its "plain_ms" were timed on ("rays", "plain_rays").
+  Device probes (csrc/probes.cu; the port's tools/ package):
+  15. T2's f32 FMA stream against its plain version, its TFLOP/s beside the
+     datasheet's 67 and the SM clock under load; T1's five instruction
+     classes against their plain versions, in chain steps/s; each rate at
+     most 1.05 x its class ceiling (tools/device_validate.class_ceiling);
+     mount_low's per-ray op mix on the sweep and its mix-weighted floor
+     beside K1's time and bound; T3's walk with its stack in shared memory
+     and in a per-thread array, on the probe's 3-node tree and a seeded tree
+     of the field's depth, equal to the oracle and the plain version
+     exactly, and both placements timed. These are probes, not the main
+     path: their counters read 0 across phase 4.
 On a card, brute-force queries of more than 48 primitives go through the
 brute-force kernels, so the plain sweep that phase 3 holds the Whitted
 kernel against runs them on its 66-primitive field, and phase 10's 128x128
@@ -1011,6 +1022,15 @@ def main() -> int:
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.camera import (
         pinhole_rays,
     )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        device_validate as dv,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        probe_features as pf,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        roofline_mount as rm,
+    )
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import checkpoint
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.timing import (
         cuda_ms,
@@ -1036,7 +1056,7 @@ def main() -> int:
 
     # 2. build, one nvcc per source, all started together
     names = ("whitted_megakernel", "pt_megakernel", "bvh_walk",
-             "brute_intersect")
+             "brute_intersect", "probes")
 
     def timed_build(name):
         t0 = time.perf_counter()
@@ -1119,10 +1139,13 @@ def main() -> int:
         raise AssertionError(f"kernel and plain version disagree at {RES}^2")
 
     # 4. main path through the entry points a user calls
-    kernels.whitted_megakernel.launches = 0
+    probe_kernels = (kernels.op_rate, kernels.fma_peak, kernels.stack_walk)
+    for k in (kernels.whitted_megakernel,) + probe_kernels:
+        k.launches = 0
     img = render_image(scene, cfg_mk)
     torch.cuda.synchronize()
     launches = kernels.whitted_megakernel.launches
+    probe_launches = [k.launches for k in probe_kernels]
     print(f"main path: render_image mount_low {RES}x{RES} depth "
           f"{cfg_mk.max_depth} engine=megakernel, kernel launches {launches}")
     if launches < 1:
@@ -1534,6 +1557,28 @@ def main() -> int:
     print(f"brute-force phases {time.perf_counter() - t_brute:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    # 15. device probes: T2's FMA stream, T1's class rates, mount_low's op
+    # mix and floor beside K1, T3's walk in both stack placements
+    t_probe = time.perf_counter()
+    peak = dv.vpu_peak(dev)
+    rates = rm.part_rates(dev)
+    mix = rm.part_mix(dev, RES)
+    floor_ms = rm.mix_floor(mix, {op: r["rate"] for op, r in rates.items()},
+                            RES * RES) * 1e3
+    print(f"mount_low {RES}x{RES} depth 4: mix-weighted floor {floor_ms:.4f} "
+          f"ms/frame (every sweep slot's tests in full) beside K1's kernel "
+          f"{kernel_ms:.4f} ms and its bound {w_bound_ms:.5f} ms "
+          f"({w_bound_by}); {card}")
+    pf.check_walks(dev, field.packets.depth)
+    walk = pf.time_walks(dev, field.packets.depth)
+    walk_bound_ms, walk_bound_by = bound(0, walk["bytes"])
+    print(f"T3 walk, {walk['nodes']} nodes, {pf.TIMED_ROWS} rays: stack in "
+          f"shared memory {walk['shared']:.4f} ms, in a per-thread array "
+          f"{walk['local']:.4f} ms, plain {walk['plain_ms']:.4f} ms, bound "
+          f"{walk_bound_ms:.5f} ms (bytes); {card}")
+    print(f"probe phase {time.perf_counter() - t_probe:.1f} s; all "
+          f"{time.perf_counter() - t_start:.1f} s")
+
     def bvh_entry(name, query, label, replaces, launches, **extra):
         k_ms, p_ms, (_, _, b_ms, b_by) = bvh_times[label]
         return {"name": name, "route": "cuda", "source": src + "bvh_walk.cu",
@@ -1603,6 +1648,36 @@ def main() -> int:
                     ":553"),
         brute_entry("brute_intersect closest, triangles (K4e)", "closest",
                     "closest, primary, soup triangles (K4e)", ":590"),
+    {
+        "name": "probes op_rate (T1)", "route": "cuda",
+        "source": src + "probes.cu",
+        "replaces": "tools/roofline_mount.py:165",
+        "launches": probe_launches[0],
+        "max_abs_err": rates["fma"]["abs_err"], "timed_on": "fma",
+        "ms": rates["fma"]["ms"], "plain_ms": rates["fma"]["plain_ms"],
+        "bound_ms": rates["fma"]["bound_ms"], "bound_by": "operations",
+        "library_ms": None,
+        "by_class": {op: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "rate", "err", "abs_err")}
+                     for op, r in rates.items()},
+    }, {
+        "name": "probes fma_peak (T2)", "route": "cuda",
+        "source": src + "probes.cu",
+        "replaces": "tools/device_validate.py:143",
+        "launches": probe_launches[1], "max_abs_err": peak["abs_err"],
+        "max_rel_err": peak["err"], "tflops": peak["tflops"],
+        "ms": peak["ms"], "plain_ms": peak["plain_ms"],
+        "bound_ms": peak["flop"] / PEAK_F32_FLOPS * 1e3,
+        "bound_by": "operations", "library_ms": None,
+    }, {
+        "name": "probes stack_walk (T3)", "route": "cuda",
+        "source": src + "probes.cu",
+        "replaces": "tools/probe_pallas_features.py:87",
+        "launches": probe_launches[2], "max_abs_err": walk["abs_err"],
+        "ms": walk["shared"], "local_stack_ms": walk["local"],
+        "plain_ms": walk["plain_ms"], "bound_ms": walk_bound_ms,
+        "bound_by": walk_bound_by, "library_ms": None,
+    },
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -268,3 +268,67 @@ def test_brute_kernels_reject_grad_and_cpu_tensors():
     soup = _soup(dev)
     with pytest.raises(ValueError, match="Scene.brute"):
         intersect.closest_hit_brute(soup.prims, Rays.make(o.detach(), d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", kernels.PROBE_OPS)
+def test_op_rate_kernel_matches_plain(op):
+    """T1 at 2^16 elements under tools/roofline_mount.RTOL."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        roofline_mount as rm,
+    )
+
+    x = rm.op_rate_input(1 << 16, _cuda())
+    assert rm.rel_err(kernels.op_rate(x, op), rm.op_rate_plain(x, op)) \
+        <= rm.RTOL[op]
+
+
+@pytest.mark.cuda
+def test_fma_peak_kernel_matches_plain():
+    """T2 at the JAX tool's [64 x 256, 128] under
+    tools/device_validate.RTOL."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        device_validate as dv,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        roofline_mount as rm,
+    )
+
+    x = dv.fma_peak_input(64, _cuda())
+    assert rm.rel_err(kernels.fma_peak(x), dv.fma_peak_plain(x)) <= dv.RTOL
+
+
+@pytest.mark.cuda
+def test_stack_walk_kernel_equals_plain_and_oracle():
+    """T3, both stack placements, the probe's tree and a deep tree:
+    exactly."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        probe_features as pf,
+    )
+
+    dev = _cuda()
+    before = kernels.stack_walk.launches
+    pf.check_walks(dev)
+    assert kernels.stack_walk.launches == before + 4
+
+
+@pytest.mark.cuda
+def test_probe_kernels_reject_grad_and_cpu_tensors():
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        probe_features as pf,
+    )
+
+    dev = _cuda()
+    x = torch.ones(256, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        kernels.op_rate(x, "fma")
+    with pytest.raises(NotImplementedError):
+        kernels.fma_peak(x)
+    with pytest.raises(ValueError):
+        kernels.op_rate(x.detach(), "fma", k=500)   # not a multiple of 16
+    nbox, nmeta, table, rays = (torch.from_numpy(a).to(dev)
+                                for a in pf.probe_tree())
+    with pytest.raises(ValueError):
+        kernels.stack_walk(nbox, nmeta.cpu(), table, rays)
+    with pytest.raises(NotImplementedError):
+        kernels.stack_walk(nbox, nmeta, table, rays.requires_grad_())

@@ -32,6 +32,10 @@ def test_port_imports_no_jax():
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.scenes\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.intersect\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.kernels.build\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.tools\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.probe_features\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.device_validate\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.roofline_mount\n"
         "import chip_smoke, chip_faults\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'u_4a_2s_p3d_raytracer_template2_tpu'\n"
@@ -44,13 +48,13 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "ok"
 
 
-def test_chip_smoke_refuses_without_cuda():
+def test_chip_smoke_refuses_without_cuda(capsys):
     if torch.cuda.is_available():
         return  # the script's refusal is only observable without a card
-    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0
-    assert '"ok"' not in out.stdout
+    import chip_smoke  # its __main__ is sys.exit(main())
+
+    assert chip_smoke.main() != 0
+    assert '"ok"' not in capsys.readouterr().out
 
 
 def _read_png(path):

@@ -36,6 +36,7 @@ from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
 )
 from conftest import assert_images_close
 from torch_parity import (  # one_torch_thread: an autouse fixture
+    jax_reference,
     jax_scene_to_port,
     mixed_scene,
     one_torch_thread,
@@ -53,9 +54,9 @@ def test_plain_matches_jax_streamed_kernel_interpret(name):
     px, py = (a.numpy() for a in pixel_grid(res, res, CPU))
     jrays = jax_pinhole_rays(jscene.camera, px + 0.5, py + 0.5)
     cfg = dict(max_depth=2)
-    want = np.asarray(trace_rays_streamed(
-        jscene, jrays, rt.RenderConfig(**cfg), jax.random.PRNGKey(0),
-        impl="interpret"))
+    want = jax_reference(lambda s, r: trace_rays_streamed(
+        s, r, rt.RenderConfig(**cfg), jax.random.PRNGKey(0),
+        impl="interpret"), jscene, jrays)
     rays = Rays.make(torch.from_numpy(np.array(jrays.origin)),
                      torch.from_numpy(np.array(jrays.direction)))
     got = mk.trace_rays_megakernel(jax_scene_to_port(jscene), rays,

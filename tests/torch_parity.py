@@ -117,6 +117,22 @@ def jax_render_image(jscene, cfg):
     return np.asarray(img).reshape(cam.res_y, cam.res_x, 3)
 
 
+# XLA options for compiling a large one-off JAX reference (a Pallas kernel
+# in interpret mode): the CPU backend at optimisation level 0 compiles
+# mount_low's streamed kernel in about 18 s where the default takes about
+# 23 s (paired runs on an 8-core x86 host). The program computes the
+# same f32 operations; the port's tests hold it to their usual tolerances.
+REFERENCE_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def jax_reference(fn, *args):
+    """``fn(*args)`` as one jitted JAX program compiled with
+    REFERENCE_COMPILE, as a NumPy array."""
+    compiled = jax.jit(fn).lower(*args).compile(
+        compiler_options=REFERENCE_COMPILE)
+    return np.asarray(compiled(*args))
+
+
 def random_rays(n, seed, lo, hi):
     """(origins, unit directions) as float32 NumPy arrays from a seed."""
     rng = np.random.default_rng(seed)

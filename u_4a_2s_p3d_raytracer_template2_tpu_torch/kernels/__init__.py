@@ -5,7 +5,8 @@ stream through the ctypes entry point, raises if the launch returned a CUDA
 error, and counts its launches in a plain integer attribute (``.launches``),
 so a run can show that it went through the kernel. Nothing here runs on the
 CPU: the dispatch between a kernel and its plain version lives beside the
-plain version (models/, accel/packets.py, ops/intersect.py).
+plain version (models/, accel/packets.py, ops/intersect.py); the device
+probes' plain versions are in tools/, and the probes have no dispatch.
 """
 from __future__ import annotations
 
@@ -372,3 +373,117 @@ def brute_any(tables, o, d, max_t: float, dead=None, counts=None):
 
 
 brute_any.launches = 0
+
+
+# T1's instruction classes, in csrc/probes.cu's order
+PROBE_OPS = ("fma", "cheap", "div", "rsqrt", "select")
+# T3's stack placements: shared memory [level][thread], or a per-thread
+# array as csrc/bvh_walk.cu keeps its stack
+STACKS = ("shared", "local")
+
+
+@functools.cache
+def _probe_entry(name: str):
+    fn = getattr(load("probes"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = {
+        "op_rate_launch": [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                                   ctypes.c_int,
+                                                   ctypes.c_int],
+        "fma_peak_launch": [ctypes.c_void_p] * 3 + [ctypes.c_longlong],
+        "stack_walk_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                              + [ctypes.c_void_p, ctypes.c_int]
+                              + [ctypes.c_void_p, ctypes.c_int]
+                              + [ctypes.c_void_p, ctypes.c_int]),
+    }[name]
+    return fn
+
+
+def _probe_device(name, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors, not {t.device}")
+    return t.device
+
+
+def op_rate(x, op: str, k: int = 512) -> torch.Tensor:
+    """T1 on the card (csrc/probes.cu): for each element of ``x`` (f32, any
+    shape) a chain of ``k`` dependent steps of the class ``op`` (one of
+    PROBE_OPS, tools/roofline_mount.py's step bodies), from acc = x with the
+    factor a = x·1e-9 + 0.9999; returns acc. ``k`` a positive multiple of
+    16."""
+    dev = _probe_device("op_rate", x)
+    _check("x", x, dev)
+    if op not in PROBE_OPS:
+        raise ValueError(f"op: want one of {PROBE_OPS}, got {op!r}")
+    if k <= 0 or k % 16:
+        raise ValueError(f"k: want a positive multiple of 16, got {k}")
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        rc = _probe_entry("op_rate_launch")(
+            torch.cuda.current_stream(dev).cuda_stream, x.data_ptr(),
+            out.data_ptr(), x.numel(), PROBE_OPS.index(op), k)
+    if rc != 0:
+        raise RuntimeError(f"op_rate launch failed: CUDA error {rc}")
+    op_rate.launches += 1
+    return out
+
+
+op_rate.launches = 0
+
+
+def fma_peak(x) -> torch.Tensor:
+    """T2 on the card (csrc/probes.cu): for each element a of ``x`` (f32,
+    any shape) four interleaved chains of 128 FMAs each
+    (tools/device_validate.py:120-135); returns b + c + d + e."""
+    dev = _probe_device("fma_peak", x)
+    _check("x", x, dev)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        rc = _probe_entry("fma_peak_launch")(
+            torch.cuda.current_stream(dev).cuda_stream, x.data_ptr(),
+            out.data_ptr(), x.numel())
+    if rc != 0:
+        raise RuntimeError(f"fma_peak launch failed: CUDA error {rc}")
+    fma_peak.launches += 1
+    return out
+
+
+fma_peak.launches = 0
+
+
+def stack_walk(nbox, nmeta, table, rays, stack: str = "shared"):
+    """T3 on the card (csrc/probes.cu): [P, 128] f32, the min from 1e30 over
+    the leaves of the tree ``nmeta`` ([2N] int32, node i an inner node with
+    children a, a+1 or a leaf of chunk a: (a, is_leaf) at 2i, 2i+1) of
+    (table[a, 0, l] + rays[p, 0]) + nbox[6·node]; nbox [6N] f32, table
+    [C, 8, 128] f32, rays [P, 8] f32. ``stack`` places the walk's stack
+    (STACKS). A malformed tree, or one deeper than the 64-entry stack, gives
+    NaN."""
+    dev = _probe_device("stack_walk", rays)
+    if nmeta.dim() != 1 or nmeta.numel() % 2 or nmeta.numel() == 0:
+        raise ValueError(f"nmeta: want [2N] int32, got {tuple(nmeta.shape)}")
+    n_nodes = nmeta.numel() // 2
+    _check("nmeta", nmeta, dev, 2 * n_nodes, torch.int32)
+    _check("nbox", nbox, dev, 6 * n_nodes)
+    _check("table", table, dev)
+    _check("rays", rays, dev)
+    if table.dim() != 3 or table.shape[1:] != (8, 128):
+        raise ValueError(f"table: want [C, 8, 128], got {tuple(table.shape)}")
+    if rays.dim() != 2 or rays.shape[1] != 8:
+        raise ValueError(f"rays: want [P, 8], got {tuple(rays.shape)}")
+    if stack not in STACKS:
+        raise ValueError(f"stack: want one of {STACKS}, got {stack!r}")
+    P = rays.shape[0]
+    out = torch.empty((P, 128), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _probe_entry("stack_walk_launch")(
+            torch.cuda.current_stream(dev).cuda_stream, nbox.data_ptr(),
+            nmeta.data_ptr(), n_nodes, table.data_ptr(), table.shape[0],
+            rays.data_ptr(), P, out.data_ptr(), int(stack == "shared"))
+    if rc != 0:
+        raise RuntimeError(f"stack_walk launch failed: CUDA error {rc}")
+    stack_walk.launches += 1
+    return out
+
+
+stack_walk.launches = 0
