@@ -2,11 +2,24 @@
 
     python3 chip_faults.py       # from the root of a checkout; needs one card
 
-Builds copies of csrc/pt_megakernel.cu, csrc/bvh_walk.cu,
-csrc/brute_intersect.cu and csrc/probes.cu (with the headers they include)
-with one fault planted in each (under build/faults/, one nvcc per copy, all
-started together), and runs the sound kernels and every faulty one through
-chip_smoke.py's cases against the plain versions on the same inputs:
+Builds copies of csrc/whitted_megakernel.cu, csrc/pt_megakernel.cu,
+csrc/bvh_walk.cu, csrc/brute_intersect.cu and csrc/probes.cu (with the
+headers they include) with one fault planted in each (under build/faults/,
+one nvcc per copy, all started together), and two controls of the Whitted
+kernel (WHITTED_CONTROLS), and runs the sound kernels and every faulty one
+through chip_smoke.py's cases against the plain versions on the same
+inputs:
+  * the Whitted kernel's (chip_smoke.whitted_cases), printing the share of
+    pixels beyond 2e-3 and the mean and max abs difference of each, and
+    whether the case's limits (chip_smoke.WHITTED_LIMITS) reject it;
+  * the Whitted kernel's 512x512 distribution frame (chip_smoke.py's phase
+    17 comparison), with the same readings for the sound kernel, each
+    fault and each control, judged by WHITTED_LIMITS["frame"]: the sound
+    kernel must pass it and the build with contraction must be rejected;
+    then the sound kernel's readings with fuzzy reflection off, with the
+    sky off, with both off, and at depths 1 and 2, which locate what it
+    reads with all on, and the kernel's time a subpixel launch built with
+    and without contraction, in turns;
   * the path tracer's (chip_smoke.pt_cases), printing the share of pixels
     beyond 2e-3 and the mean and max abs difference of each, and whether
     the case's limits (chip_smoke.PT_LIMITS) reject it;
@@ -25,6 +38,8 @@ one.
 """
 import concurrent.futures
 import ctypes
+import dataclasses
+import tempfile
 import subprocess
 import sys
 from pathlib import Path
@@ -34,6 +49,46 @@ import torch
 import chip_smoke
 
 ROOT = Path(__file__).resolve().parent
+
+# (name, text of csrc/whitted_megakernel.cu, its faulty replacement)
+WHITTED_FAULTS = (
+    ("refl/refr path index swapped",
+     """        const int refl_path = branch == 2 ? 2 * path : path;
+        const int refr_path = branch == 2 ? 2 * path + 1 : path;""",
+     """        const int refl_path = branch == 2 ? 2 * path + 1 : path;
+        const int refr_path = branch == 2 ? 2 * path : path;"""),
+    ("shadow jitter without the subpixel offset",
+     "const float jx = 0.5f * ((jit.si + ux) / (float)jit.spp);",
+     "const float jx = 0.5f * (ux / (float)jit.spp);"),
+    ("fuzzy hemisphere test dropped",
+     "if (dot(fz, nf) > 0.f) rd = fz;", "rd = fz;"),
+    ("LEFT/RIGHT faces swapped",
+     "int side = use_x ? (d.x >= 0.f ? 1 : 0)",
+     "int side = use_x ? (d.x >= 0.f ? 0 : 1)"),
+    ("u8 divided by 255",
+     "constexpr float kU8Scale = 255.99f;", "constexpr float kU8Scale = 255.f;"),
+    ("jittered y offset read from the x row",
+     "const float uy = __ldg(jit.u + (size_t)(2 * li + 1) * jit.n_rays);",
+     "const float uy = __ldg(jit.u + (size_t)(2 * li) * jit.n_rays);"),
+)
+
+
+# Builds of csrc/whitted_megakernel.cu read on the distribution frame beside
+# the faults: (name, (text, its replacement) pairs, nvcc flags left out, and
+# the frame limit's verdict required: True to reject, None for the reading
+# alone). Contracted, the kernel's sky directions round otherwise than the
+# plain version's, and the frame limit must see it; kernels/build.py builds
+# the kernel without contraction for that reason. The second takes the
+# plain version's cube root, pow(u, 1/3), in place of cbrtf: it reads as
+# the sound kernel does, so the frame's differences do not come from the
+# fuzzy transform's libm calls (PERF.md).
+WHITTED_CONTROLS = (
+    ("built with contraction", (), ("--fmad=false",), True),
+    ("unit-sphere radius as powf(u, 1/3)",
+     (("const float r = cbrtf(u3);", "const float r = powf(u3, 1.f / 3.f);"),),
+     (), None),
+)
+
 
 # (name, text of csrc/pt_megakernel.cu, its faulty replacement)
 PT_FAULTS = (
@@ -96,26 +151,28 @@ PROBE_FAULTS = (
 )
 
 
-def build_fault(source, index, old, new):
-    """Compile csrc/<source>.cu with ``old`` replaced by ``new``, in the
-    source or in a header it includes (csrc/*.cuh): copies of both in a
-    directory of the fault's own, so the copy's includes find the faulty
-    header first."""
+def build_fault(source, tag, edits, drop_flags=()):
+    """Compile csrc/<source>.cu with each ``(old, new)`` of ``edits``
+    replaced, in the source or in a header it includes (csrc/*.cuh), and
+    without the nvcc flags ``drop_flags``: copies of both in a directory of
+    the build's own, so the copy's includes find the faulty header first."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.kernels import build as kb
 
     files = [kb.CSRC / f"{source}.cu", *sorted(kb.CSRC.glob("*.cuh"))]
     texts = {f.name: f.read_text() for f in files}
-    where = [name for name, text in texts.items() if old in text]
-    if len(where) != 1 or texts[where[0]].count(old) != 1:
-        raise AssertionError(f"{source} fault {index}: {old!r} is not in the "
-                             "source and its headers exactly once")
-    texts[where[0]] = texts[where[0]].replace(old, new)
-    out_dir = ROOT / "build" / "faults" / f"{source}_fault{index}"
+    for old, new in edits:
+        where = [name for name, text in texts.items() if old in text]
+        if len(where) != 1 or texts[where[0]].count(old) != 1:
+            raise AssertionError(f"{source} {tag}: {old!r} is not in the "
+                                 "source and its headers exactly once")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    out_dir = ROOT / "build" / "faults" / f"{source}_{tag}"
     out_dir.mkdir(parents=True, exist_ok=True)
     for name, text in texts.items():
         (out_dir / name).write_text(text)
-    lib = out_dir / f"lib{source}_fault{index}.so"
-    subprocess.run([kb.nvcc(), *kb.flags(source), "-o", str(lib),
+    lib = out_dir / f"lib{source}_{tag}.so"
+    flags = [f for f in kb.flags(source) if f not in drop_flags]
+    subprocess.run([kb.nvcc(), *flags, "-o", str(lib),
                     str(out_dir / f"{source}.cu")],
                    check=True, capture_output=True, text=True)
     return lib
@@ -126,6 +183,121 @@ def entry_of(lib, name, like):
     fn = getattr(ctypes.CDLL(str(lib)), name)
     fn.restype, fn.argtypes = like.restype, like.argtypes
     return fn
+
+
+def whitted_verdicts(dev, kernels, sound, faulty):
+    """Names of the Whitted kernels the limits judge wrongly."""
+    cases = list(chip_smoke.whitted_cases(dev))
+    wants = [chip_smoke.whitted_run(scene, cfg, draws, kernel=False)
+             for _, _, scene, cfg, draws in cases]
+    failed = []
+    for name, lib in [("sound", None)] + faulty:
+        entry = sound if lib is None else entry_of(
+            lib, "whitted_megakernel_launch", sound)
+        kernels._whitted_entry = lambda entry=entry: entry
+        rejected = 0
+        for (label, (max_bad, max_mean), scene, cfg, draws), want in zip(
+                cases, wants):
+            got = chip_smoke.whitted_run(scene, cfg, draws)
+            bad, mean, err = chip_smoke.pt_agreement(got, want)
+            out = (bad > max_bad or mean > max_mean
+                   or not bool(torch.isfinite(got).all()))
+            rejected += out
+            print(f"{name} | {label}: {bad * 100:.4f}% pixels beyond "
+                  f"{chip_smoke.ATOL}, mean abs diff {mean:.3g}, max abs diff "
+                  f"{err:.3g}; limits {max_bad * 100}%, {max_mean}: "
+                  f"{'rejected' if out else 'passed'}")
+        if (name == "sound") == (rejected > 0):
+            failed.append(name)
+    return failed
+
+
+def frame_verdicts(dev, kernels, sound, faulty, controls):
+    """Names of the Whitted builds the distribution frame's limit judges
+    wrongly: the sound kernel must pass and each control whose verdict is
+    set must get it; the faults' readings are printed. Then the sound
+    kernel's readings on the frame with fuzzy reflection off, the sky off,
+    both, and at depths 1 and 2 (each must pass), and the kernel's time
+    built with and without contraction (WHITTED_CONTROLS[0])."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import samples
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        whitted_megakernel as mk,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+        pixel_grid,
+        subpixel_rays,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        device_validate as dv,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.timing import (
+        queued_ms,
+    )
+
+    res = chip_smoke.RES
+    max_bad, max_mean = chip_smoke.WHITTED_LIMITS["frame"]
+    with tempfile.TemporaryDirectory() as env:
+        scene, cfg = dv.distribution_scene(dev, env_dir=env, res=res,
+                                           sky_side=chip_smoke.DIST_SKY)
+
+    def plan_of(cfg):
+        return samples.draw_plan(torch.Generator(device=dev).manual_seed(1),
+                                 samples.scene_layout(scene, cfg), cfg,
+                                 res * res)
+
+    def rejects(name, cfg, plan, want):
+        got = chip_smoke.whitted_run(scene, cfg, plan)
+        bad, mean, err = chip_smoke.pt_agreement(got, want)
+        out = (bad > max_bad or mean > max_mean
+               or not bool(torch.isfinite(got).all()))
+        print(f"{name} | distribution frame {res}x{res}: {bad * 100:.4f}% "
+              f"pixels beyond {chip_smoke.ATOL}, mean abs diff {mean:.3g}, "
+              f"max abs diff {err:.3g}; limits {max_bad * 100}%, "
+              f"{max_mean}: {'rejected' if out else 'passed'}")
+        return out
+
+    plan = plan_of(cfg)
+    want = chip_smoke.whitted_run(scene, cfg, plan, kernel=False)
+    entries = {}
+    failed = []
+    for name, lib, verdict in ([("sound", None, False)]
+                               + [(n, lib, None) for n, lib in faulty]
+                               + controls):
+        entries[name] = sound if lib is None else entry_of(
+            lib, "whitted_megakernel_launch", sound)
+        kernels._whitted_entry = lambda entry=entries[name]: entry
+        if rejects(name, cfg, plan, want) != verdict and verdict is not None:
+            failed.append(name)
+    kernels._whitted_entry = lambda: sound
+    for label, kw in (("fuzzy reflection off", dict(fuzzy_reflection=False)),
+                      ("sky off", dict(use_skybox=False)),
+                      ("fuzzy reflection and sky off",
+                       dict(fuzzy_reflection=False, use_skybox=False)),
+                      ("depth 1 (misses of primary rays only)",
+                       dict(max_depth=1)),
+                      ("depth 2", dict(max_depth=2))):
+        acfg = dataclasses.replace(cfg, **kw)
+        aplan = plan_of(acfg)
+        if rejects(f"sound, {label}", acfg, aplan, chip_smoke.whitted_run(
+                scene, acfg, aplan, kernel=False)):
+            failed.append(f"sound, {label}")
+    px, py = pixel_grid(res, res, dev)
+    tbl, lt, bg = mk.scene_tables(scene)
+    shape, sky = mk.shape_of(scene), mk.sky_of(scene, cfg)
+    args = []
+    for s in plan:
+        r = subpixel_rays(scene, px, py, cfg, s)
+        args.append((tbl, lt, bg, r.origin.contiguous(),
+                     r.direction.contiguous(), shape, cfg, s.rows, sky, s.ij))
+    contracted = controls[0][0]
+    for _ in range(3):
+        for name in (contracted, "sound", "sound", contracted):
+            kernels._whitted_entry = lambda entry=entries[name]: entry
+            ms = queued_ms(kernels.whitted_megakernel, args)
+            print(f"time {name}: {ms:.4f} ms a subpixel launch of the "
+                  "distribution frame", flush=True)
+    kernels._whitted_entry = lambda: sound
+    return failed
 
 
 def pt_verdicts(dev, kernels, sound, faulty):
@@ -254,14 +426,20 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
-    jobs = ([("pt_megakernel", i, f) for i, f in enumerate(PT_FAULTS)]
+    jobs = ([("whitted_megakernel", i, f)
+             for i, f in enumerate(WHITTED_FAULTS)]
+            + [("pt_megakernel", i, f) for i, f in enumerate(PT_FAULTS)]
             + [("bvh_walk", i, f) for i, f in enumerate(BVH_FAULTS)]
             + [("brute_intersect", i, f) for i, f in enumerate(BRUTE_FAULTS)]
             + [("probes", i, f) for i, f in enumerate(PROBE_FAULTS)])
+    control_jobs = [(f"control{i}", edits, drop)
+                    for i, (_, edits, drop, _) in enumerate(WHITTED_CONTROLS)]
     bvh_names = ("bvh_closest_launch", "bvh_any_launch")
     brute_names = ("brute_closest_launch", "brute_any_launch")
     probe_names = ("op_rate_launch", "fma_peak_launch", "stack_walk_launch")
-    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(
+            len(jobs) + len(control_jobs) + 5) as pool:
+        whitted_sound = pool.submit(kernels._whitted_entry)
         pt_sound = pool.submit(kernels._pt_entry)
         bvh_sound = pool.submit(lambda: {n: kernels._bvh_entry(n)
                                          for n in bvh_names})
@@ -269,14 +447,22 @@ def main() -> int:
                                            for n in brute_names})
         probe_sound = pool.submit(lambda: {n: kernels._probe_entry(n)
                                            for n in probe_names})
-        libs = list(pool.map(lambda j: build_fault(j[0], j[1], *j[2][1:]),
-                             jobs))
+        control_libs = [pool.submit(build_fault, "whitted_megakernel", *j)
+                        for j in control_jobs]
+        libs = list(pool.map(
+            lambda j: build_fault(j[0], f"fault{j[1]}", [j[2][1:]]), jobs))
+    controls = [(name, lib.result(), verdict) for (name, _, _, verdict), lib
+                in zip(WHITTED_CONTROLS, control_libs)]
     faulty = {src: [(f[0], lib) for (s, _, f), lib in zip(jobs, libs)
                     if s == src]
-              for src in ("pt_megakernel", "bvh_walk", "brute_intersect",
-                          "probes")}
-    failed = (pt_verdicts(dev, kernels, pt_sound.result(),
-                          faulty["pt_megakernel"])
+              for src in ("whitted_megakernel", "pt_megakernel", "bvh_walk",
+                          "brute_intersect", "probes")}
+    failed = (whitted_verdicts(dev, kernels, whitted_sound.result(),
+                               faulty["whitted_megakernel"])
+              + frame_verdicts(dev, kernels, whitted_sound.result(),
+                               faulty["whitted_megakernel"], controls)
+              + pt_verdicts(dev, kernels, pt_sound.result(),
+                            faulty["pt_megakernel"])
               + bvh_verdicts(dev, kernels, bvh_sound.result(),
                              faulty["bvh_walk"])
               + brute_verdicts(dev, kernels, brute_sound.result(),

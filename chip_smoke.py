@@ -81,6 +81,27 @@ Phases, each raising on failure:
      of the field's depth, equal to the oracle and the plain version
      exactly, and both placements timed. These are probes, not the main
      path: their counters read 0 across phase 4.
+  Whitted distribution path (mount_low 512x512, spp 4, depth 4, jittered
+  soft shadows, fuzzy reflection, a 6x2048x2048x3 u8 skybox):
+  16. the Whitted kernel against its plain version on the same rays and
+     stream rows under per-case limits (whitted_cases, WHITTED_LIMITS):
+     mount_low at template depths 1-3 and 5-8, the diffuse-only,
+     reflective-only and refractive-only trees, each distribution flag
+     alone, the sky with a u8 and a float cubemap, all flags together at
+     depth 4 and 8;
+  17. main path: the cubemap made from a seed and written as six PNG faces,
+     the scene built from them, render_image on the megakernel engine with
+     the kernel's launch counter reset just before and read just after (one
+     launch a subpixel, 16); the frame against the plain version on the same
+     draws; the PNG; the CLI render command with --builtin mount_dist
+     --soft-shadow --fuzzy-reflection --skybox;
+  18. timing: the kernel a subpixel launch (queued) and the frame's 16
+     launches (CUDA events), its plain version, the draws alone (ms and
+     bytes), whole frames and their rate, the JAX tool's distribution
+     section (tools.device_validate.distribution), a frame's breakdown under
+     torch.profiler, and the bound from this plan's work (whitted_work on
+     every subpixel: jittered feelers to their first occluder, fuzzy
+     children, sky texels, and the stream rows the kernel reads).
 On a card, brute-force queries of more than 48 primitives go through the
 brute-force kernels, so the plain sweep that phase 3 holds the Whitted
 kernel against runs them on its 66-primitive field, and phase 10's 128x128
@@ -132,18 +153,29 @@ def bad_fraction(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return float((diff > ATOL).double().mean()), float(diff.max())
 
 
-def four_type_scene(res):
-    """Triangle, reflective and glass spheres, plane and box, two lights."""
+# The four-type scene's pruned trees: (mirror Ks, glass Ks, glass T) of each
+# material population; "both" spawns reflection and refraction children.
+FOUR_TYPE_KINDS = {"both": (0.8, 0.1, 1.0), "diffuse-only": (0.0, 0.0, 0.0),
+                   "reflective-only": (0.8, 0.5, 0.0),
+                   "refractive-only": (0.0, 0.0, 1.0)}
+
+
+def four_type_scene(res, kind="both", aperture_ratio=0.0):
+    """Triangle, reflective and glass spheres, plane and box, two lights;
+    ``kind`` (FOUR_TYPE_KINDS) prunes the recursion tree, and
+    ``aperture_ratio`` opens the lens (pixels) for depth of field."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.io.p3f import SceneDef
 
+    mirror_ks, glass_ks, glass_t = FOUR_TYPE_KINDS[kind]
     sd = SceneDef()
     sd.set_camera(eye=[0.5, 1.5, 6], at=[0, 0.3, 0], up=[0, 1, 0], fov=40,
-                  hither=0.01, res_x=res, res_y=res, aperture_ratio=0,
-                  focal_ratio=1)
+                  hither=0.01, res_x=res, res_y=res,
+                  aperture_ratio=aperture_ratio, focal_ratio=1)
     diffuse = sd.add_material([0.7, 0.7, 0.2], 1.0, [1, 1, 1], 0.0, 10, 0, 1)
-    mirror = sd.add_material([0.1, 0.1, 0.1], 0.2, [0.9, 0.9, 0.9], 0.8, 200,
-                             0, 1)
-    glass = sd.add_material([0, 0, 0], 0.0, [1, 1, 1], 0.1, 100, 1, 1.5)
+    mirror = sd.add_material([0.1, 0.1, 0.1], 0.2, [0.9, 0.9, 0.9], mirror_ks,
+                             200, 0, 1)
+    glass = sd.add_material([0, 0, 0], 0.0, [1, 1, 1], glass_ks, 100, glass_t,
+                            1.5)
     sd.add_plane_points([0, -0.5, 0], [1, -0.5, 0], [0, -0.5, -1], diffuse)
     sd.add_sphere([-1.2, 0.3, 0], 0.8, mirror)
     sd.add_sphere([1.0, 0.2, 1.0], 0.7, glass)
@@ -154,6 +186,145 @@ def four_type_scene(res):
     sd.add_light([-5, 3, 2], [0.5, 0.4, 0.4])
     sd.bg_color = np.array([0.3, 0.5, 0.9], np.float32)
     return sd
+
+
+# The Whitted kernel against its plain version on the same rays and stream
+# rows, per case: (share of pixels beyond ATOL, mean abs difference)
+# allowed. Each limit lies between what the sound kernel reads and what
+# chip_faults.py's planted Whitted faults read (H100 80GB HBM3, 700 W; the
+# readings are in PERF.md): the sound kernel reads 0 pixels and a mean of
+# at most 1.5e-8 in every case (3.5e-7 built with contraction); each fault
+# reads 0.17% or more and a mean of 1.7e-4 or more in the cases that show
+# it. On the 512x512 distribution frame the sound kernel reads 0.0122% and
+# a mean of 3.3e-7, all of it where a reflected or refracted child misses
+# into the 2048x2048 noisy cubemap and a direction an ulp off the plain
+# version's picks the neighbouring texel: 0 pixels with the sky off or at
+# depth 1, 0.0046% at depth 2, and with fuzzy reflection off still
+# 0.0088% (chip_faults.py reads each). The frame's limit rejects the
+# kernel built with contraction (2.63%) and five of the six faults (0.08%
+# or more); the sixth, the y offset read from the x row, reads 0.0324% on
+# the frame and is rejected at 64x64.
+WHITTED_LIMITS = {
+    "exact": (0.0005, 5e-6),    # deterministic trees, flat background
+    "sampled": (0.0005, 1e-5),  # AA, DoF, motion blur, jitter, fuzz
+    "sky": (0.0005, 1e-5),      # misses read the cubemap
+    "frame": (0.0005, 1e-5),    # the 512x512 distribution frame
+}
+WHITTED_RES = 64
+DIST_SKY = 2048       # its cubemap's side: the JAX tool's distribution frame
+
+
+# whitted_cases' cases: (label, WHITTED_LIMITS key, scene (mount_low or a
+# FOUR_TYPE_KINDS kind), cubemap (None, "u8" or "f32"), RenderConfig fields)
+_AA = dict(anti_aliasing=True, spp=2)
+_ALL = dict(_AA, depth_of_field=True, motion_blur=True, soft_shadow=True,
+            fuzzy_reflection=True, use_skybox=True)
+WHITTED_CASES = (
+    [(f"mount_low depth {D}", "exact", "mount", None, dict(max_depth=D))
+     for D in (1, 2, 3, 5, 6, 7, 8)]
+    + [(f"four-type {kind}", "exact", kind, None, {})
+       for kind in ("diffuse-only", "reflective-only", "refractive-only")]
+    + [("four-type AA spp 2", "sampled", "both", None, _AA),
+       ("four-type AA spp 2 reference_aa_div16", "sampled", "both", None,
+        dict(_AA, reference_aa_div16=True)),
+       ("four-type DoF", "sampled", "both", None, dict(depth_of_field=True)),
+       ("four-type motion blur", "sampled", "both", None,
+        dict(motion_blur=True)),
+       ("four-type soft shadows under AA", "sampled", "both", None,
+        dict(_AA, soft_shadow=True)),
+       ("four-type fuzzy reflection", "sampled", "both", None,
+        dict(fuzzy_reflection=True)),
+       ("four-type sky u8", "sky", "both", "u8", dict(use_skybox=True)),
+       ("four-type sky f32", "sky", "both", "f32", dict(use_skybox=True)),
+       ("reflective-only fuzzy reflection", "sampled", "reflective-only",
+        None, dict(fuzzy_reflection=True)),
+       ("refractive-only soft shadows under AA", "sampled",
+        "refractive-only", None, dict(_AA, soft_shadow=True)),
+       ("four-type all flags, sky u8", "sky", "both", "u8", _ALL),
+       ("four-type all flags, sky u8, depth 8", "sky", "both", "u8",
+        dict(_ALL, max_depth=8))])
+
+
+def synthetic_cubemap(dev, f32=False, size=32, seed=5):
+    """A [6, size, size, 3] cubemap on ``dev``: scenes.synthetic_skybox's
+    u8 faces, or those faces as f32 colors."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.scenes import (
+        synthetic_skybox,
+    )
+
+    faces = torch.from_numpy(synthetic_skybox(size, seed)).to(dev)
+    return faces.float() / 255.99 if f32 else faces
+
+
+def whitted_cases(dev, only=None):
+    """The Whitted kernel's kernel-against-plain cases at 64x64, as (label,
+    limits, scene, cfg, draws): mount_low at every template depth but the
+    main path's 4; the four-type scene's three pruned trees; each
+    distribution flag alone on the four-type scene (both branches, two
+    lights, a plane and a box) at depth 4; the sky with a u8 and a float
+    cubemap; fuzzy reflection on the reflective-only chain and jittered
+    soft shadows on the refractive-only chain; all flags together at depth
+    4 and 8. ``only``: the label of the one case to make."""
+    import dataclasses
+
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import samples
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.scenes import (
+        mount_scene,
+    )
+
+    res = WHITTED_RES
+    for i, (label, limits, kind, sky, kw) in enumerate(WHITTED_CASES):
+        if only is not None and label != only:
+            continue
+        sd = (mount_scene(res) if kind == "mount"
+              else four_type_scene(res, kind, aperture_ratio=4.0))
+        scene = build_scene(sd, device=dev)
+        if sky is not None:
+            scene = dataclasses.replace(
+                scene, skybox=synthetic_cubemap(dev, f32=sky == "f32"),
+                has_skybox=True)
+        cfg = RenderConfig(engine="megakernel", **kw)
+        layout = samples.scene_layout(scene, cfg)
+        draws = samples.draw_plan(
+            torch.Generator(device=dev).manual_seed(30 + i), layout, cfg,
+            res * res)
+        yield label, WHITTED_LIMITS[limits], scene, cfg, draws
+
+
+def whitted_plain_trace(scene, rays, cfg, rows, offsets):
+    """The kernel's plain version as a render_samples trace."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        whitted_megakernel as mk,
+    )
+
+    tbl, lt, bg = mk.scene_tables(scene)
+    return mk.trace_rays_plain(mk.shape_of(scene), tbl, lt, bg, rays.origin,
+                               rays.direction, cfg, rows,
+                               mk.sky_of(scene, cfg), offsets)
+
+
+def whitted_run(scene, cfg, draws, kernel=True):
+    """[R, 3] colors of the scene's whole frame from ``draws``, through the
+    kernel (models/whitted_megakernel.trace_rays_megakernel) or its plain
+    version."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        whitted_megakernel as mk,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+        pixel_grid,
+        render_samples,
+    )
+
+    cam = scene.camera
+    px, py = pixel_grid(cam.res_x, cam.res_y, scene.device)
+    trace = mk.trace_rays_megakernel if kernel else whitted_plain_trace
+    return render_samples(scene, px, py, cfg, trace, draws=draws)
 
 
 def tiny_pt_world(device):
@@ -296,11 +467,20 @@ def pt_cases(dev):
 SPH_CLOSEST, SPH_ANY, TRI_TEST, PER_LIGHT, PER_HIT = 32, 30, 45, 80, 120
 
 
+# Distribution mode adds, counted from csrc/whitted_megakernel.cu: a
+# jittered light offset 6 per (hit, light) pair; a fuzzy child 40 (the
+# unit-sphere transform, the perturbed direction's normalize and its
+# hemisphere test); a sky lookup 20 per miss.
+PER_JITTER, PER_FUZZY, PER_SKY = 6, 40, 20
+
+
 def work_flops(w, n_sph, n_tri):
     """Operations of the work ``w`` counted by whitted_work or pt_work."""
     return (w["tests"] * (SPH_CLOSEST * n_sph + TRI_TEST * n_tri)
             + w["hits"] * PER_HIT + w["pairs"] * PER_LIGHT
-            + w["sph_tests"] * SPH_ANY + w["tri_tests"] * TRI_TEST)
+            + w["sph_tests"] * SPH_ANY + w["tri_tests"] * TRI_TEST
+            + w.get("jitters", 0) * PER_JITTER
+            + w.get("fuzzy", 0) * PER_FUZZY + w.get("sky", 0) * PER_SKY)
 
 
 def first_hit_tests(occ, sizes):
@@ -375,40 +555,54 @@ def profile_frames(label, frame, args_of, card, frames=20, share_of=()):
               f"{ms:.4f} ms/frame, {100 * ms / busy_ms:.1f}% of device busy")
 
 
-def whitted_work(scene, o, d, cfg):
-    """What the Whitted kernel computes on rays (o, d), counted on the
-    sweep's levels (models/whitted): ``tests``, the nodes alive at each
-    level, each a closest-hit test over every primitive; ``hits``, the nodes
-    that hit and shade; ``pairs``, their (hit, light) pairs; ``feelers``,
-    the pairs whose light faces the hit, each a shadow ray that tests
-    triangles, then spheres, up to its first occluder (``tri_tests``,
-    ``sph_tests``), as the kernel's walk does."""
+def whitted_work(scene, o, d, cfg, rows=None, offsets=None):
+    """What the Whitted kernel computes on rays (o, d) with the stream rows
+    ``rows`` of the subpixel ``offsets``, counted on the sweep's levels
+    (models/whitted): ``tests``, the nodes alive at each level, each a
+    closest-hit test over every primitive; ``hits``, the nodes that hit and
+    shade; ``pairs``, their (hit, light) pairs; ``feelers``, the pairs whose
+    light (jittered under AA soft shadows) faces the hit, each a shadow ray
+    that tests triangles, then spheres, up to its first occluder
+    (``tri_tests``, ``sph_tests``), as the kernel's walk does; ``jitters``,
+    the pairs that read a jittered light offset (2 rows each); ``fuzzy``,
+    the reflection children perturbed by fuzzy reflection (3 rows each);
+    ``misses``, the nodes that miss, and ``sky``, those of them that read a
+    texel."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
         Rays,
         dot,
         normalize,
     )
-    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import whitted
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        samples,
+        whitted,
+    )
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
 
     p = scene.prims
-    if p.n_pl or p.n_box or cfg.soft_shadow:
+    if p.n_pl or p.n_box or (cfg.soft_shadow and not cfg.anti_aliasing):
         raise NotImplementedError("the work model counts triangles and "
                                   "spheres lit by point lights")
     present = (p.n_sph > 0, p.n_tri > 0, False, False)
     max_t = C.BIG if cfg.shadow_unbounded else 1.0
+    layout = samples.scene_layout(scene, cfg)
+    vals = (samples.stream_rows(rows, layout, offsets, cfg.spp)
+            if layout.n_rows else None)
+    sky = cfg.use_skybox and scene.has_skybox
     rays = Rays.make(o, d)
     active = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     ior = torch.ones(o.shape[0], dtype=o.dtype, device=o.device)
-    w = dict(tests=0, hits=0, pairs=0, feelers=0, tri_tests=0, sph_tests=0)
-    for lvl in range(cfg.max_depth):
+    w = dict(tests=0, hits=0, pairs=0, feelers=0, tri_tests=0, sph_tests=0,
+             jitters=0, fuzzy=0, misses=0, sky=0)
+    for lvl in range(layout.shape.n_levels):
         t_disc, obj_id = whitted.trace_closest(scene, rays)
         hit = active & (obj_id >= 0)
         w["tests"] += int(active.sum())
         w["hits"] += int(hit.sum())
+        w["misses"] += int((active & (obj_id < 0)).sum())
         # the hit point and normal as whitted._level_step derives them
-        params, ptype, _ = intersect.gather_prims(p, obj_id)
+        params, ptype, mat_id = intersect.gather_prims(p, obj_id)
         t = intersect.per_ray_t(params, ptype, rays.origin, rays.direction,
                                 present)
         t = torch.where(t >= C.BIG, t_disc, t)
@@ -417,7 +611,14 @@ def whitted_work(scene, o, d, cfg):
             params, ptype, point, rays.origin, rays.direction, present))
         point, n = point[hit], n[hit]
         for li in range(scene.n_lights):
-            to_light = scene.lights.position[li][None, :] - point
+            lpos = scene.lights.position[li][None, :]
+            if layout.soft_jit:
+                jx, jy = (layout.level_values(vals, lvl, 2 * li + k)[hit]
+                          for k in range(2))
+                lpos = lpos + torch.stack([jx, jy, torch.zeros_like(jx)],
+                                          dim=-1)
+                w["jitters"] += point.shape[0]
+            to_light = lpos - point
             facing = dot(to_light, n) > 0.0
             w["pairs"] += point.shape[0]
             w["feelers"] += int(facing.sum())
@@ -427,20 +628,38 @@ def whitted_work(scene, o, d, cfg):
                                        (p.n_tri, p.n_sph))
             w["tri_tests"] += tri
             w["sph_tests"] += sph
-        if lvl == cfg.max_depth - 1:
+        if lvl == layout.shape.n_levels - 1:
             break
+        if layout.has_fuzzy(lvl):
+            ks = scene.materials.ks[mat_id.long()]
+            w["fuzzy"] += int((hit & (ks > 0.0)).sum())
         _, (children, _) = whitted._level_step(scene, rays, active, ior, cfg,
-                                               True)
+                                               True, lvl, layout, vals)
         kids = [children[k] for k, on in (("refl", scene.has_reflective),
                                           ("refr", scene.has_transmissive))
                 if on]
         if not kids:
             break
-        rays = Rays(*(torch.cat([getattr(k[0], f) for k in kids])
-                      for f in ("origin", "direction", "time")))
-        active = torch.cat([k[1] for k in kids])
-        ior = torch.cat([k[2] for k in kids])
+
+        def merge(part):
+            # the sweep's slot order (slot = ray * W + path), which the
+            # rows' level_values read
+            parts = [part(k) for k in kids]
+            return whitted._interleave(*parts) if len(parts) == 2 else parts[0]
+
+        rays = Rays(merge(lambda k: k[0].origin),
+                    merge(lambda k: k[0].direction),
+                    merge(lambda k: k[0].time))
+        active = merge(lambda k: k[1])
+        ior = merge(lambda k: k[2])
+    if sky:
+        w["sky"] = w["misses"]
     return w
+
+
+def add_work(total, w):
+    """``total`` plus the counts of ``w``, key by key."""
+    return {k: total.get(k, 0) + v for k, v in w.items()}
 
 
 def pt_work(scene, cfg, rays, uni):
@@ -543,7 +762,10 @@ def main_path_queries(scene, rays, active, ior, cfg):
     next level's (rays, active, ior), reflection slots first."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import packets
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Rays
-    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import whitted
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        samples,
+        whitted,
+    )
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
 
     queries = []
@@ -559,8 +781,9 @@ def main_path_queries(scene, rays, active, ior, cfg):
     packets.packet_any_hit = record(walk)
     intersect.any_hit_brute = record(brute)
     try:
-        _, (children, _) = whitted._level_step(scene, rays, active, ior, cfg,
-                                               True)
+        _, (children, _) = whitted._level_step(
+            scene, rays, active, ior, cfg, True, 0,
+            samples.scene_layout(scene, cfg), None)
     finally:
         packets.packet_any_hit = walk
         intersect.any_hit_brute = brute
@@ -1579,6 +1802,155 @@ def main() -> int:
     print(f"probe phase {time.perf_counter() - t_probe:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    # 16. the Whitted kernel against its plain version, case by case, on
+    # the same rays and stream rows
+    t_dist = time.perf_counter()
+    for label, limits, wscene, wcfg, wdraws in whitted_cases(dev):
+        got = whitted_run(wscene, wcfg, wdraws)
+        want = whitted_run(wscene, wcfg, wdraws, kernel=False)
+        torch.cuda.synchronize()
+        check_pt(f"whitted {label}", got, want, limits)
+    print(f"whitted cases {time.perf_counter() - t_dist:.1f} s")
+
+    # 17. distribution main path: mount_low 512x512, spp 4 (AA + DoF, 16
+    # samples a pixel), depth 4, jittered soft shadows, fuzzy reflection and
+    # a 6x2048x2048x3 u8 skybox loaded from PNG faces, through render_image
+    # and the CLI
+    import tempfile
+
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import samples
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+        subpixel_rays,
+    )
+
+    env = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    dscene, dcfg = dv.distribution_scene(dev, env_dir=env.name, res=RES,
+                                         sky_side=DIST_SKY)
+    t_load = time.perf_counter() - t0
+    if not dscene.has_skybox or dscene.skybox.dtype != torch.uint8 or tuple(
+            dscene.skybox.shape) != (6, DIST_SKY, DIST_SKY, 3):
+        raise AssertionError("the distribution scene's skybox did not load "
+                             "as [6, 2048, 2048, 3] u8")
+    dlayout = samples.scene_layout(dscene, dcfg)
+    n_sub = len(samples.subpixels(dcfg))
+    print(f"distribution scene: skybox faces written as PNGs and the scene "
+          f"built with them in {t_load:.1f} s; aperture "
+          f"{float(dscene.camera.aperture):.5g} "
+          f"({scenes.DISTRIBUTION_APERTURE_RATIO} pixels), "
+          f"{n_sub} samples a pixel, {dlayout.n_rows} stream rows a ray "
+          f"({sum(k[0] == 'shadow' for k in dlayout.rowmap) * 2} shadow, "
+          f"{sum(k[0] == 'fuzzy' for k in dlayout.rowmap) * 3} fuzzy)")
+    kernels.whitted_megakernel.launches = 0
+    dimg = render_image(dscene, dcfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    dist_launches = kernels.whitted_megakernel.launches
+    print(f"main path: render_image mount_low {RES}x{RES} spp {dcfg.spp} "
+          f"depth {dcfg.max_depth} AA+DoF, soft shadows, fuzzy reflection, "
+          f"skybox, engine=megakernel, kernel launches {dist_launches}")
+    if dist_launches != n_sub:
+        raise AssertionError(f"the distribution frame launched the kernel "
+                             f"{dist_launches} times, not {n_sub}")
+    if dimg.shape != (RES, RES, 3) or not bool(torch.isfinite(dimg).all()):
+        raise AssertionError(f"bad distribution image: {tuple(dimg.shape)}")
+    if float(dimg.min()) < 0.0 or float(dimg.max()) > 1.0:
+        raise AssertionError("distribution image outside [0, 1]")
+    dmean, dstd = float(dimg.mean()), float(dimg.std())
+    print(f"distribution image mean {dmean:.5f}, std {dstd:.5f}")
+    if not (0.05 < dmean < 0.95 and dstd > 0.01):
+        raise AssertionError("the distribution image is flat or empty")
+    save_png(str(ROOT / "build" / "mount_dist_smoke.png"), dimg)
+    # the kernel against its plain version on the same draws
+    px, py = pixel_grid(RES, RES, dev)
+    plan = samples.draw_plan(torch.Generator(device=dev).manual_seed(1),
+                             dlayout, dcfg, RES * RES)
+    got = whitted_run(dscene, dcfg, plan)
+    want = whitted_run(dscene, dcfg, plan, kernel=False)
+    torch.cuda.synchronize()
+    dist_bad, dist_mean, dist_err = check_pt(
+        f"distribution frame {RES}x{RES} (main path shapes)", got, want,
+        WHITTED_LIMITS["frame"])
+    out = subprocess.run(
+        [sys.executable, "-m", "u_4a_2s_p3d_raytracer_template2_tpu_torch.cli",
+         "render", "--builtin", "mount_dist", "--res", str(RES),
+         "--soft-shadow", "--fuzzy-reflection", "--skybox", "--env", env.name,
+         "--engine", "megakernel",
+         "-o", "build/mount_dist.png"], cwd=ROOT, check=True,
+        capture_output=True, text=True).stdout
+    print("  cli: " + out.strip().replace("\n", "\n  cli: "))
+
+    # 18. timing: the kernel a subpixel launch and a frame's 16 launches on
+    # this plan's rays and rows, its plain version, the draws alone, whole
+    # frames, a frame's breakdown, and the bound from this plan's work
+    sky = mk.sky_of(dscene, dcfg)
+    dshape = mk.shape_of(dscene)
+    dtbl, dlt, dbg = mk.scene_tables(dscene)
+    launch_args = []
+    for sdraw in plan:
+        r = subpixel_rays(dscene, px, py, dcfg, sdraw)
+        launch_args.append((dtbl, dlt, dbg, r.origin.contiguous(),
+                            r.direction.contiguous(), dshape, dcfg,
+                            sdraw.rows, sky, sdraw.ij))
+    dist_ms = queued_ms(kernels.whitted_megakernel, launch_args)
+
+    def frame_launches(args_list):
+        for a in args_list:
+            kernels.whitted_megakernel(*a)
+
+    dist_frame_kernel_ms = cuda_ms(frame_launches, [(launch_args,)] * 5)
+    dist_plain_ms = cuda_ms(mk.trace_rays_plain,
+                            [(dshape, dtbl, dlt, dbg, *a[3:5], dcfg, a[7],
+                              sky, a[9]) for a in launch_args[:3]], warmup=1)
+    gens = [(torch.Generator(device=dev).manual_seed(50 + i),)
+            for i in range(21)]
+    draws_ms = cuda_ms(lambda g: samples.draw_plan(g, dlayout, dcfg,
+                                                   RES * RES), gens)
+    draws_bytes = n_sub * samples.draw_bytes(dlayout, dcfg, RES * RES)
+    # the JAX tool's distribution section: the frame time (median of 21
+    # frames, draws included), Mrays/s, the image's mean and std, and the
+    # engine against the sweep at 64x64
+    dv_dist = dv.distribution(dev, env_dir=env.name)
+    dist_frame_ms = dv_dist["frame_ms"]
+    print(f"distribution frame ({card}): kernel {dist_ms:.4f} ms a subpixel "
+          f"launch (queued), {dist_frame_kernel_ms:.4f} ms for the frame's "
+          f"{n_sub} launches (CUDA events); plain version "
+          f"{dist_plain_ms:.2f} ms a subpixel; draws {draws_ms:.4f} ms and "
+          f"{draws_bytes / 1e6:.1f} MB a frame; frame {dist_frame_ms:.4f} ms "
+          f"(median of 21), "
+          f"{mrays_per_s(dscene, dist_frame_ms, dcfg):.2f} Mrays/s "
+          f"(primary+shadow, res^2 spp^2 (1+L))")
+    profile_frames(f"whitted distribution frame, megakernel engine, mount_low "
+                   f"{RES}x{RES} spp 4", render_tile,
+                   lambda i: (dscene, px + 0.37 * i, py, dcfg,
+                              torch.Generator(device=dev).manual_seed(70 + i)),
+                   card)
+    dw = {}
+    for a in launch_args:
+        dw = add_work(dw, whitted_work(dscene, a[3], a[4], dcfg, a[7], a[9]))
+    R = RES * RES
+    d_flops = work_flops(dw, dscene.prims.n_sph, dscene.prims.n_tri)
+    # each value the kernel reads once: 2 rows a jittered (hit, light) pair,
+    # 3 a fuzzy child
+    row_bytes = 4 * (2 * dw["jitters"] + 3 * dw["fuzzy"])
+    all_row_bytes = 4 * R * dlayout.n_rows * n_sub
+    d_bytes = (n_sub * R * 36 + row_bytes + 3 * dw["sky"]
+               + 4 * n_sub * (dtbl.numel() + dlt.numel() + dbg.numel()))
+    dist_bound_ms, dist_bound_by = bound(d_flops, d_bytes)
+    print(f"distribution work ({n_sub} subpixels): {dw['tests']} nodes "
+          f"({dw['tests'] / (n_sub * R):.3f} per ray), {dw['hits']} hits, "
+          f"{dw['feelers']} of {dw['pairs']} jittered shadow rays facing "
+          f"their light, testing {dw['tri_tests']} triangles and "
+          f"{dw['sph_tests']} spheres, {dw['fuzzy']} fuzzy children, "
+          f"{dw['sky']} sky texels; {d_flops / 1e9:.4f} GFLOP, "
+          f"{d_bytes / 1e6:.4f} MB (rows read {row_bytes / 1e6:.2f} MB of "
+          f"{all_row_bytes / 1e6:.1f} MB drawn); bound {dist_bound_ms:.5f} "
+          f"ms ({dist_bound_by}; operations {d_flops / PEAK_F32_FLOPS * 1e3:.5f}"
+          f" ms, bytes {d_bytes / PEAK_BYTES * 1e3:.5f} ms), "
+          f"{dist_bound_ms / n_sub:.5f} ms a launch")
+    env.cleanup()
+    print(f"distribution phases {time.perf_counter() - t_dist:.1f} s; all "
+          f"{time.perf_counter() - t_start:.1f} s")
+
     def bvh_entry(name, query, label, replaces, launches, **extra):
         k_ms, p_ms, (_, _, b_ms, b_by) = bvh_times[label]
         return {"name": name, "route": "cuda", "source": src + "bvh_walk.cu",
@@ -1616,6 +1988,17 @@ def main() -> int:
         "bound_ms": w_bound_ms,
         "bound_by": w_bound_by,
         "library_ms": None,
+        "distribution_frame": {
+            "scene": f"mount_low {RES}x{RES}, spp {dcfg.spp}, depth "
+                     f"{dcfg.max_depth}, soft shadows, fuzzy reflection, "
+                     f"u8 skybox {DIST_SKY}^2 x 6",
+            "launches": dist_launches, "max_abs_err": dist_err,
+            "mean_abs_err": dist_mean, "share_beyond_atol": dist_bad,
+            "ms": dist_ms, "frame_kernel_ms": dist_frame_kernel_ms,
+            "plain_ms": dist_plain_ms, "frame_ms": dist_frame_ms,
+            "draws_ms": draws_ms, "draws_bytes": draws_bytes,
+            "bound_ms": dist_bound_ms / n_sub, "bound_by": dist_bound_by,
+            "frame_bound_ms": dist_bound_ms, "library_ms": None},
     }, {
         "name": "pt_megakernel",
         "route": "cuda",

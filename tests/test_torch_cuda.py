@@ -66,6 +66,46 @@ def test_kernel_matches_plain_mount64_depth4(fresnel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("label", [c[0] for c in chip_smoke.WHITTED_CASES])
+def test_whitted_kernel_case(label):
+    """chip_smoke.whitted_cases: every template depth, the pruned trees,
+    each distribution flag and the sky (u8 and f32), against the plain
+    version on the same rays and stream rows, under WHITTED_LIMITS."""
+    dev = _cuda()
+    [(_, limits, scene, cfg, draws)] = list(chip_smoke.whitted_cases(
+        dev, only=label))
+    before = kernels.whitted_megakernel.launches
+    got = chip_smoke.whitted_run(scene, cfg, draws)
+    assert kernels.whitted_megakernel.launches == before + len(draws)
+    want = chip_smoke.whitted_run(scene, cfg, draws, kernel=False)
+    chip_smoke.check_pt(label, got, want, limits)
+
+
+@pytest.mark.cuda
+def test_whitted_distribution_render_image():
+    """render_image on the megakernel engine with a scene's spp, soft
+    shadows, fuzzy reflection and a skybox: one launch a subpixel, and the
+    sweep's image from the same generator seed."""
+    import dataclasses
+
+    dev = _cuda()
+    scene = build_scene(mount_scene(res=32), device=dev)
+    scene = dataclasses.replace(
+        scene, spp=2, skybox=chip_smoke.synthetic_cubemap(dev),
+        has_skybox=True)
+    cfg = RenderConfig(engine="megakernel", soft_shadow=True,
+                       fuzzy_reflection=True,
+                       use_skybox=True).with_scene_flags(scene)
+    before = kernels.whitted_megakernel.launches
+    got = render_image(scene, cfg, torch.Generator(device=dev).manual_seed(3))
+    assert kernels.whitted_megakernel.launches == before + 4
+    want = render_image(scene, dataclasses.replace(cfg, engine="sweep"),
+                        torch.Generator(device=dev).manual_seed(3))
+    assert got.shape == (32, 32, 3) and bool(torch.isfinite(got).all())
+    assert _bad_fraction(got, want) <= MAX_BAD
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_grad_and_cpu_tensors():
     dev = _cuda()
     scene = build_scene(mount_scene(res=8), device=dev)

@@ -82,12 +82,21 @@ def test_sweep_matches_oracle(soft_shadow):
 @pytest.mark.parametrize("field", ["anti_aliasing", "depth_of_field",
                                    "motion_blur", "fuzzy_reflection"])
 def test_unported_configs_raise(field):
-    scene = pt.build_scene(mixed_scene(pt.SceneDef(), res=4),
-                           device=torch.device("cpu"))
-    for engine in ("sweep", "megakernel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.render_image(scene, pt.RenderConfig(engine=engine,
-                                                   **{field: True}))
+    """With a distribution flag on, what is not ported yet still raises:
+    the wavefront engine, and the per-ray BVH walk on a BVH scene. The
+    flags themselves render on both engines
+    (tests/test_torch_distribution.py)."""
+    sd = mixed_scene(pt.SceneDef(), res=4)
+    scene = pt.build_scene(sd, device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.render_image(scene, pt.RenderConfig(engine="wavefront",
+                                               **{field: True}),
+                        torch.Generator().manual_seed(1))
+    bvh = pt.build_scene(sd, device=torch.device("cpu"), accel=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.render_image(bvh, pt.RenderConfig(accel_impl="perray",
+                                             **{field: True}),
+                        torch.Generator().manual_seed(1))
 
 
 def test_wavefront_engine_raises():

@@ -23,7 +23,8 @@ _META = ("accel_type", "spp", "n_objects", "n_lights", "has_reflective",
 
 def jax_scene_to_port(jscene, device="cpu"):
     """A JAX Scene as the port's Scene, through NumPy."""
-    arrays = {"bg_color": np.asarray(jscene.bg_color)}
+    arrays = {"bg_color": np.asarray(jscene.bg_color),
+              "skybox": np.asarray(jscene.skybox)}
     meta = {k: getattr(jscene, k) for k in _META}
     for group in ("prims", "materials", "lights", "camera"):
         obj = getattr(jscene, group)
@@ -115,6 +116,83 @@ def jax_render_image(jscene, cfg):
     img = render_tile(jscene, jnp.asarray(xs.reshape(-1)),
                       jnp.asarray(ys.reshape(-1)), cfg, jax.random.PRNGKey(0))
     return np.asarray(img).reshape(cam.res_y, cam.res_x, 3)
+
+
+def _uniform_np(key, shape):
+    return np.asarray(jax.random.uniform(key, shape, jnp.float32))
+
+
+def jax_stream_raw(ktrace, layout, R):
+    """[n_rows, R] raw U[0,1) draws of the trace rows from the JAX key
+    ``ktrace``, by the chain of ``_draw_stream`` (models/whitted_megakernel
+    .py:724-738 of the JAX package: trace_rays -> _level_step ->
+    direct_lighting): per level ``key, sub = split(key)``; ``lkey, klight =
+    split(sub)``; per light under AA soft shadows ``klight, s2 =
+    split(klight)`` and uniform(s2, [R·W, 2]); at a spawning level under
+    fuzzy reflection ``lkey, kf = split(lkey)`` and the three uniforms of
+    sample_unit_sphere(kf, [R·W]). Level draws are [R·W] with slot =
+    ray·W + path."""
+    raw = np.zeros((layout.n_rows, R), np.float32)
+    shape = layout.shape
+    key, w = ktrace, 1
+    for lvl in range(shape.n_levels):
+        key, sub = jax.random.split(key)
+        lkey, klight = jax.random.split(sub)
+        spawn = lvl < shape.n_levels - 1
+        if layout.soft_jit:
+            kk = klight
+            for li in range(layout.n_lights):
+                kk, s2 = jax.random.split(kk)
+                r2 = _uniform_np(s2, (R * w, 2)).reshape(R, w, 2)
+                for path in range(w):
+                    rx, ry = layout.rowmap[("shadow", lvl, path, li)]
+                    raw[rx], raw[ry] = r2[:, path, 0], r2[:, path, 1]
+        if layout.has_fuzzy(lvl):
+            lkey, kf = jax.random.split(lkey)
+            ks = jax.random.split(kf, 3)
+            u = [_uniform_np(k, (R * w,)).reshape(R, w) for k in ks]
+            for path in range(w):
+                for k, row in enumerate(layout.rowmap[("fuzzy", lvl, path)]):
+                    raw[row] = u[k][:, path]
+        if spawn:
+            w *= shape.branch
+    return raw
+
+
+def jax_draws(key, layout, cfg, R):
+    """The raw draws of the JAX package's ``render_tile(scene, px, py, cfg,
+    key)`` for one tile of R pixels (models/whitted.py:502-536 and
+    ops/camera.py:61-77 there), as the port's sample plan
+    (models/samples.py): a list of ``Draws``, one per subpixel."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.samples import (
+        Draws,
+        subpixels,
+    )
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.array(a))
+
+    if cfg.anti_aliasing:
+        keys = jax.random.split(key, max(cfg.spp, 1) ** 2)
+        triples = [jax.random.split(k, 3) for k in keys]
+    else:
+        kcam, ktrace = jax.random.split(key, 3)[1:]
+        triples = [(None, kcam, ktrace)]
+    plan = []
+    for ij, (kj, kcam, ktrace) in zip(subpixels(cfg), triples):
+        jitter = _uniform_np(kj, (R, 2)) if kj is not None else None
+        time = lens = None
+        if cfg.motion_blur:
+            kcam, sub = jax.random.split(kcam)
+            time = _uniform_np(sub, (R,))
+        if cfg.depth_of_field:
+            kcam, sub = jax.random.split(kcam)
+            k1, k2 = jax.random.split(sub)
+            lens = np.stack([_uniform_np(k1, (R,)), _uniform_np(k2, (R,))],
+                            axis=-1)
+        rows = jax_stream_raw(ktrace, layout, R) if layout.n_rows else None
+        plan.append(Draws(ij, t(jitter), t(time), t(lens), t(rows)))
+    return plan
 
 
 # XLA options for compiling a large one-off JAX reference (a Pallas kernel

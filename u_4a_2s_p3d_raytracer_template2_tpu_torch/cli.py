@@ -5,18 +5,27 @@ Usage::
 
     python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.cli render \\
         --builtin mount --res 512 --engine megakernel -o mount.png
+    python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.cli render \\
+        --builtin mount_dist --soft-shadow --fuzzy-reflection \\
+        --skybox --env skybox_dir --engine megakernel -o mount_dist.png
+    python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.cli render \\
+        scene.p3f --engine megakernel -o scene.png
     python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.cli pathtrace \\
         --res 512 --frames 16 --checkpoint pt.npz -o pt.png
 
 Both run on the CUDA card unless ``--device cpu`` is given; without a card
 they exit with an error rather than fall back to the CPU.
 
-``render`` renders a built-in scene (mount_low, the sphere field or the
-random scene, with the scene's accelerator unless ``--accel`` says
-otherwise), writes the PNG, and prints the frame
-time and the rate in Mrays/s (primary + shadow rays). On a CUDA device the
-time is the median of CUDA-event frame times; on the CPU it is one host
-wall-clock render, labelled as such.
+``render`` renders a ``.p3f`` file or a built-in scene (mount_low, mount_low
+in distribution mode with spp 4 and an 8-pixel lens, the sphere field or
+the random scene, with the scene's accelerator unless ``--accel`` says
+otherwise), writes the PNG, and prints the frame time and
+the rate in Mrays/s (primary + shadow rays of every AA sample). A scene's
+``spp`` turns on anti-aliasing and depth of field
+(``RenderConfig.with_scene_flags``), as ``--spp`` does; the stochastic
+features draw from a ``torch.Generator`` seeded by ``--seed``. On a CUDA
+device the time is the median of CUDA-event frame times; on the CPU it is
+one host wall-clock render, labelled as such.
 
 ``pathtrace`` accumulates progressive 1-spp frames of the GLSL world,
 optionally resuming from and saving a checkpoint, and writes the
@@ -36,35 +45,74 @@ _DEVICE_HELP = ("torch device to run on (default cuda; the CPU only when "
                 "asked for with --device cpu)")
 
 
+def _scene_def(args):
+    from .io.p3f import parse_p3f
+    from .models import scenes
+
+    if args.scene and not args.builtin:
+        if not os.path.exists(args.scene):
+            raise SystemExit(f"Error opening P3F file: {args.scene}")
+        sd = parse_p3f(args.scene)
+    else:
+        sd = {"mount": scenes.mount_scene,
+              "mount_dist": scenes.mount_distribution_scene,
+              "spheres": scenes.sphere_field_scene,
+              "random": scenes.random_scene}[args.builtin or "mount"]()
+    if args.res:
+        sd.camera["res_x"] = sd.camera["res_y"] = args.res
+    if args.env is not None:
+        sd.skybox_dir = args.env
+    return sd
+
+
+def _config(args, scene):
+    """The JAX CLI's config (cli.py:55-73 there): the flags, the scene's
+    spp coupling, and ``--spp`` over it."""
+    import dataclasses
+
+    from .core.types import RenderConfig
+
+    cfg = RenderConfig(max_depth=args.depth, engine=args.engine,
+                       soft_shadow=args.soft_shadow,
+                       fuzzy_reflection=args.fuzzy_reflection,
+                       motion_blur=args.motion_blur, use_skybox=args.skybox,
+                       fresnel_mode=args.fresnel,
+                       refraction_mode=args.refraction,
+                       accel_impl=args.accel_impl).with_scene_flags(scene)
+    if args.spp is not None:
+        cfg = dataclasses.replace(cfg, spp=args.spp,
+                                  anti_aliasing=args.spp > 0,
+                                  depth_of_field=args.spp > 0)
+    return cfg
+
+
 def cmd_render(args) -> None:
     from .core import constants as C
     from .core.build import build_scene
-    from .core.types import RenderConfig
     from .io.image import save_png
-    from .models import scenes
     from .models.whitted import render_image
     from .utils.timing import frame_ms, mrays_per_s
 
-    sd = {"mount": scenes.mount_scene,
-          "spheres": scenes.sphere_field_scene,
-          "random": scenes.random_scene}[args.builtin]()
-    if args.res:
-        sd.camera["res_x"] = sd.camera["res_y"] = args.res
-    scene = build_scene(sd, device=torch.device(args.device), accel=args.accel)
-    cfg = RenderConfig(max_depth=args.depth, engine=args.engine,
-                       fresnel_mode=args.fresnel,
-                       refraction_mode=args.refraction,
-                       accel_impl=args.accel_impl)
+    dev = torch.device(args.device)
+    scene = build_scene(_scene_def(args), device=dev, accel=args.accel)
+    cfg = _config(args, scene)
     cam = scene.camera
     accel = {C.ACCEL_NONE: "none", C.ACCEL_GRID: "grid",
              C.ACCEL_BVH: "bvh"}[scene.accel_type]
+    samples = max(cfg.spp, 1) ** 2 if cfg.anti_aliasing else 1
+    sky = (f"skybox {tuple(scene.skybox.shape)} {scene.skybox.dtype}"
+           if scene.has_skybox else "no skybox")
     print(f"Resolution {cam.res_x}x{cam.res_y}, {scene.n_objects} objects, "
           f"{scene.n_lights} lights, depth {cfg.max_depth}, engine "
-          f"{cfg.engine}, accel {accel} ({cfg.accel_impl}), device "
-          f"{scene.device}")
+          f"{cfg.engine}, accel {accel} ({cfg.accel_impl}), {samples} "
+          f"samples a pixel (AA {cfg.anti_aliasing}, DoF "
+          f"{cfg.depth_of_field}, soft shadow {cfg.soft_shadow}, fuzzy "
+          f"{cfg.fuzzy_reflection}, motion blur {cfg.motion_blur}, use "
+          f"skybox {cfg.use_skybox}), {sky}, device {scene.device}")
 
     t0 = time.perf_counter()
-    img = render_image(scene, cfg)
+    img = render_image(scene, cfg,
+                       torch.Generator(device=dev).manual_seed(args.seed))
     if scene.device.type == "cuda":
         torch.cuda.synchronize(scene.device)
         ms = frame_ms(scene, cfg)
@@ -73,7 +121,8 @@ def cmd_render(args) -> None:
         ms = (time.perf_counter() - t0) * 1e3
         label = "one render, host wall clock, cpu"
     print(f"frame {ms:.3f} ms ({label}); "
-          f"{mrays_per_s(scene, ms):.2f} Mrays/s (primary+shadow)")
+          f"{mrays_per_s(scene, ms, cfg):.2f} Mrays/s (primary+shadow)")
+    print(f"image mean {float(img.mean()):.5f}, std {float(img.std()):.5f}")
     save_png(args.output, img)
     print(f"Image file created: {args.output}")
 
@@ -118,9 +167,12 @@ def cmd_pathtrace(args) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="u_4a_2s_p3d_raytracer_template2_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    pr = sub.add_parser("render", help="render a built-in scene to PNG")
-    pr.add_argument("--builtin", choices=["mount", "spheres", "random"],
-                    default="mount")
+    pr = sub.add_parser("render", help="render a scene to PNG")
+    pr.add_argument("scene", nargs="?", help=".p3f scene file")
+    pr.add_argument("--builtin",
+                    choices=["mount", "mount_dist", "spheres", "random"],
+                    help="a built-in scene (default mount when no file is "
+                    "given); mount_dist is mount_low in distribution mode")
     pr.add_argument("--accel", type=int, default=None,
                     help="0 none, 1 grid, 2 bvh (default: scene's)")
     pr.add_argument("--accel-impl", dest="accel_impl", default="auto",
@@ -131,6 +183,19 @@ def main(argv=None) -> int:
                     "brute tests every primitive; perray is not ported yet")
     pr.add_argument("--res", type=int, default=None,
                     help="square resolution (default: scene's)")
+    pr.add_argument("--spp", type=int, default=None,
+                    help="AA grid side: spp*spp jittered samples a pixel, "
+                    "with depth of field (default: the scene's spp)")
+    pr.add_argument("--seed", type=int, default=0,
+                    help="seed of the torch.Generator the samples come from")
+    pr.add_argument("--soft-shadow", action="store_true")
+    pr.add_argument("--fuzzy-reflection", action="store_true")
+    pr.add_argument("--motion-blur", action="store_true")
+    pr.add_argument("--skybox", action="store_true",
+                    help="sample the env cubemap on miss")
+    pr.add_argument("--env", default=None,
+                    help="skybox directory of six faces (right, left, top, "
+                    "bottom, front, back .png/.jpg), over the scene's env")
     pr.add_argument("--depth", type=int, default=4)
     pr.add_argument("--engine", choices=["sweep", "megakernel"],
                     default="sweep",

@@ -5,7 +5,8 @@ The counterpart of ``u_4a_2s_p3d_raytracer_template2_tpu/core/build.py``
 NumPy operations, so they equal the JAX build exactly. A BVH or grid scene
 also gets the port's BVH tables (``accel/packets.build_packets``), built once
 on the host and uploaded; a grid scene routes to the same walk, as the JAX
-package does on the TPU. Every scene gets the brute-force kernels' tables
+package does on the TPU. An ``env`` directory's cubemap is loaded as raw u8
+(io/skybox.py). Every scene gets the brute-force kernels' tables
 (``ops/intersect.brute_tables``), packed once on its device.
 """
 from __future__ import annotations
@@ -59,13 +60,11 @@ def build_scene(sd, *, device, accel: Optional[int] = None) -> Scene:
     """Pad a SceneDef and upload it to ``device``; ``accel`` overrides the
     scene's accelerator (ACCEL_NONE, ACCEL_GRID or ACCEL_BVH).
 
-    A scene with an ``env`` skybox raises ``NotImplementedError``.
+    A scene with an ``env`` line loads its cubemap (io/skybox.py) as raw
+    u8; when the directory, a face or a decoder is missing it builds with
+    ``has_skybox=False``, as the JAX package's build does.
     """
     accel_type = sd.accel_type if accel is None else accel
-    if sd.skybox_dir is not None:
-        raise NotImplementedError(
-            "skybox scenes are not ported yet (ROADMAP.md, queue 1, item 7 "
-            "'Distribution mode and skybox')")
     if sd.camera is None:
         raise ValueError("scene has no camera ('v' block)")
 
@@ -128,12 +127,21 @@ def build_scene(sd, *, device, accel: Optional[int] = None) -> Scene:
         pl_p=pl_p, pl_ids=pl_ids, box_p=box_p, box_ids=box_ids,
         n_tri=n_tri, n_sph=n_sph, n_pl=n_pl, n_box=n_box,
     )
+    skybox = None
+    if sd.skybox_dir is not None:
+        from ..io.skybox import load_skybox_dir
+
+        faces = load_skybox_dir(sd.skybox_dir)
+        if faces is not None:
+            skybox = t(faces)
     return Scene(
         prims=prims,
         materials=materials,
         lights=lights,
         camera=build_camera(sd.camera, device=device),
         bg_color=t(np.asarray(sd.bg_color, np.float32)),
+        skybox=skybox,
+        has_skybox=skybox is not None,
         accel_type=int(accel_type),
         spp=int(sd.spp),
         n_objects=n_obj,

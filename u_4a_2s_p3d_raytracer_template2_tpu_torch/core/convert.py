@@ -5,7 +5,8 @@ arrays by the caller, into the port's ``Scene``. This module never imports
 jax: the caller does the ``np.asarray``.
 
 ``arrays`` is keyed by dotted field path (``"prims.tri_p"``,
-``"materials.kd"``, ``"lights.position"``, ``"camera.eye"``, ``"bg_color"``);
+``"materials.kd"``, ``"lights.position"``, ``"camera.eye"``, ``"bg_color"``,
+and ``"skybox"``, the ``[6, H, W, 3]`` cubemap, when ``has_skybox``);
 ``meta`` holds the static fields (``n_tri`` ... ``n_box``, ``res_x``,
 ``res_y``, ``accel_type``, ``spp``, ``n_objects``, ``n_lights``,
 ``has_reflective``, ``has_transmissive``, ``has_skybox``). Keys the port has
@@ -37,11 +38,6 @@ def _fields(cls) -> list[str]:
 
 def scene_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
                       device) -> Scene:
-    if meta.get("has_skybox"):
-        raise NotImplementedError(
-            "skybox scenes are not ported yet (ROADMAP.md, queue 1, item 7 "
-            "'Distribution mode and skybox')")
-
     def group(name, cls, static=()):
         kw = {}
         for f in _fields(cls):
@@ -61,12 +57,17 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
                                 np.asarray(arrays["prims.ptype"])[:n_obj],
                                 device=device)
     prims = group("prims", Primitives, ("n_tri", "n_sph", "n_pl", "n_box"))
+    # the cubemap keeps its dtype: u8 as loaded, f32 as a test gives it
+    skybox = (torch.from_numpy(np.array(arrays["skybox"])).to(device)
+              if meta.get("has_skybox") else None)
     return Scene(
         prims=prims,
         materials=group("materials", Materials),
         lights=group("lights", Lights),
         camera=group("camera", Camera, ("res_x", "res_y")),
         bg_color=torch.from_numpy(np.array(arrays["bg_color"])).to(device),
+        skybox=skybox,
+        has_skybox=skybox is not None,
         accel_type=int(meta["accel_type"]),
         spp=int(meta["spp"]),
         n_objects=int(meta["n_objects"]),

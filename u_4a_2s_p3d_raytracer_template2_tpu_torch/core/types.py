@@ -98,6 +98,11 @@ class Scene:
     lights: Lights
     camera: Camera
     bg_color: torch.Tensor  # [3]
+    # [6, H, W, 3] cubemap: uint8 when loaded from an ``env`` directory
+    # (io/skybox.py), float32 when a caller gives a synthetic one; None when
+    # the scene has none (then has_skybox is False)
+    skybox: Optional[torch.Tensor] = None
+    has_skybox: bool = False
     accel_type: int = C.ACCEL_NONE
     spp: int = 0
     n_objects: int = 0
@@ -145,8 +150,8 @@ class RenderConfig:
     """Feature flags mirroring the reference's compile-time bools
     (main.cpp:40-48) plus explicit switches for the reference's quirks.
     Copied field for field, defaults included, from the JAX package's
-    ``RenderConfig``; fields the port does not serve yet raise where they
-    are used.
+    ``RenderConfig``; fields the port does not serve yet (the wavefront
+    engine) raise where they are used.
 
     Modes marked ``reference_*`` replicate shipped reference behavior including
     its bugs; the defaults are the physically-correct variants.

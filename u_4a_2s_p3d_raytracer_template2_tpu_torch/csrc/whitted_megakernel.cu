@@ -10,11 +10,24 @@
 // (12 params + 11 material fields, in tri, sphere, plane, box order), [L*6]
 // lights, [3] background, so one build serves every scene.
 //
+// Distribution mode (models/samples.py): the primary rays of a subpixel
+// (jittered, thin lens) are made outside, and the random values of the tree
+// arrive as [n_rows, n_rays] stream rows in the layout of the JAX package's
+// _stream_layout: node (lvl, path) owns 2 rows per light (the jittered
+// light offset of soft shadows under AA) and, where it spawns, 3 rows (the
+// unit-sphere perturbation of fuzzy reflection). The sky on a miss is a
+// nearest-texel lookup in the cubemap ([6, H, W, 3] u8 or f32) in device
+// memory, in place of the JAX kernel's deferred-sky epilogue and packed-u32
+// texels (Mosaic has no per-lane gather; a GPU thread reads its texel).
+//
 // What bounds it: a frame moves 36 B per ray (24 in, 12 out), 9.4 MB at
-// 512x512, which the card's memory moves in a few microseconds. The work is
-// arithmetic and divergence: for mount_low at depth 4 every pixel walks up
-// to 15 nodes, each a closest-hit test over every primitive and a shadow
-// test per light. The design follows from that:
+// 512x512, which the card's memory moves in a few microseconds; a
+// distribution frame adds the stream rows (4 B per row and ray, 53.5 MB a
+// subpixel for mount_low at depth 4 with soft shadows and fuzzy reflection)
+// and a 3-byte texel per miss. The work is arithmetic and divergence: for
+// mount_low at depth 4 every pixel walks up to 15 nodes, each a closest-hit
+// test over every primitive and a shadow test per light. The design follows
+// from that:
 //   * one thread per ray; the tables are copied into shared memory at block
 //     start, and every thread of a warp reads the same primitive at the same
 //     time, so the reads are broadcasts;
@@ -24,11 +37,17 @@
 //   * pending refraction children wait on a stack of at most max_depth-1
 //     entries; max_depth is a template parameter and the stack is a shift
 //     register with compile-time indices only, so it stays in registers;
+//     an entry carries its node's (lvl, path), the key of its stream rows:
+//     with both branches the reflection child of path p is 2p and the
+//     refraction child 2p+1, with one branch the child is p;
 //   * the shadow test stops at the first occluder.
 // Color is the linear fold local + KR*spec*refl + (1-KR)*refr of
 // whitted_megakernel.py:551-577, accumulated as weight*local along each path;
 // leaf colors are clamped, and so is the pixel. All math is f32, IEEE
-// division and square root (no fast math).
+// division and square root (no fast math), built without multiply-add
+// contraction (kernels/build.NO_CONTRACTION): a sky texel is picked by
+// truncating a face coordinate, so the directions must round as the plain
+// version's do.
 
 #include <cuda_runtime.h>
 
@@ -39,6 +58,8 @@ constexpr float kBig = 1e30f;
 constexpr int kTblW = 23;
 constexpr int kThreads = 128;
 constexpr int kMaxDepth = 8;
+constexpr float kTwoPi = 6.28318530718f;  // ops/sampling.TWO_PI
+constexpr float kU8Scale = 255.99f;       // u8tofloat (maths.h)
 
 struct V3 {
   float x, y, z;
@@ -158,6 +179,53 @@ __device__ __forceinline__ V3 box_normal(const float* p, V3 o, V3 d) {
 // ---------------------------------------------------------------------------
 // scene walks over the shared-memory table
 
+// ---------------------------------------------------------------------------
+// the skybox (ops/shade.cubemap_index, skybox_color; scene.cpp:383-461)
+
+struct Sky {
+  const void* tex;  // [6, h, w, 3] u8 or f32, or null (flat background)
+  int h, w, f32;
+};
+
+// Nearest texel of direction d: dominant axis with z checked last under
+// strict >, LEFT at X=+1, 1/max(ma, 1e-20), truncation toward zero, then
+// clip.
+__device__ __forceinline__ V3 sky_color(const Sky& sky, V3 d) {
+  const float ax = fabsf(d.x), ay = fabsf(d.y), az = fabsf(d.z);
+  const bool use_x = ax > ay;
+  float ma = use_x ? ax : ay;
+  int side = use_x ? (d.x >= 0.f ? 1 : 0) : (d.y >= 0.f ? 2 : 3);
+  if (az > ma) {
+    ma = az;
+    side = d.z >= 0.f ? 4 : 5;
+  }
+  float sc, tc;
+  switch (side) {
+    case 0: sc = -d.z; tc = d.y; break;
+    case 1: sc = d.z; tc = d.y; break;
+    case 2: sc = -d.x; tc = -d.z; break;
+    case 3: sc = -d.x; tc = d.z; break;
+    case 4: sc = -d.x; tc = d.y; break;
+    default: sc = d.x; tc = d.y; break;
+  }
+  const float inv = 1.f / fmaxf(ma, 1e-20f);
+  const float s = (sc * inv + 1.f) * 0.5f;
+  const float t = (tc * inv + 1.f) * 0.5f;
+  int xp = (int)((float)(sky.w - 1) * s);
+  int yp = (int)((float)(sky.h - 1) * t);
+  xp = min(max(xp, 0), sky.w - 1);
+  yp = min(max(yp, 0), sky.h - 1);
+  const size_t k = 3 * (((size_t)side * sky.h + yp) * sky.w + xp);
+  if (sky.f32) {
+    const float* p = static_cast<const float*>(sky.tex) + k;
+    return v3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
+  }
+  // u8tofloat: byte / 255.99 after the gather
+  const unsigned char* p = static_cast<const unsigned char*>(sky.tex) + k;
+  return v3((float)__ldg(p) / kU8Scale, (float)__ldg(p + 1) / kU8Scale,
+            (float)__ldg(p + 2) / kU8Scale);
+}
+
 struct SceneView {
   const float* tbl;
   const float* lt;
@@ -230,13 +298,33 @@ __device__ __forceinline__ V3 light_sample(const SceneView& s, V3 lpos, V3 lcol,
   return (lcol * m.diff * ndl) * m.kd + (lcol * m.spec * sp) * (m.ks * 0.4f);
 }
 
+// The jittered light offsets of soft shadows under AA, tied to the
+// subpixel (si, sj) of spp (main.cpp:621-624; models/samples.stream_rows)
+struct Jitter {
+  const float* u;  // this node's first stream row at this ray, stride n_rays
+  int n_rays;
+  float si, sj;
+  int spp;
+};
+
+// `jit.u` null: no jittered soft shadows
 __device__ __forceinline__ V3 direct_light(const SceneView& s, V3 hp, V3 precise, V3 n, V3 d,
-                           const Mat& m, float max_t, bool soft_grid) {
+                           const Mat& m, float max_t, bool soft_grid,
+                           const Jitter& jit) {
   V3 col = v3(0.f, 0.f, 0.f);
   for (int li = 0; li < s.n_lights; ++li) {
     V3 lpos = load3(s.lt + 6 * li);
     V3 lcol = load3(s.lt + 6 * li + 3);
-    if (soft_grid) {
+    if (jit.u != nullptr) {
+      // one jittered light position tied to the AA subpixel, the whole
+      // light color: offset 0.5 * ((i + u) / spp)
+      const float ux = __ldg(jit.u + (size_t)(2 * li) * jit.n_rays);
+      const float uy = __ldg(jit.u + (size_t)(2 * li + 1) * jit.n_rays);
+      const float jx = 0.5f * ((jit.si + ux) / (float)jit.spp);
+      const float jy = 0.5f * ((jit.sj + uy) / (float)jit.spp);
+      col = col + light_sample(s, lpos + v3(jx, jy, 0.f), lcol, hp, precise,
+                               n, d, m, max_t);
+    } else if (soft_grid) {
       // 4x4 grid of light positions, each 1/16 of the color
       // (main.cpp:601-618): spacing 0.125, start at pos - 0.25
       V3 c16 = lcol * (1.f / 16.f);
@@ -258,7 +346,8 @@ __device__ __forceinline__ V3 direct_light(const SceneView& s, V3 hp, V3 precise
 struct Entry {
   V3 o, d, w;
   float ior;
-  int depth;
+  int depth;  // lvl + 1
+  int path;   // the node's index within its level (stream rows' key)
 };
 
 // Pending refraction children. Entries hold strictly increasing depths in
@@ -297,8 +386,42 @@ struct Params {
   int fresnel_mode;     // 0 schlick, 1 reference_schlick, 2 reference_exact
   int refraction_mode;  // 0 reference, 1 physical
   int shadow_unbounded;
-  int soft_grid;
+  int soft_grid;        // soft shadows without AA: the 4x4 light grid
+  const float* rows;    // [n_rows, n_rays] stream rows, or null
+  int soft_jit;         // soft shadows with AA: 2 rows a light and node
+  int fuzzy;            // fuzzy reflection: 3 rows a spawning node
+  float roughness;
+  float si, sj;         // the subpixel's AA indices
+  int spp;
+  Sky sky;
 };
+
+// Inside the unit sphere from three U[0,1) draws, cube-root radius
+// (ops/sampling.unit_sphere_from_uniforms, common.glsl:78-84)
+__device__ __forceinline__ V3 unit_sphere(float u1, float u2, float u3) {
+  const float x = u1 * 2.f - 1.f;
+  const float phi = u2 * kTwoPi;
+  const float r = cbrtf(u3);
+  const float s = sqrtf(fmaxf(1.f - x * x, 0.f));
+  return v3(r * (s * sinf(phi)), r * (s * cosf(phi)), r * x);
+}
+
+// Rows of node (lvl, *) and the first row of node (lvl, path) in the
+// layout of models/samples.stream_layout: levels in order, each level's
+// nodes in path order, a node's shadow rows before its fuzzy rows.
+__device__ __forceinline__ int rows_per_node(const Params& P, int lvl, int n_levels) {
+  return (P.soft_jit ? 2 * P.n_lights : 0) + (P.fuzzy && lvl < n_levels - 1 ? 3 : 0);
+}
+
+__device__ __forceinline__ int node_row(const Params& P, int lvl, int path,
+                                        int n_levels, int branch) {
+  int base = 0, w = 1;
+  for (int l = 0; l < lvl; ++l) {
+    base += w * rows_per_node(P, l, n_levels);
+    w *= branch;
+  }
+  return base + path * rows_per_node(P, lvl, n_levels);
+}
 
 // The minimum of 4 blocks per SM caps a thread at 128 registers; with it
 // ptxas keeps the depth-4 instantiation free of spills and stack (without
@@ -321,12 +444,16 @@ __global__ void __launch_bounds__(kThreads, 4) whitted_kernel(Params P) {
               P.n_lights};
   const float max_t = P.shadow_unbounded ? kBig : 1.f;
   const bool secondary = P.has_refl || P.has_refr;
+  const int n_levels = secondary ? MAXD : 1;
+  const int branch = (P.has_refl && P.has_refr) ? 2 : 1;
+  const bool streamed = P.soft_jit || P.fuzzy;
 
   V3 o = load3(P.ray_o + 3 * r);
   V3 d = load3(P.ray_d + 3 * r);
   V3 w = v3(1.f, 1.f, 1.f);
   float ior = 1.f;
   int depth = 1;
+  int path = 0;
   V3 acc = v3(0.f, 0.f, 0.f);
   Stack<(MAXD > 1 ? MAXD - 1 : 1)> stack;
 
@@ -335,7 +462,7 @@ __global__ void __launch_bounds__(kThreads, 4) whitted_kernel(Params P) {
     float t;
     const int id = closest(s, o, d, t);
     if (id < 0) {
-      acc = acc + w * s.bg;
+      acc = acc + w * (P.sky.tex != nullptr ? sky_color(P.sky, d) : s.bg);
     } else {
       const float* p = s_tbl + id * kTblW;
       const V3 hp = o + d * t;
@@ -352,7 +479,12 @@ __global__ void __launch_bounds__(kThreads, 4) whitted_kernel(Params P) {
       nrm = normalize(nrm);
       const V3 precise = hp + nrm * kEps;
       Mat m{load3(p + 12), load3(p + 15), p[18], p[19], p[20], p[21], p[22]};
-      V3 local = direct_light(s, hp, precise, nrm, d, m, max_t, P.soft_grid);
+      // this node's stream rows at this ray
+      const float* node = streamed
+          ? P.rows + (size_t)node_row(P, depth - 1, path, n_levels, branch) * P.n_rays + r
+          : nullptr;
+      const Jitter jit{P.soft_jit ? node : nullptr, P.n_rays, P.si, P.sj, P.spp};
+      V3 local = direct_light(s, hp, precise, nrm, d, m, max_t, P.soft_grid, jit);
 
       const bool leaf = depth >= MAXD;
       if (leaf || !secondary) {
@@ -363,6 +495,10 @@ __global__ void __launch_bounds__(kThreads, 4) whitted_kernel(Params P) {
         // flipped normal for the secondary rays (main.cpp:639-643)
         const bool inside = dot(d, nrm) > 0.f;
         const V3 nf = inside ? -nrm : nrm;
+        // the children's paths, the keys of their stream rows: with both
+        // branches the reflection child of p is 2p, the refraction child 2p+1
+        const int refl_path = branch == 2 ? 2 * path : path;
+        const int refr_path = branch == 2 ? 2 * path + 1 : path;
         float kr = m.ks;
         if (P.has_refr && m.transmit != 0.f) {
           // refraction (main.cpp:671-697) and Fresnel KR (main.cpp:699-717)
@@ -394,15 +530,26 @@ __global__ void __launch_bounds__(kThreads, 4) whitted_kernel(Params P) {
               rd = t_hat * sin_t + nf;
             }
             stack.push(Entry{hp + rd * 0.001f, rd, w * (1.f - kr), new_ior,
-                             depth + 1});
+                             depth + 1, refr_path});
           }
         }
         if (P.has_refl && m.ks > 0.f) {
           // reflection child continues inline (main.cpp:646-667)
-          d = normalize(d - nf * (2.f * dot(d, nf)));
+          V3 rd = normalize(d - nf * (2.f * dot(d, nf)));
+          if (P.fuzzy) {
+            // perturbation by the node's unit-sphere sample, kept only in
+            // the normal's hemisphere (main.cpp:651-660)
+            const float* u = node + (size_t)(P.soft_jit ? 2 * P.n_lights : 0) * P.n_rays;
+            const V3 sph = unit_sphere(__ldg(u), __ldg(u + P.n_rays),
+                                       __ldg(u + 2 * (size_t)P.n_rays));
+            const V3 fz = normalize(rd + sph * P.roughness);
+            if (dot(fz, nf) > 0.f) rd = fz;
+          }
+          d = rd;
           o = precise;
           w = w * (m.spec * kr);
           depth += 1;
+          path = refl_path;
           descend = true;
         }
       }
@@ -415,6 +562,7 @@ __global__ void __launch_bounds__(kThreads, 4) whitted_kernel(Params P) {
     w = e.w;
     ior = e.ior;
     depth = e.depth;
+    path = e.path;
   }
 
   acc = clamp01(acc);
@@ -440,20 +588,27 @@ int launch(const Params& P, size_t smem, cudaStream_t stream) {
 
 // Plain C entry point, bound with ctypes. Pointers are device pointers to
 // contiguous f32: ray_o, ray_d, out [n_rays*3]; tbl [n*23]; lt
-// [max(1,n_lights)*6]; bg [3]. Launches on `stream` on the caller's current
-// device (the caller selects it), does not synchronise, and returns the
-// cudaError_t of the launch (0 = success).
+// [max(1,n_lights)*6]; bg [3]; rows [n_rows*n_rays] raw U[0,1) draws (null
+// when neither soft_jit nor fuzzy) of the subpixel (si, sj) of spp; sky
+// [6*sky_h*sky_w*3] u8 (sky_f32 = 0) or f32, or null for the flat
+// background. Launches on `stream` on the caller's
+// current device (the caller selects it), does not synchronise, and
+// returns the cudaError_t of the launch (0 = success).
 extern "C" int whitted_megakernel_launch(
     void* stream, const float* ray_o, const float* ray_d,
     float* out, int n_rays, const float* tbl, const float* lt,
     const float* bg, int n_tri, int n_sph, int n_pl, int n_box, int n_lights,
     int has_refl, int has_refr, int max_depth, int fresnel_mode,
-    int refraction_mode, int shadow_unbounded, int soft_grid) {
+    int refraction_mode, int shadow_unbounded, int soft_grid,
+    const float* rows, int soft_jit, int fuzzy, float roughness, float si,
+    float sj, int spp, const void* sky, int sky_h, int sky_w, int sky_f32) {
   if (n_rays <= 0) return 0;
+  if ((soft_jit || fuzzy) && rows == nullptr) return (int)cudaErrorInvalidValue;
   Params P{ray_o, ray_d, out, n_rays, tbl, lt, bg,
            n_tri, n_sph, n_pl, n_box, n_lights,
            has_refl, has_refr, fresnel_mode, refraction_mode,
-           shadow_unbounded, soft_grid};
+           shadow_unbounded, soft_grid, rows, soft_jit, fuzzy, roughness,
+           si, sj, spp, Sky{sky, sky_h, sky_w, sky_f32}};
   const int n = n_tri + n_sph + n_pl + n_box;
   const size_t smem =
       sizeof(float) * (size_t)(n * kTblW + 6 * (n_lights > 1 ? n_lights : 1));

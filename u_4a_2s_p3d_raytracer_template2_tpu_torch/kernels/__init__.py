@@ -17,6 +17,7 @@ import torch
 
 from ..models.pathtracer import N_UNIFORMS
 from ..models.pt_megakernel import ROW_W
+from ..models.whitted_megakernel import layout_of
 from .build import load
 
 _FRESNEL = {"schlick": 0, "reference_schlick": 1, "reference_exact": 2}
@@ -30,7 +31,10 @@ def _whitted_entry():
     fn.argtypes = ([ctypes.c_void_p]                         # stream
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int]  # o, d, out, R
                    + [ctypes.c_void_p] * 3                   # tbl, lt, bg
-                   + [ctypes.c_int] * 12)
+                   + [ctypes.c_int] * 12
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 2  # rows, jit, fuzzy
+                   + [ctypes.c_float] * 3 + [ctypes.c_int]   # rough, i, j, spp
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 3)  # sky, h, w, f32
     return fn
 
 
@@ -80,14 +84,19 @@ def _check(name: str, t: torch.Tensor, device: torch.device, numel=None,
             "item 11)")
 
 
-def whitted_megakernel(tbl, lt, bg, o, d, shape, cfg) -> torch.Tensor:
+def whitted_megakernel(tbl, lt, bg, o, d, shape, cfg, rows=None,
+                       sky=None, offsets=None) -> torch.Tensor:
     """Clamped [R,3] color of rays (o, d) [R,3] through the whole Whitted
     tree, on the card (csrc/whitted_megakernel.cu).
 
     ``tbl``/``lt``/``bg`` are ``models.whitted_megakernel.scene_tables``;
     ``shape`` its ``StaticShape``; ``cfg`` a ``RenderConfig`` that passes
-    ``models.whitted.check_config`` (no anti-aliasing, so ``soft_shadow``
-    means the deterministic 4x4 grid) with max_depth in 1..8.
+    ``models.whitted.check_config``, max_depth in 1..8. ``rows``: the
+    ``[n_rows, R]`` raw stream rows of the config's layout
+    (``models.whitted_megakernel.layout_of``), when it has any, and
+    ``offsets`` the subpixel's (i, j) indices under AA. ``sky``: the
+    ``[6, H, W, 3]`` u8 or f32 cubemap a miss reads, or None for the flat
+    background.
     """
     if o.device.type != "cuda":
         raise ValueError(f"whitted_megakernel runs on CUDA tensors, not "
@@ -102,6 +111,25 @@ def whitted_megakernel(tbl, lt, bg, o, d, shape, cfg) -> torch.Tensor:
     _check("tbl", tbl, dev, shape.n * 23)
     _check("lt", lt, dev, 6 * max(1, shape.n_lights))
     _check("bg", bg, dev, 3)
+    layout = layout_of(shape, cfg)
+    rows_ptr = None
+    if layout.n_rows:
+        if rows is None:
+            raise ValueError(f"this config reads {layout.n_rows} stream rows "
+                             "a ray; got none")
+        _check("rows", rows, dev, layout.n_rows * R)
+        rows_ptr = rows.data_ptr()
+    si, sj = offsets if offsets is not None else (0.0, 0.0)
+    sky_ptr, sky_h, sky_w, sky_f32 = None, 0, 0, 0
+    if sky is not None:
+        if sky.dim() != 4 or sky.shape[0] != 6 or sky.shape[3] != 3:
+            raise ValueError(f"sky: want [6, H, W, 3], got "
+                             f"{tuple(sky.shape)}")
+        if sky.dtype not in (torch.uint8, torch.float32):
+            raise ValueError(f"sky: want uint8 or float32, got {sky.dtype}")
+        _check("sky", sky, dev, dtype=sky.dtype)
+        sky_ptr, sky_h, sky_w = sky.data_ptr(), sky.shape[1], sky.shape[2]
+        sky_f32 = int(sky.dtype == torch.float32)
     out = torch.empty_like(o)
     with torch.cuda.device(dev):  # restores the caller's device after
         rc = _whitted_entry()(
@@ -112,7 +140,10 @@ def whitted_megakernel(tbl, lt, bg, o, d, shape, cfg) -> torch.Tensor:
             shape.n_lights, int(shape.has_refl), int(shape.has_refr),
             cfg.max_depth, _FRESNEL[cfg.fresnel_mode],
             _REFRACTION[cfg.refraction_mode], int(cfg.shadow_unbounded),
-            int(cfg.soft_shadow))
+            int(cfg.soft_shadow and not cfg.anti_aliasing),
+            rows_ptr, int(layout.soft_jit), int(layout.fuzzy),
+            float(cfg.roughness), float(si), float(sj), max(cfg.spp, 1),
+            sky_ptr, sky_h, sky_w, sky_f32)
     if rc != 0:
         raise RuntimeError(f"whitted_megakernel launch failed: CUDA error "
                            f"{rc}")

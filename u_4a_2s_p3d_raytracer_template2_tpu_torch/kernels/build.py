@@ -21,24 +21,30 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # f32 throughout: no fast math (nvcc's default IEEE division and sqrt).
-# Multiply-add contraction stays on (nvcc's default): on mount_low 512x512
-# depth 4 it leaves 5 of 262144 pixels beyond 2e-3 of the plain version,
-# against 0 with --fmad=false, well inside the image tolerance, and the
-# kernel was faster in 30 of 30 alternating pairs, median 3.6% (H100 80GB
-# HBM3, 700 W).
+# Multiply-add contraction stays on (nvcc's default) for the path tracer.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Sources built without contraction. The BVH walk answers which primitive a
-# ray hits, not a color: contracted, its sphere tests took another primitive
-# than the plain version's on 43 of 262,144 silhouette rays (0.016%) of the
-# 7,396-sphere field at 512x512 (H100 80GB HBM3, 700 W); uncontracted, its
-# f32 operations are the plain version's, one for one. Its slab tests have
+# Sources built without contraction. The Whitted kernel picks a skybox
+# texel by truncating a face coordinate: contracted, its directions round
+# otherwise than the plain version's, and on mount_low 512x512, spp 4,
+# depth 4 with a 2048x2048 noisy cubemap 2.63% of pixels differed by more
+# than 2e-3 (mean 7.4e-5); uncontracted 0.012% (mean 3.3e-7), at 3.5-3.7%
+# more kernel time (0.162-0.165 against 0.156-0.159 ms a launch, 6
+# alternating pairs in each of three calls; chip_faults.py on an H100 80GB
+# HBM3, 700 W, which requires the frame's limit to reject the contracted
+# build). The BVH walk
+# answers which primitive a ray hits, not a color: contracted, its sphere tests
+# took another primitive than the plain version's on 43 of 262,144
+# silhouette rays (0.016%) of the 7,396-sphere field at 512x512 (H100 80GB
+# HBM3, 700 W); uncontracted, its f32 operations are the plain version's,
+# one for one. Its slab tests have
 # no multiply-add to contract. The brute-force kernels answer the same
 # question with the same sphere and triangle tests, and are built the same
 # way for the same reason. The device probes measure what the card retires
 # under those flags, and their chains then round as their plain versions do
 # except where they call fmaf.
-NO_CONTRACTION = ("bvh_walk", "brute_intersect", "probes")
+NO_CONTRACTION = ("whitted_megakernel", "bvh_walk", "brute_intersect",
+                  "probes")
 
 
 def flags(name: str) -> tuple[str, ...]:

@@ -4,7 +4,8 @@
 ``mount_scene`` reproduces the primary benchmark scene geometry
 (P3D_Scenes/mount_low.p3f: 8 triangles forming a mountain, 4 transmissive
 spheres with ior 1.6, one light) so the port renders it without the reference
-checkout. ``sphere_field_scene`` is the deterministic sphere field of the
+checkout; ``mount_distribution_scene`` is the same in distribution mode with
+a skybox, whose faces ``synthetic_skybox`` makes from a seed. ``sphere_field_scene`` is the deterministic sphere field of the
 balls_high shape; ``random_scene`` the RTiOW-style generator
 (scene.cpp:677-751).
 """
@@ -50,6 +51,40 @@ def mount_scene(res: int = 512, accel: int = C.ACCEL_NONE) -> SceneDef:
     for a, b, c in tris:
         sd.add_triangle(a, b, c, rock)
     return sd
+
+
+# mount_distribution_scene's lens, in pixels (camera.h:66): at 512x512 it
+# blurs mount_low's spheres visibly off the focal plane.
+DISTRIBUTION_APERTURE_RATIO = 8.0
+
+
+def mount_distribution_scene(res: int = 512, skybox_dir=None) -> SceneDef:
+    """mount_low in the reference's distribution mode: spp 4, the AA grid
+    side (``RenderConfig.with_scene_flags`` turns on AA and DoF, as
+    balls_low.p3f and dof.p3f ship), a lens of DISTRIBUTION_APERTURE_RATIO
+    pixels with the focal plane at mount_low's focal_ratio 0.7, and the
+    ``env`` cubemap directory ``skybox_dir``."""
+    sd = mount_scene(res)
+    sd.spp = 4
+    sd.camera["aperture_ratio"] = DISTRIBUTION_APERTURE_RATIO
+    sd.skybox_dir = skybox_dir
+    return sd
+
+
+def synthetic_skybox(size: int = 2048, seed: int = 0) -> np.ndarray:
+    """[6, size, size, 3] u8 cubemap made from ``seed``: a smooth gradient
+    in a tint of its own on each face, plus noise (sigma 6 of 255), so
+    neighbouring texels differ and a wrong texel shows."""
+    rng = np.random.default_rng(seed)
+    tints = rng.uniform(0.2, 1.0, (6, 3)).astype(np.float32)
+    ramp = np.linspace(0.0, 1.0, size, dtype=np.float32)
+    grad = 0.3 + 0.35 * (ramp[:, None] + ramp[None, :])
+    out = np.empty((6, size, size, 3), np.uint8)
+    for f in range(6):
+        v = grad[:, :, None] * tints[f] * 255.99
+        v = v + 6.0 * rng.standard_normal((size, size, 3), dtype=np.float32)
+        out[f] = np.clip(v, 0.0, 255.0).astype(np.uint8)
+    return out
 
 
 def sphere_field_scene(n_side: int = 16, res: int = 512,

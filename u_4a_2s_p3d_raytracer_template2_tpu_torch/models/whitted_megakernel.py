@@ -17,6 +17,18 @@ version is the sweep engine (models/whitted.py) over a scene rebuilt from the
 same tables (``reconstruct_scene``), then clamped: the split of
 ``whitted_streamed.py:389-395``.
 
+Distribution mode reads the sample plan of models/samples.py: the primary
+rays of each subpixel are made in PyTorch (jitter, thin lens, shutter
+time), and the kernel and its plain version read the same ``[n_rows, R]``
+stream rows (the raw draws of the jittered light offsets and the
+fuzzy-reflection perturbations, which each turns into values itself). A
+miss reads the cubemap in the kernel, from device memory, in place of the
+JAX kernel's deferred-sky epilogue. ``render_tile`` runs the anti-aliasing
+loop of models/whitted.render_samples with one launch a subpixel (16 a frame
+at spp 4): a subpixel's launch already holds 262,144 rays at 512², two
+blocks per SM-slot and more, so a loop inside the kernel would buy no
+occupancy, and each launch reads only its own subpixel's rows.
+
 ``trace_rays_megakernel`` dispatches on the device of its tensors: CPU
 tensors take the plain version, CUDA tensors launch the kernel or raise.
 There is no fallback from one to the other. Forward only: the
@@ -41,6 +53,7 @@ from ..core.types import (
     clamp01,
 )
 from ..ops import intersect
+from .samples import stream_layout
 
 MAX_PRIMS = 256      # the JAX megakernels' unroll ceiling, kept as the envelope
 MAX_DEPTH = 8        # deepest tree the kernel is instantiated for
@@ -127,10 +140,11 @@ def _round_up(n: int, m: int) -> int:
     return max(m, ((n + m - 1) // m) * m)
 
 
-def reconstruct_scene(shape: StaticShape, tbl, lt, bg) -> Scene:
+def reconstruct_scene(shape: StaticShape, tbl, lt, bg, skybox=None) -> Scene:
     """Grouped-order Scene rebuilt from the tables
     (``whitted_streamed.py:165-234``): brute traversal, one material row per
-    primitive with mat_id = arange, and a placeholder camera."""
+    primitive with mat_id = arange, a placeholder camera, and the cubemap
+    ``skybox`` if given."""
     dev = tbl.device
     N = shape.n
     tblm = tbl.reshape(N, TBL_W)
@@ -182,24 +196,40 @@ def reconstruct_scene(shape: StaticShape, tbl, lt, bg) -> Scene:
         n_tri=shape.n_tri, n_sph=shape.n_sph, n_pl=shape.n_pl,
         n_box=shape.n_box)
     return Scene(prims=prims, materials=mats, lights=lights, camera=cam,
-                 bg_color=bg, accel_type=C.ACCEL_NONE, spp=0, n_objects=N,
+                 bg_color=bg, skybox=skybox, has_skybox=skybox is not None,
+                 accel_type=C.ACCEL_NONE, spp=0, n_objects=N,
                  n_lights=shape.n_lights, has_reflective=shape.has_refl,
                  has_transmissive=shape.has_refr,
                  brute=intersect.brute_tables(prims))
 
 
+def layout_of(shape: StaticShape, cfg: RenderConfig):
+    """The stream rows' layout (models/samples.py) for this shape."""
+    return stream_layout(shape.has_refl, shape.has_refr, shape.n_lights, cfg)
+
+
 def trace_rays_plain(shape: StaticShape, tbl, lt, bg, o, d,
-                     cfg: RenderConfig) -> torch.Tensor:
-    """The kernel's plain version: clamped [R,3] color of rays (o, d)."""
+                     cfg: RenderConfig, rows=None, skybox=None,
+                     offsets=None) -> torch.Tensor:
+    """The kernel's plain version: clamped [R,3] color of rays (o, d), with
+    the stream rows ``rows`` [n_rows, R] of the subpixel ``offsets`` (i, j)
+    and the cubemap ``skybox`` (read on a miss under ``use_skybox``)."""
     from .whitted import trace_rays
 
-    scene = reconstruct_scene(shape, tbl, lt, bg)
-    return clamp01(trace_rays(scene, Rays.make(o, d), cfg))
+    scene = reconstruct_scene(shape, tbl, lt, bg, skybox)
+    return clamp01(trace_rays(scene, Rays.make(o, d), cfg, rows, offsets))
 
 
-def trace_rays_megakernel(scene: Scene, rays: Rays,
-                          cfg: RenderConfig) -> torch.Tensor:
-    """Clamped [R,3] color of primary rays through the whole Whitted tree.
+def sky_of(scene: Scene, cfg: RenderConfig):
+    """The cubemap a miss reads, or None (flat background)."""
+    return scene.skybox if (cfg.use_skybox and scene.has_skybox) else None
+
+
+def trace_rays_megakernel(scene: Scene, rays: Rays, cfg: RenderConfig,
+                          rows=None, offsets=None) -> torch.Tensor:
+    """Clamped [R,3] color of primary rays through the whole Whitted tree,
+    with the stream rows ``rows`` of the config's sample plan and the
+    subpixel indices ``offsets``.
 
     CPU tensors run the plain version; CUDA tensors launch the CUDA kernel
     or raise.
@@ -211,12 +241,26 @@ def trace_rays_megakernel(scene: Scene, rays: Rays,
     shape = shape_of(scene)
     tbl, lt, bg = scene_tables(scene)
     o, d = rays.origin, rays.direction
+    sky = sky_of(scene, cfg)
     if o.device.type == "cpu":
-        return trace_rays_plain(shape, tbl, lt, bg, o, d, cfg)
+        return trace_rays_plain(shape, tbl, lt, bg, o, d, cfg, rows, sky,
+                                offsets)
     if o.device.type != "cuda":
         raise NotImplementedError(
             f"the megakernel runs on CUDA or CPU tensors, not {o.device}")
     from ..kernels import whitted_megakernel
 
     return whitted_megakernel(tbl, lt, bg, o.contiguous(), d.contiguous(),
-                              shape, cfg)
+                              shape, cfg, rows, sky, offsets)
+
+
+def render_tile(scene: Scene, px: torch.Tensor, py: torch.Tensor,
+                cfg: RenderConfig, generator=None,
+                draws=None) -> torch.Tensor:
+    """models/whitted.render_tile on the megakernel: the same subpixel loop
+    and draws, one ``trace_rays_megakernel`` a subpixel."""
+    from .whitted import render_samples
+
+    check_supported(scene, cfg)
+    return render_samples(scene, px, py, cfg, trace_rays_megakernel,
+                          generator, draws)

@@ -1,19 +1,22 @@
 """T2 on the card: the f32 FMA ceiling that a plain stream reaches, and the
 per-class instruction ceilings; the counterpart of the ``vpu_peak`` section
-and the roofline convention of tools/device_validate.py.
+and the roofline convention of tools/device_validate.py. Its
+"distribution" section is the JAX tool's (tools/device_validate.py:357-413
+there): a distribution-mode frame (spp 4, so 16 AA+DoF samples a pixel)
+with a 6x2048x2048 u8 skybox on the megakernel engine.
 
 The JAX tool's other sections are not repeated here: chip_smoke.py's phases
 3-14 hold every ported kernel (spheres K4, the Whitted megakernel K1/K2,
 the path tracer K3, the packet walk K5) to its plain version beside its
-bound. Its distribution-mode and grid sections wait for ROADMAP.md queue 1
-items 7 and 9; its dragon and mount_high rows wait for their .p3f files.
+bound. Its grid section waits for ROADMAP.md queue 1 item 9; its dragon,
+mount_high and balls_low rows wait for their .p3f files.
 
 Bounds keep the datasheet peaks (chip_smoke.PEAK_F32_FLOPS, 67 TFLOP/s at
 700 W); what T2 measures stands beside them as what a plain FMA stream
 reaches at the clock the card holds.
 
     python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.device_validate \\
-        [peak|sass|all] [--device cpu]
+        [peak|sass|distribution|all] [--p3f scene.p3f] [--device cpu]
 """
 from __future__ import annotations
 
@@ -169,10 +172,92 @@ def sass_counts() -> dict[str, Counter]:
     return out
 
 
+def distribution_scene(device, p3f=None, env_dir=None, res: int = 512,
+                       sky_side: int = 2048):
+    """(scene, cfg) of the distribution section: the ``.p3f`` file ``p3f``
+    (its spp and env lines), or, since balls_low.p3f is not in the repo,
+    mount_low at ``res``² in distribution mode
+    (``scenes.mount_distribution_scene``: spp 4, a lens of 8 pixels) with
+    ``sky_side``² u8 faces made from seed 0 and written as PNGs into
+    ``env_dir`` (unless its faces are there). The
+    config: the megakernel engine, jittered soft shadows, fuzzy reflection
+    and the skybox, with the scene's spp coupling."""
+    import os
+
+    from ..core.build import build_scene
+    from ..core.types import RenderConfig
+    from ..io.p3f import parse_p3f
+    from ..io.skybox import save_skybox_dir
+    from ..models import scenes
+
+    if p3f is not None:
+        sd = parse_p3f(p3f)
+    else:
+        if not os.path.exists(os.path.join(env_dir, "right.png")):
+            save_skybox_dir(env_dir, scenes.synthetic_skybox(sky_side, 0))
+        sd = scenes.mount_distribution_scene(res, env_dir)
+    scene = build_scene(sd, device=device)
+    cfg = RenderConfig(engine="megakernel", soft_shadow=True,
+                       fuzzy_reflection=True,
+                       use_skybox=True).with_scene_flags(scene)
+    return scene, cfg
+
+
+def distribution(device="cuda", p3f=None, env_dir=None, sub: int = 64
+                 ) -> dict:
+    """The distribution section: frame ms (median of 21 frames, draws
+    included), Mrays/s as res²·spp²·(1 + lights), the image's mean and
+    std, and the kernel against its plain version on the frame's lower-left
+    ``sub``² pixels from the same draws."""
+    import dataclasses
+    import tempfile
+
+    from ..models.whitted import pixel_grid, render_image, render_tile
+    from ..models.samples import draw_plan, scene_layout
+    from ..utils.timing import frame_ms, mrays_per_s
+
+    tmp = None
+    if p3f is None and env_dir is None:
+        tmp = tempfile.TemporaryDirectory()
+        env_dir = tmp.name
+    scene, cfg = distribution_scene(device, p3f, env_dir)
+    img = render_image(scene, cfg,
+                       torch.Generator(device=device).manual_seed(0))
+    ms = frame_ms(scene, cfg)
+    cam = scene.camera
+    px, py = pixel_grid(cam.res_x, cam.res_y, scene.device)
+    keep = (px < sub) & (py < sub)
+    px, py = px[keep], py[keep]
+    draws = draw_plan(torch.Generator(device=device).manual_seed(1),
+                      scene_layout(scene, cfg), cfg, px.shape[0])
+    got = render_tile(scene, px, py, cfg, draws=draws)
+    want = render_tile(scene, px, py, dataclasses.replace(cfg, engine="sweep"),
+                       draws=draws)
+    diff = (got.double() - want.double()).abs()
+    out = dict(
+        scene=p3f or f"mount_low {cam.res_x}x{cam.res_y}",
+        samples_per_pixel=max(cfg.spp, 1) ** 2 if cfg.anti_aliasing else 1,
+        skybox=(f"{tuple(scene.skybox.shape)} {scene.skybox.dtype}"
+                if scene.has_skybox else "none"),
+        frame_ms=ms, mrays_per_s=mrays_per_s(scene, ms, cfg),
+        image_mean=float(img.mean()), image_std=float(img.std()),
+        kernel_vs_plain=dict(pixels=px.shape[0], max=float(diff.max()),
+                             mean=float(diff.mean())))
+    info = card_info()
+    out.update(card=info["name"], power_limit=info["power_limit"])
+    print(f"distribution: {out}", flush=True)
+    if tmp is not None:
+        tmp.cleanup()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("part", nargs="?", default="all",
-                    choices=("peak", "sass", "all"))
+                    choices=("peak", "sass", "distribution", "all"))
+    ap.add_argument("--p3f", default=None,
+                    help="the distribution section's scene (default: "
+                    "mount_low in distribution mode with a seeded skybox)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
@@ -191,6 +276,8 @@ def main(argv=None) -> int:
         for name, counts in sass_counts().items():
             print(f"sass {name}: " + ", ".join(
                 f"{op} {n}" for op, n in counts.most_common()))
+    if args.part in ("distribution", "all"):
+        distribution(device, args.p3f)
     return 0
 
 

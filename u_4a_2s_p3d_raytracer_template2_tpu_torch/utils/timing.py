@@ -3,9 +3,10 @@
 
 Every call is timed between two CUDA events on the current stream, and the
 result is the median after warm-up. Frames are distinct work: a Whitted
-frame's pixel grid drifts by 0.37 px per frame (the drift of ``bench.py``),
-and a path-tracer frame draws from a generator of its own seed, so no frame
-repeats another's inputs. Without a card these raise: a time here is a
+frame's pixel grid drifts by 0.37 px per frame (the drift of ``bench.py``)
+and, in distribution mode, draws its samples from a generator of its own
+seed inside the timed frame; a path-tracer frame draws from a generator of
+its own seed, so no frame repeats another's inputs. Without a card these raise: a time here is a
 device measurement.
 """
 from __future__ import annotations
@@ -64,7 +65,9 @@ def queued_ms(fn, args_list, *, rounds: int = 5, hold_cycles: int = 10**8
 
 def frame_ms(scene: Scene, cfg: RenderConfig, *, frames: int = 21,
              warmup: int = 3) -> float:
-    """Median ms of a full-frame ``render_tile`` over ``frames`` frames."""
+    """Median ms of a full-frame ``render_tile`` over ``frames`` frames,
+    the sample draws of a distribution-mode frame included (each frame's
+    generator is made before the timed calls)."""
     from ..models.whitted import pixel_grid, render_tile
 
     if scene.device.type != "cuda":
@@ -72,15 +75,21 @@ def frame_ms(scene: Scene, cfg: RenderConfig, *, frames: int = 21,
                            f"not {scene.device}")
     cam = scene.camera
     px, py = pixel_grid(cam.res_x, cam.res_y, scene.device)
-    args = [(scene, px + 0.37 * i, py, cfg) for i in range(frames)]
+    args = [(scene, px + 0.37 * i, py, cfg,
+             torch.Generator(device=scene.device).manual_seed(1000 + i))
+            for i in range(frames)]
     return cuda_ms(render_tile, args, warmup=warmup)
 
 
-def mrays_per_s(scene: Scene, frame_time_ms: float) -> float:
-    """Rate in the primary+shadow convention of ``bench.py``:
-    res_x·res_y·(1 + n_lights) rays per frame."""
+def mrays_per_s(scene: Scene, frame_time_ms: float,
+                cfg: RenderConfig | None = None) -> float:
+    """Rate in the primary+shadow convention of ``bench.py`` and the JAX
+    CLI: res_x·res_y·spp²·(1 + n_lights) rays per frame (spp² samples a
+    pixel under anti-aliasing, else 1)."""
     cam = scene.camera
-    rays = cam.res_x * cam.res_y * (1 + scene.n_lights)
+    spp2 = max(cfg.spp, 1) ** 2 if cfg is not None and cfg.anti_aliasing \
+        else 1
+    rays = cam.res_x * cam.res_y * spp2 * (1 + scene.n_lights)
     return rays / (frame_time_ms * 1e-3) / 1e6
 
 
