@@ -28,7 +28,12 @@ inputs:
     of occlusion results that differ, and whether chip_smoke.BVH_LIMITS
     reject it;
   * the brute-force kernels' (chip_smoke.brute_cases) with the same
-    readings, judged by chip_smoke.BRUTE_LIMITS;
+    readings over the live slots and the share of dead slots whose answer
+    is wrong (chip_smoke.brute_agreement, the kernel writing into poisoned
+    outputs), judged by chip_smoke.BRUTE_LIMITS; then the brute-force
+    controls (BRUTE_CONTROLS: the designs the sound kernel was chosen
+    over), which must answer as the sound kernel does, each timed beside
+    it in turns on the field's frame queries and the soup's triangles;
   * the device probes' checks of chip_smoke.py's phase 15: T3's walks of
     tools/probe_features.walk_cases against the oracle, exactly, in both
     stack placements, and T1's cheap class against its plain version
@@ -131,13 +136,105 @@ BVH_FAULTS = (
 # walk, csrc/prim_tests.cuh, and its faulty replacement)
 BRUTE_FAULTS = (
     ("tie rule keeps the higher id",
-     "(rank == brank && id < bid)", "(rank == brank && id > bid)"),
+     "(r == rank && i < id)", "(r == rank && i > id)"),
     ("tile loop drops the last partial tile",
-     "return (n + tile - 1) / tile;", "return n / tile;"),
+     "base < sph_hi; base += kSphTile", "base + kSphTile <= sph_hi; "
+     "base += kSphTile"),
+    ("slices drop the rows past the last whole slice",
+     "const int per = (n_rows + slices - 1) / slices;  // rows a slice",
+     "const int per = n_rows / slices;  // rows a slice"),
     ("any hit ignores max_t",
      "return t < max_t;", "return t < kBig;"),
     ("sphere test always takes the larger root",
      "float t = lo < 0.f ? hi : lo;", "float t = hi;"),
+    ("the sweep drops the last partial group of live rays",
+     "const int groups = (n + kGroup - 1) / kGroup;",
+     "const int groups = n / kGroup;"),
+    ("the slice combine drops the type rank from the key",
+     "return ((unsigned long long)tb << 32) | ((unsigned)b.rank << 31) |\n"
+     "         (unsigned)b.id;",
+     "return ((unsigned long long)tb << 32) | (unsigned)b.id;"),
+    ("the any-hit vote reads one lane",
+     "return __any_sync(kAll, hit);", "return __shfl_sync(kAll, hit, 0);"),
+    ("a dead slot's output is left unwritten",
+     "    out.t[slot] = kBig;  // a dead slot: no hit\n"
+     "    out.id[slot] = -1;\n", ""),
+)
+
+
+# Builds of csrc/brute_intersect.cu timed beside the sound kernel on the
+# field's frame queries and the soup's triangles (brute_controls): the
+# designs the sound kernel was chosen over. Each is (name, (text, its
+# replacement) pairs); each must answer as the sound kernel does, bit for
+# bit.
+BRUTE_CONTROLS = (
+    ("sphere rows with one branch a ray",
+     (("""        Gate gate[kRays];
+        bool open = false;
+#pragma unroll
+        for (int k = 0; k < kRays; ++k) {
+          gate[k] = sphere_gate(p, rr, ray[k]);
+          open |= gate[k].open();
+        }
+        if (open) {
+          const int id = __ldg(T.sph_id + base + j);
+#pragma unroll
+          for (int k = 0; k < kRays; ++k)
+            if (gate[k].open()) best[k].offer(gate[k].t(ray[k]), 1, id);
+        }""", """#pragma unroll
+        for (int k = 0; k < kRays; ++k) {
+          const Gate g = sphere_gate(p, rr, ray[k]);
+          if (g.open())
+            best[k].offer(g.t(ray[k]), 1, __ldg(T.sph_id + base + j));
+        }"""),)),
+    ("triangle rows with one branch a ray (triangle_t)",
+     (("""        TriGate gate[kRays];
+        bool open = false;
+#pragma unroll
+        for (int k = 0; k < kRays; ++k) {
+          gate[k] = triangle_gate(p0, p1, p2, ray[k]);
+          open |= gate[k].open();
+        }
+        if (open) {
+#pragma unroll
+          for (int k = 0; k < kRays; ++k)
+            if (gate[k].open())
+              best[k].offer(gate[k].t(p0, p1, p2, ray[k]), 0,
+                            __float_as_int(p2.y));
+        }""", """#pragma unroll
+        for (int k = 0; k < kRays; ++k)
+          best[k].offer(triangle_t(p0, p1, p2, ray[k]), 0,
+                        __float_as_int(p2.y));"""),
+      ("""          const TriGate g = triangle_gate(p0, p1, p2, r);
+          hit = g.open() && blocks(g.t(p0, p1, p2, r), max_t);""",
+       """          hit = blocks(triangle_t(p0, p1, p2, r), max_t);"""))),
+    ("any hit with the whole table resident in shared memory, 1,024 threads "
+     "a block (fits the field and the soup only)",
+     (("constexpr int kAnyThreads = 256; ", "constexpr int kAnyThreads = 1024; "),
+      ("""  const int lane = threadIdx.x & 31;
+  for (int w = blockIdx.x * kAnyWarps""", """  const int lane = threadIdx.x & 31;
+  extern __shared__ float4 s_tab[];
+  for (int i = threadIdx.x; i < 3 * T.n_tri + T.n_sph; i += kAnyThreads)
+    s_tab[i] = i < 3 * T.n_tri ? __ldg(T.tri + i)
+                               : __ldg(T.sph + i - 3 * T.n_tri);
+  __syncthreads();
+  for (int w = blockIdx.x * kAnyWarps"""),
+      ("""          const float4* p = T.tri + 3 * j;
+          const float4 p0 = __ldg(p), p1 = __ldg(p + 1), p2 = __ldg(p + 2);""",
+       """          const float4* p = s_tab + 3 * j;
+          const float4 p0 = p[0], p1 = p[1], p2 = p[2];"""),
+      ("const float4 p = __ldg(T.sph + j - T.n_tri);",
+       "const float4 p = s_tab[2 * T.n_tri + j];"),
+      ("""  const int grid = persistent_grid((const void*)brute_any_sweep, kAnyThreads,
+                                   1, true);
+  brute_any_sweep<<<grid, kAnyThreads, 0, st>>>""",
+       """  const int smem = 16 * (3 * n_tri + n_sph);
+  cudaFuncSetAttribute((const void*)brute_any_sweep,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, grid = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&grid, cudaDevAttrMultiProcessorCount, dev);
+  brute_any_sweep<<<grid, kAnyThreads, smem, st>>>"""))),
 )
 
 
@@ -367,8 +464,9 @@ def brute_verdicts(dev, kernels, sound, faulty):
         kernels._brute_entry = lambda n, entries=entries: entries[n]
         rejected = 0
         for (label, _, tables, query, args), want in zip(cases, wants):
-            reading = chip_smoke.hit_agreement(
-                query, chip_smoke.brute_run(query, tables, args), want)
+            reading = chip_smoke.brute_agreement(
+                query, chip_smoke.brute_run(query, tables, args, poison=True),
+                want, chip_smoke.dead_of(query, args))
             out = chip_smoke.rejects(reading, chip_smoke.BRUTE_LIMITS)
             rejected += bool(out)
             print(f"{name} | {label} ({query}): " + ", ".join(
@@ -376,6 +474,86 @@ def brute_verdicts(dev, kernels, sound, faulty):
                 + f"; {'rejected by ' + ', '.join(out) if out else 'passed'}")
         if (name == "sound") == (rejected > 0):
             failed.append(name)
+    return failed
+
+
+def brute_controls(dev, kernels, sound, controls):
+    """Names of the brute-force controls that answer otherwise than the
+    sound kernel. Each is timed beside it in turns (sound, control,
+    control, sound) with the launches queued: the field's 4 closest-hit and
+    8 any-hit queries of seven drifting frames with their masks, summed,
+    and the soup's triangles alone on the primaries (K4e) and light 0's
+    shadows (K4d)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import scenes
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.timing import (
+        queued_ms,
+    )
+
+    res, cfg = chip_smoke.RES, RenderConfig()
+    kernels._brute_entry = lambda n: sound[n]
+    field = build_scene(scenes.sphere_field_scene(
+        n_side=chip_smoke.FIELD_SIDE, res=res, accel=C.ACCEL_NONE),
+        device=dev)
+    soup = build_scene(chip_smoke.soup_scene(res=res), device=dev,
+                       accel=C.ACCEL_NONE)
+    tri = intersect.brute_tables(chip_smoke.subset(soup.prims, sph=False))
+    fq, sq = ([chip_smoke.frame_queries(scene, *chip_smoke.camera_rays(
+        scene, 0.37 * i), cfg) for i in range(7)] for scene in (field, soup))
+    # (label, query, tables, the query of a frame's (closest, shadows))
+    timed = ([(f"closest level {lvl}", "closest", field.brute,
+               lambda x, lvl=lvl: x[0][lvl]) for lvl in range(len(fq[0][0]))]
+             + [(f"any {k}", "any", field.brute, lambda x, k=k: x[1][k])
+                for k in range(len(fq[0][1]))])
+
+    def use(entries):
+        kernels._brute_entry = lambda n: entries[n]
+
+    def answers(entries):
+        use(entries)
+        return [chip_smoke.brute_run(query, tb, pick(fq[0]))
+                for _, query, tb, pick in timed]
+
+    def times(entries):
+        use(entries)
+        ms = {label: queued_ms(
+            lambda *a, q=query: chip_smoke.brute_run(q, a[0], a[1:]),
+            [(tb, *pick(x)) for x in fq]) for label, query, tb, pick in timed}
+        for label, query, pick in (("K4e", "closest", lambda x: x[0][0]),
+                                   ("K4d", "any", lambda x: x[1][0])):
+            ms[label] = queued_ms(
+                lambda *a, q=query: chip_smoke.brute_run(q, a[0], a[1:]),
+                [(tri, *pick(x)) for x in sq])
+        return ms
+
+    want = answers(sound)
+    failed = []
+    for name, lib in controls:
+        entries = {n: entry_of(lib, n, sound[n]) for n in sound}
+        same = all(all(torch.equal(a, b) for a, b in zip(g, w))
+                   if isinstance(g, tuple) else torch.equal(g, w)
+                   for g, w in zip(answers(entries), want))
+        print(f"control {name}: answers {'equal' if same else 'differ'}")
+        if not same:
+            failed.append(f"control {name}")
+        for who, e in (("sound", sound), (name, entries), (name, entries),
+                       ("sound", sound)):
+            ms = times(e)
+            closest = sum(v for k, v in ms.items() if k.startswith("closest"))
+            any_hit = sum(v for k, v in ms.items() if k.startswith("any"))
+            print(f"time {who}: the field's 4 closest-hit launches "
+                  f"{closest:.4f} ms (level 0 {ms['closest level 0']:.4f}), "
+                  f"8 any-hit launches {any_hit:.4f} ms (level 0, light 0 "
+                  f"{ms['any 0']:.4f}); the soup's triangles K4e "
+                  f"{ms['K4e']:.4f}, K4d {ms['K4d']:.4f} ms", flush=True)
+    kernels._brute_entry = lambda n: sound[n]
     return failed
 
 
@@ -434,11 +612,15 @@ def main() -> int:
             + [("probes", i, f) for i, f in enumerate(PROBE_FAULTS)])
     control_jobs = [(f"control{i}", edits, drop)
                     for i, (_, edits, drop, _) in enumerate(WHITTED_CONTROLS)]
+    brute_control_jobs = [(f"control{i}", edits)
+                          for i, (_, edits) in enumerate(BRUTE_CONTROLS)]
     bvh_names = ("bvh_closest_launch", "bvh_any_launch")
-    brute_names = ("brute_closest_launch", "brute_any_launch")
+    brute_names = ("brute_closest_launch", "brute_any_launch",
+                   "brute_scratch_bytes")
     probe_names = ("op_rate_launch", "fma_peak_launch", "stack_walk_launch")
     with concurrent.futures.ThreadPoolExecutor(
-            len(jobs) + len(control_jobs) + 5) as pool:
+            len(jobs) + len(control_jobs) + len(brute_control_jobs)
+            + 5) as pool:
         whitted_sound = pool.submit(kernels._whitted_entry)
         pt_sound = pool.submit(kernels._pt_entry)
         bvh_sound = pool.submit(lambda: {n: kernels._bvh_entry(n)
@@ -449,6 +631,8 @@ def main() -> int:
                                            for n in probe_names})
         control_libs = [pool.submit(build_fault, "whitted_megakernel", *j)
                         for j in control_jobs]
+        brute_control_libs = [pool.submit(build_fault, "brute_intersect", *j)
+                              for j in brute_control_jobs]
         libs = list(pool.map(
             lambda j: build_fault(j[0], f"fault{j[1]}", [j[2][1:]]), jobs))
     controls = [(name, lib.result(), verdict) for (name, _, _, verdict), lib
@@ -467,6 +651,9 @@ def main() -> int:
                              faulty["bvh_walk"])
               + brute_verdicts(dev, kernels, brute_sound.result(),
                                faulty["brute_intersect"])
+              + brute_controls(dev, kernels, brute_sound.result(),
+                               [(name, lib.result()) for (name, _), lib
+                                in zip(BRUTE_CONTROLS, brute_control_libs)])
               + probe_verdicts(dev, kernels, probe_sound.result(),
                                faulty["probes"]))
     print(f"chip_faults ({card}): " + (

@@ -52,24 +52,31 @@ Phases, each raising on failure:
   Brute-force path (the same field under ACCEL_NONE, 512x512, depth 4,
   sweep):
   12. the kernels (closest, any) against their plain version on the same
-     rays under BRUTE_LIMITS (brute_cases), the plain version PLAIN_BATCH
-     rays a call: the main path's primary rays, level-1 rays and shadow
-     segments with their dead masks at max_t 1 and unbounded; the soup's
-     triangles alone, spheres alone and both tables with incoherent rays,
-     segments and axis-parallel rays; twinned primitives in shuffled rows,
-     where only the tie rule decides;
+     rays under BRUTE_LIMITS (brute_cases, brute_agreement: readings over
+     the live slots, and every dead slot exactly (BIG, -1) or occluded, the
+     kernel writing into poisoned outputs), the plain version PLAIN_BATCH
+     slots a call: the main path's primary rays, level-1 rays and shadow
+     segments with their dead masks at max_t 1 and unbounded; the frame's
+     own queries of levels 1-3 with the masks the sweep hands them
+     (frame_queries); the level-1 query with 0, 1, 31, 33 and 4,097 live
+     slots; the soup's triangles alone, spheres alone and both tables with
+     incoherent rays, segments and axis-parallel rays; twinned primitives
+     in table order and in shuffled rows, with many rays and with few (the
+     table then split into slices), where only the tie rule decides;
   13. main path: render_image of the field with the launch counters reset
      just before and read just after (4 closest, 8 any-hit, no walk); the
      image against the BVH walk's of phase 10; the soup at 512x512 the same
      way; the PNGs; the CLI render command with --accel 0;
-  14. timing: each kernel alone on the main path's primary and level-1
-     queries and per table mix (the field's spheres alone, the soup's
-     triangles alone), as device time with the launches queued, its plain
-     version on one batch, the bound from the kernel's own work counters
-     (its tests by where each ended, BRUTE_STAGE_OPS), whole frames and a
-     frame's breakdown under torch.profiler with the kernels' share of
-     device time. Each K4 entry of the kernels line gives the rays its "ms"
-     and its "plain_ms" were timed on ("rays", "plain_rays").
+  14. timing: the live slots of each level; each kernel alone on the
+     frame's 12 queries with their masks (4 closest, 8 any hit), per table
+     mix (the field's spheres alone, the soup's triangles alone), as device
+     time with the launches queued, its plain version on one batch, the
+     bound from the plain version's count of its work (each test charged
+     BRUTE_STAGE_OPS by where it ended, intersect.brute_stages), the
+     frame's 4 and 8 launches summed; whole frames and a frame's breakdown
+     under torch.profiler with the compaction's, the closest hit's and the
+     any hit's device time. Each K4 entry of the kernels line gives the
+     slots and live rays its "ms" was timed on and its "plain_ms"'s.
   Device probes (csrc/probes.cu; the port's tools/ package):
   15. T2's f32 FMA stream against its plain version, its TFLOP/s beside the
      datasheet's 67 and the SM clock under load; T1's five instruction
@@ -549,10 +556,12 @@ def profile_frames(label, frame, args_of, card, frames=20, share_of=()):
           + "; ".join(f"{name[:90]} {us / 1e3 / frames:.4f} ms/frame"
                       for name, us in top))
     if share_of:
-        ms = sum(us for name, us in by_name.items()
-                 if any(s in name for s in share_of)) / 1e3 / frames
+        parts = {s: sum(us for name, us in by_name.items() if s in name)
+                 / 1e3 / frames for s in share_of}
+        ms = sum(parts.values())
         print(f"profile {label}: kernels named {'/'.join(share_of)} "
-              f"{ms:.4f} ms/frame, {100 * ms / busy_ms:.1f}% of device busy")
+              f"{ms:.4f} ms/frame, {100 * ms / busy_ms:.1f}% of device busy ("
+              + ", ".join(f"{s} {v:.4f}" for s, v in parts.items()) + ")")
 
 
 def whitted_work(scene, o, d, cfg, rows=None, offsets=None):
@@ -947,9 +956,10 @@ def rejects(reading, limits):
 
 def bvh_work(query, tables, args):
     """(GFLOP, MB, bound ms, bound by) of one launch on ``args``, from the
-    work the kernel's own walk counts: node box tests and primitive tests
-    per type (its per-ray counters), against rays in, results out and the
-    tables once."""
+    work the kernel's own walk counts (its per-ray counters): node box
+    tests; triangle and sphere tests by where each ended, each charged
+    BRUTE_STAGE_OPS as brute force's are; plane and box tests; against rays
+    in, results out and the tables once."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
 
     o = args[0]
@@ -959,11 +969,11 @@ def bvh_work(query, tables, args):
     fn = {"closest": kernels.bvh_closest, "any": kernels.bvh_any,
           "multi": kernels.bvh_any_multi}[query]
     fn(tables, *args, counts=counts)
-    nodes, tris, sphs, planes, boxes = counts.sum(dim=0, dtype=torch.int64
-                                                  ).tolist()
-    flops = (nodes * NODE_TEST + tris * TRI_TEST + planes * PLANE_TEST
-             + boxes * BOX_TEST
-             + sphs * (SPH_CLOSEST if query == "closest" else SPH_ANY))
+    c = counts.sum(dim=0, dtype=torch.int64).tolist()
+    nodes, stages, planes, boxes = c[0], c[1:7], c[7], c[8]
+    tris, sphs = sum(stages[:4]), sum(stages[4:])
+    flops = (nodes * NODE_TEST + planes * PLANE_TEST + boxes * BOX_TEST
+             + sum(n * ops for n, ops in zip(stages, BRUTE_STAGE_OPS)))
     n_bytes = 4 * sum(t.numel() for t in (tables.nodes, tables.rows,
                                           tables.planes))
     if query == "closest":
@@ -972,8 +982,11 @@ def bvh_work(query, tables, args):
         sets = args[1].shape[0] if query == "multi" else 1
         n_bytes += R * 12 + sets * R * (12 + 1 + 1)  # o; d, dead in; occ
     ms, by = bound(flops, n_bytes)
-    print(f"  work: {nodes / R:.3f} node tests, {tris / R:.3f} triangle, "
-          f"{sphs / R:.3f} sphere, {planes / R:.3f} plane and {boxes / R:.3f} "
+    print(f"  work: {nodes / R:.3f} node tests, {tris / R:.3f} triangle "
+          f"(ended at det {stages[0] / R:.3f}, u {stages[1] / R:.3f}, v "
+          f"{stages[2] / R:.3f}, with t {stages[3] / R:.3f}), {sphs / R:.3f} "
+          f"sphere (at the discriminant {stages[4] / R:.3f}, with roots "
+          f"{stages[5] / R:.3f}), {planes / R:.3f} plane and {boxes / R:.3f} "
           f"box tests per ray; {flops / 1e9:.4f} GFLOP, {n_bytes / 1e6:.4f} "
           f"MB; bound {ms:.5f} ms ({by})")
     return flops, n_bytes, ms, by
@@ -983,23 +996,33 @@ def bvh_work(query, tables, args):
 # the brute-force kernels (csrc/brute_intersect.cu)
 
 # The brute-force kernels against their plain version on the same rays,
-# per case: the readings of hit_agreement, with BVH_LIMITS' values. The
-# kernels are built without multiply-add contraction, so the sound kernels
-# read 0 on all three (chip_faults.py plants faults that they reject).
-BRUTE_LIMITS = {"ids": 1e-4, "t_rel": 1e-5, "occ": 1e-4}
+# per case: the readings of hit_agreement over the live slots, with
+# BVH_LIMITS' values, and "dead", the share of dead slots whose answer is
+# not exactly (BIG, -1), or occluded, which must be 0 (brute_agreement).
+# The kernels are built without multiply-add contraction, so the sound
+# kernels read 0 on all four (chip_faults.py plants faults that they
+# reject).
+BRUTE_LIMITS = {"ids": 1e-4, "t_rel": 1e-5, "occ": 1e-4, "dead": 0.0}
 # Rays per call of the plain version on the card: its [R, 2048]
 # temporaries take 268 MB each at this size; a whole 512x512 level at once
 # would need tens of GB.
 PLAIN_BATCH = 32768
-# Operations of one brute-force test by where it ended, in the kernels'
-# counter order (kernels.BRUTE_COUNTS): a triangle test at the det gate,
-# the u gate, the v gate, with its t; a sphere test at the discriminant,
-# with its roots. Counted from csrc/prim_tests.cuh, each add, subtract,
+# Operations of one brute-force test by where it ended, in
+# ops/intersect.BRUTE_STAGES' order: a triangle test at the det gate, the u
+# gate, the v gate, with its t; a sphere test at the discriminant, with its
+# roots. Counted from csrc/prim_tests.cuh's formulas, each add, subtract,
 # multiply, divide, square root, min, max and compare one operation
 # (negation, abs and selects none): 15, 27, 45 and 52 for a triangle, 20
 # and 30 for a sphere, plus the one compare that folds the test's t into
 # the ray's answer (t < kBig in a closest hit, t < max_t in an any hit).
 BRUTE_STAGE_OPS = (16, 28, 46, 53, 21, 31)
+# The field's primaries' closest-hit bound at 512x512 (operations), as the
+# brute-force kernel's own per-stage counters counted it on the card before
+# the count moved to the plain version: brute_work must give it again.
+PRIMARY_BOUND_MS = 0.6080
+# Live slots of the masked cases at the compaction's and the ray groups'
+# edges: none, one, a warp less one and more one, a group of 4,096 and one
+EDGE_LIVE = (0, 1, 31, 33, 4097)
 
 
 def tie_scene(n=256, seed=3):
@@ -1043,18 +1066,60 @@ def subset(prims, tri=True, sph=True):
                                n_box=0)
 
 
+def frame_queries(scene, o, d, cfg):
+    """The brute-force queries of one frame of ``scene`` from the primary
+    rays (o, d), recorded as the sweep (models/whitted.trace_rays) hands
+    them to ops/intersect: ``closest``, one (o, d, dead) a level;
+    ``shadows``, one (o, d, max_t, dead) a level and light."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Rays
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import whitted
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
+
+    closest, shadows = [], []
+    fns = intersect.closest_hit_brute, intersect.any_hit_brute
+
+    def record_closest(prims, rays, tables=None, dead=None):
+        closest.append((rays.origin.contiguous(), rays.direction.contiguous(),
+                        dead))
+        return fns[0](prims, rays, tables, dead)
+
+    def record_any(prims, rays, max_t, dead=None, tables=None):
+        shadows.append((rays.origin.contiguous(), rays.direction.contiguous(),
+                        float(max_t), dead))
+        return fns[1](prims, rays, max_t, dead, tables)
+
+    intersect.closest_hit_brute = record_closest
+    intersect.any_hit_brute = record_any
+    try:
+        whitted.trace_rays(scene, Rays.make(o, d), cfg)
+    finally:
+        intersect.closest_hit_brute, intersect.any_hit_brute = fns
+    return closest, shadows
+
+
+def live_of(dead, n):
+    """Live slots of a query's dead mask (all ``n`` without one)."""
+    return n if dead is None else int((~dead).sum())
+
+
 def brute_cases(dev):
     """The brute-force kernels' kernel-against-plain cases as (label,
     prims, tables, query, args): the plain version reads ``prims``, the
-    kernel ``tables``; query "closest" takes (o, d), "any" (o, d, max_t,
-    dead). The main scene under ACCEL_NONE at 512x512: its primary rays,
-    its level-1 reflection and refraction rays, and its shadow segments at
-    the primary hits with their dead masks, at max_t 1 (the main path's)
-    and unbounded. The soup of 2,000 triangles and 2,000 spheres with
+    kernel ``tables``; query "closest" takes (o, d) or (o, d, dead), "any"
+    (o, d, max_t, dead). The main scene under ACCEL_NONE at 512x512: its
+    primary rays, its level-1 reflection and refraction rays, and its
+    shadow segments at the primary hits with their dead masks, at max_t 1
+    (the main path's) and unbounded; the frame's own closest-hit queries of
+    levels 1-3 and shadow queries of levels 1-3 with the masks the sweep
+    hands them (frame_queries); the level-1 query with EDGE_LIVE of its
+    hitting slots live. The soup of 2,000 triangles and 2,000 spheres with
     incoherent rays and segments (30% dead) through its triangles alone
     (K4e, K4d), its spheres alone (K4a, K4c) and both (K4b), and
     axis-parallel rays; tie_scene's rays aimed at twinned primitives and
-    down the z axis, with the kernel's rows in a random order."""
+    down the z axis, with the kernel's rows in a random order (8,256 rays,
+    and 256, which split the table into many slices, so that twins and the
+    tied triangle and sphere fall in different slices) and in table order
+    (twins in one slice)."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
         build_scene,
@@ -1082,7 +1147,30 @@ def brute_cases(dev):
         for li, (so, sd, _, dead) in enumerate(queries):
             yield (f"{tag} shadow segments, light {li}, max_t {max_t:g}",
                    field.prims, tables, "any", (so, sd, max_t, dead))
-    del field, queries, kids
+    del queries, kids
+    closest, shadows = frame_queries(field, o, d, RenderConfig())
+    n_lights = len(shadows) // len(closest)
+    for lvl in range(1, len(closest)):
+        q = closest[lvl]
+        yield (f"{tag} the frame's level-{lvl} rays, {live_of(q[2], 0)} of "
+               f"{q[0].shape[0]} slots live", field.prims, tables, "closest",
+               q)
+        for li in range(n_lights):
+            q = shadows[lvl * n_lights + li]
+            yield (f"{tag} the frame's level-{lvl} shadow segments, light "
+                   f"{li}, {live_of(q[3], 0)} live", field.prims, tables,
+                   "any", q)
+    ro, rd, rdead = closest[1]
+    _, hit_id = brute_plain("closest", field.prims, closest[1])
+    hits = torch.nonzero(hit_id >= 0)[:, 0]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    for k in EDGE_LIVE:
+        dead = torch.ones_like(rdead)
+        dead[hits[torch.randperm(hits.numel(), generator=g)[:k].to(dev)]] = (
+            False)
+        yield (f"{tag} the frame's level-1 rays, {k} live", field.prims,
+               tables, "closest", (ro, rd, dead))
+    del field, closest, shadows
 
     soup = build_scene(soup_scene(), device=dev, accel=C.ACCEL_NONE).prims
     rng = np.random.default_rng(2)
@@ -1091,8 +1179,7 @@ def brute_cases(dev):
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
-    o = rng.uniform(-8, 8, (n, 3))
-    d = rng.normal(size=(n, 3))
+    o, d = rng.uniform(-8, 8, (n, 3)), rng.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o, d = t(o), t(d)
     segs = t(rng.uniform(-8, 8, (n, 3))) - o  # unnormalized, to points
@@ -1143,67 +1230,114 @@ def brute_cases(dev):
            "closest", (o, d))
     yield ("twinned primitives, rows shuffled, aimed segments, max_t 1",
            ties, shuffled, "any", (o, seg.contiguous(), 1.0, None))
+    yield ("twinned primitives in table order, aimed rays", ties, tb,
+           "closest", (o, d))
+    few = torch.cat([k[:96], 4096 + k[:96], 8192 + k[:64]])  # 256 rays
+    yield ("twinned primitives, rows shuffled, 256 aimed rays", ties,
+           shuffled, "closest", (o[few].contiguous(), d[few].contiguous()))
 
 
-def brute_run(query, tables, args, **kw):
-    """One case's answer from the kernel."""
+def brute_run(query, tables, args, poison=False):
+    """One case's answer from the kernel. ``poison``: write into outputs
+    filled with values no slot should keep (NaN and 0x5a5a5a5a; not
+    occluded), so that a slot the kernel leaves unwritten shows."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
 
     fn = kernels.brute_closest if query == "closest" else kernels.brute_any
-    return fn(tables, *args, **kw)
+    if not poison:
+        return fn(tables, *args)
+    R, dev = args[0].shape[0], args[0].device
+    out = ((torch.full((R,), float("nan"), device=dev),
+            torch.full((R,), 0x5A5A5A5A, dtype=torch.int32, device=dev))
+           if query == "closest"
+           else torch.zeros(R, dtype=torch.bool, device=dev))
+    return fn(tables, *args, out=out)
+
+
+def dead_of(query, args):
+    """A case's dead mask, or None."""
+    if query == "closest":
+        return args[2] if len(args) > 2 else None
+    return args[3]
 
 
 def brute_plain(query, prims, args, batch=PLAIN_BATCH):
-    """One case's answer from the plain version, ``batch`` rays a call."""
+    """One case's answer from the plain version, ``batch`` slots a call."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Rays
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
 
-    o, d = args[0], args[1]
+    o, d, dead = args[0], args[1], dead_of(query, args)
     parts = []
     for s in range(0, o.shape[0], batch):
         rays = Rays.make(o[s:s + batch], d[s:s + batch])
+        dd = None if dead is None else dead[s:s + batch]
         if query == "closest":
-            parts.append(intersect.closest_hit_plain(prims, rays))
+            parts.append(intersect.closest_hit_plain(prims, rays, dd))
         else:
-            dead = args[3]
-            parts.append(intersect.any_hit_plain(
-                prims, rays, args[2],
-                None if dead is None else dead[s:s + batch]))
+            parts.append(intersect.any_hit_plain(prims, rays, args[2], dd))
     if query == "closest":
         return (torch.cat([p[0] for p in parts]),
                 torch.cat([p[1] for p in parts]))
     return torch.cat(parts)
 
 
-def brute_work(query, tables, args):
-    """(GFLOP, MB, bound ms, bound by) of one launch on ``args``, from the
-    tests the kernel's own counters record by where each ended (every ray
-    tests every row in a closest hit; an any hit stops at its first
-    occluder, dead lanes test nothing), each charged BRUTE_STAGE_OPS,
-    against rays in, results out and the tables once."""
-    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+def brute_agreement(query, got, want, dead=None):
+    """Readings of the kernel's answer ``got`` against the plain version's
+    ``want``: hit_agreement's over the live slots, and "dead", the share of
+    dead slots whose answer is not exactly (BIG, -1), or occluded."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
 
-    o = args[0]
+    if dead is None:
+        return {**hit_agreement(query, got, want), "dead": 0.0}
+    live = ~dead
+    if query == "closest":
+        reading = (hit_agreement(query, tuple(x[live] for x in got),
+                                 tuple(x[live] for x in want))
+                   if bool(live.any()) else {"ids": 0.0, "t_rel": 0.0,
+                                             "err": 0.0})
+        bad = (got[0][dead] != C.BIG) | (got[1][dead] != -1)
+    else:
+        reading = (hit_agreement(query, got[live], want[live])
+                   if bool(live.any()) else {"occ": 0.0, "err": 0.0})
+        bad = ~got[dead]
+    reading["dead"] = float(bad.double().mean()) if bad.numel() else 0.0
+    return reading
+
+
+def brute_work(query, prims, tables, args, batch=PLAIN_BATCH):
+    """(GFLOP, MB, bound ms, bound by, live rays) of one launch on
+    ``args``: the tests the plain version counts by where each ended
+    (ops/intersect.brute_stages, ``batch`` slots a call: every live ray
+    tests every row in a closest hit; an any hit tests them in table order
+    up to and including its first occluder; dead slots test nothing), each
+    charged BRUTE_STAGE_OPS, against the live rays in, every slot's answer
+    out, the dead mask and the tables once."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Rays
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
+
+    o, d, dead = args[0], args[1], dead_of(query, args)
+    max_t = args[2] if query == "any" else None
     R = o.shape[0]
-    counts = torch.zeros((R, kernels.BRUTE_COUNTS), dtype=torch.int32,
-                         device=o.device)
-    brute_run(query, tables, args, counts=counts)
-    stages = counts.sum(dim=0, dtype=torch.int64).tolist()
+    stages = sum(intersect.brute_stages(
+        prims, Rays.make(o[s:s + batch], d[s:s + batch]), max_t,
+        None if dead is None else dead[s:s + batch])
+        for s in range(0, R, batch)).tolist()
     flops = sum(n * ops for n, ops in zip(stages, BRUTE_STAGE_OPS))
     tris, sphs = sum(stages[:4]), sum(stages[4:])
-    n_bytes = 20 * tables.n_sph + 48 * tables.n_tri
-    if query == "closest":
-        n_bytes += R * (24 + 8)            # o, d in; t, id out
-    else:
-        n_bytes += R * (24 + 1 + (args[3] is not None))  # o, d, dead; occ
+    live = live_of(dead, R)
+    n_bytes = (20 * tables.n_sph + 48 * tables.n_tri + 24 * live
+               + R * (8 if query == "closest" else 1)
+               + (R if dead is not None else 0))
     ms, by = bound(flops, n_bytes)
-    print(f"  work: {tris / R:.3f} triangle tests per ray (ended at det "
-          f"{stages[0] / R:.3f}, u {stages[1] / R:.3f}, v {stages[2] / R:.3f}"
-          f", with t {stages[3] / R:.3f}), {sphs / R:.3f} sphere tests (at "
-          f"the discriminant {stages[4] / R:.3f}, with roots "
-          f"{stages[5] / R:.3f}); {flops / 1e9:.4f} GFLOP, "
+    per = max(live, 1)
+    print(f"  work: {live} live rays of {R} slots; {tris / per:.3f} triangle "
+          f"tests a live ray (ended at det {stages[0] / per:.3f}, u "
+          f"{stages[1] / per:.3f}, v {stages[2] / per:.3f}, with t "
+          f"{stages[3] / per:.3f}), {sphs / per:.3f} sphere tests (at the "
+          f"discriminant {stages[4] / per:.3f}, with roots "
+          f"{stages[5] / per:.3f}); {flops / 1e9:.4f} GFLOP, "
           f"{n_bytes / 1e6:.4f} MB; bound {ms:.5f} ms ({by})")
-    return flops, n_bytes, ms, by
+    return flops, n_bytes, ms, by, live
 
 
 def main() -> int:
@@ -1640,15 +1774,17 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s")
 
     # 12. brute force: the kernels against their plain version on the same
-    # rays
+    # rays, into poisoned outputs
     t_brute = time.perf_counter()
     brute_err = {"closest": 0.0, "any": 0.0}
     for label, prims, tables, query, args in brute_cases(dev):
-        got = brute_run(query, tables, args)
+        dead = dead_of(query, args)
+        got = brute_run(query, tables, args, poison=True)
         want = brute_plain(query, prims, args)
         torch.cuda.synchronize()
-        reading = hit_agreement(query, got, want)
-        print(f"compare {label} ({query}, {args[0].shape[0]} rays): "
+        reading = brute_agreement(query, got, want, dead)
+        print(f"compare {label} ({query}, {args[0].shape[0]} slots, "
+              f"{live_of(dead, args[0].shape[0])} live): "
               + ", ".join(f"{k} {v:.3g}" for k, v in reading.items()))
         if rejects(reading, BRUTE_LIMITS):
             raise AssertionError(f"{label}: the brute-force kernel and its "
@@ -1710,62 +1846,81 @@ def main() -> int:
         cwd=ROOT, check=True, capture_output=True, text=True).stdout
     print("  cli: " + out.strip().replace("\n", "\n  cli: "))
 
-    # 14. brute-force timing: each kernel alone on the main path's queries
-    # of drifting frames and on the soup's, per table mix; its plain version
-    # on one batch; its bound from its own work counters; whole frames
-    main_tb = intersect.brute_tables(field_nb.prims)
-    sph_tb = intersect.brute_tables(subset(field_nb.prims, tri=False))
+    # 14. brute-force timing: each kernel alone on the frame's own queries
+    # (with the masks the sweep hands them) of drifting frames, and on the
+    # soup's, per table mix; its plain version on one batch; its bound from
+    # the plain version's count of its work; whole frames and a profile
+    sph_prims = subset(field_nb.prims, tri=False)
+    sph_tb = intersect.brute_tables(sph_prims)
     soup_nb = build_scene(soup_scene(res=RES), device=dev,
                           accel=C.ACCEL_NONE)
     tri_prims = subset(soup_nb.prims, sph=False)
     tri_tb = intersect.brute_tables(tri_prims)
-
-    def queries_of(scene, drift):
-        o, d = camera_rays(scene, drift)
-        R = o.shape[0]
-        q0, (r1, a1, ior1) = main_path_queries(
-            scene, Rays.make(o, d), torch.ones(R, dtype=torch.bool,
-                                               device=dev),
-            torch.ones(R, device=dev), cfg_bvh)
-        q1, _ = main_path_queries(scene, r1, a1, ior1, cfg_bvh)
-        return (o, d), (r1.origin, r1.direction), q0, q1
-
-    field_q = [queries_of(field_nb, 0.37 * i) for i in range(7)]
-    soup_q = [queries_of(soup_nb, 0.37 * i)[::2] for i in range(7)]
+    field_q = [frame_queries(field_nb, *camera_rays(field_nb, 0.37 * i),
+                             cfg_bvh) for i in range(7)]
+    soup_q = [frame_queries(soup_nb, *camera_rays(soup_nb, 0.37 * i),
+                            cfg_bvh) for i in range(7)]
+    levels = len(field_q[0][0])
+    n_lights = len(field_q[0][1]) // levels
+    for lvl, (q, _, dead) in enumerate(field_q[0][0]):
+        live = live_of(dead, q.shape[0])
+        print(f"live slots, field{FIELD_SIDE} {RES}x{RES} level {lvl}: "
+              f"{live} of {q.shape[0]} ({100 * live / q.shape[0]:.2f}%)")
+    timed = (
+        [(f"closest, level {lvl}, main table" + (" (K4b)" if lvl == 0
+                                                  else ""),
+          "closest", field_nb.prims, field_nb.brute, field_q,
+          lambda x, lvl=lvl: x[0][lvl]) for lvl in range(levels)]
+        + [(f"any, level {lvl}, light {li}, main table", "any",
+            field_nb.prims, field_nb.brute, field_q,
+            lambda x, k=lvl * n_lights + li: x[1][k])
+           for lvl in range(levels) for li in range(n_lights)]
+        + [("closest, level 0, field spheres (K4a)", "closest", sph_prims,
+            sph_tb, field_q, lambda x: x[0][0]),
+           ("any, level 0, light 0, field spheres (K4c)", "any", sph_prims,
+            sph_tb, field_q, lambda x: x[1][0]),
+           ("closest, level 0, soup triangles (K4e)", "closest", tri_prims,
+            tri_tb, soup_q, lambda x: x[0][0]),
+           ("any, level 0, light 0, soup triangles (K4d)", "any", tri_prims,
+            tri_tb, soup_q, lambda x: x[1][0])])
     brute_times = {}
-    for label, query, prims, tb, inputs, pick in (
-            ("closest, primary, main table (K4b)", "closest",
-             field_nb.prims, main_tb, field_q, lambda x: x[0]),
-            ("closest, level 1, main table", "closest", field_nb.prims,
-             main_tb, field_q, lambda x: x[1]),
-            ("any, primary hits, light 0, main table", "any",
-             field_nb.prims, main_tb, field_q, lambda x: x[2][0]),
-            ("any, level-1 hits, light 0, main table", "any",
-             field_nb.prims, main_tb, field_q, lambda x: x[3][0]),
-            ("closest, primary, field spheres (K4a)", "closest",
-             subset(field_nb.prims, tri=False), sph_tb, field_q,
-             lambda x: x[0]),
-            ("any, primary hits, light 0, field spheres (K4c)", "any",
-             subset(field_nb.prims, tri=False), sph_tb, field_q,
-             lambda x: x[2][0]),
-            ("closest, primary, soup triangles (K4e)", "closest", tri_prims,
-             tri_tb, soup_q, lambda x: x[0]),
-            ("any, primary hits, light 0, soup triangles (K4d)", "any",
-             tri_prims, tri_tb, soup_q, lambda x: x[1][0])):
+    for label, query, prims, tb, inputs, pick in timed:
         args = [(tb, *pick(x)) for x in inputs]
         k_ms = queued_ms(lambda *a: brute_run(query, a[0], a[1:]), args)
         batch = [(query, prims, tuple(a[:PLAIN_BATCH]
                                       if torch.is_tensor(a) else a
                                       for a in x[1:])) for x in args[:3]]
         p_ms = cuda_ms(brute_plain, batch, warmup=1)
+        slots = args[0][1].shape[0]
+        plain_slots = batch[0][2][0].shape[0]
+        plain_live = live_of(dead_of(query, batch[0][2]), plain_slots)
         print(f"brute {label}: kernel {k_ms:.4f} ms on the device "
-              f"({args[0][1].shape[0]} rays, {tb.n_tri} triangles, "
-              f"{tb.n_sph} spheres), plain {p_ms:.4f} ms on "
-              f"{batch[0][2][0].shape[0]} of them ({card})")
-        brute_times[label] = (k_ms, p_ms, args[0][1].shape[0],
-                              batch[0][2][0].shape[0],
-                              brute_work(query, tb, args[0][1:]))
+              f"({live_of(dead_of(query, args[0][1:]), slots)} live of "
+              f"{slots} slots, {tb.n_tri} triangles, {tb.n_sph} spheres), "
+              f"plain {p_ms:.4f} ms on the first {plain_slots} slots "
+              f"({plain_live} live) ({card})")
+        brute_times[label] = (k_ms, p_ms, slots, plain_slots, plain_live,
+                              brute_work(query, prims, tb, args[0][1:]))
     del field_q, soup_q
+    frame_parts = {}
+    for query, n in (("closest", levels), ("any", levels * n_lights)):
+        rows = [v for k, v in brute_times.items()
+                if k.startswith(query) and "main table" in k]
+        frame_parts[query] = {"launches": n,
+                              "ms": sum(v[0] for v in rows),
+                              "bound_ms": sum(v[5][2] for v in rows),
+                              "by_launch_ms": [v[0] for v in rows]}
+        print(f"brute {query}, the frame's {n} launches: "
+              f"{frame_parts[query]['ms']:.4f} ms on the device against a "
+              f"bound of {frame_parts[query]['bound_ms']:.5f} ms ({card})")
+    primary_bound = brute_times["closest, level 0, main table (K4b)"][5][2]
+    print(f"brute closest, the primaries' bound {primary_bound:.5f} ms "
+          f"(the kernel's own counters read {PRIMARY_BOUND_MS} ms)")
+    if abs(primary_bound - PRIMARY_BOUND_MS) > 5e-5:
+        raise AssertionError(
+            f"the plain version's count of the primaries' work gives a bound "
+            f"of {primary_bound:.5f} ms, not the {PRIMARY_BOUND_MS} ms that "
+            f"the kernel's own stage counters gave")
     brute_ms = frame_ms(field_nb, cfg_bvh)
     print(f"frame brute sweep: {brute_ms:.4f} ms, "
           f"{mrays_per_s(field_nb, brute_ms):.2f} Mrays/s (primary+shadow), "
@@ -1776,7 +1931,8 @@ def main() -> int:
     profile_frames(f"brute frame, sweep engine, field{FIELD_SIDE} "
                    f"{RES}x{RES}", render_tile,
                    lambda i: (field_nb, px + 0.37 * i, py, cfg_bvh), card,
-                   frames=5, share_of=("closest_kernel", "any_kernel"))
+                   frames=5, share_of=("brute_compact", "brute_closest",
+                                       "brute_any"))
     print(f"brute-force phases {time.perf_counter() - t_brute:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
@@ -1959,16 +2115,19 @@ def main() -> int:
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None}
 
-    def brute_entry(name, query, label, replaces):
-        k_ms, p_ms, rays, plain_rays, (_, _, b_ms, b_by) = brute_times[label]
+    def brute_entry(name, query, label, replaces, **extra):
+        (k_ms, p_ms, slots, plain_slots, plain_live,
+         (_, _, b_ms, b_by, live)) = brute_times[label]
         return {"name": name, "route": "cuda",
                 "source": src + "brute_intersect.cu",
                 "replaces": pi_src + replaces,
                 "entry": f"brute_{query}_launch", "timed_on": label,
                 "launches": brute_launches[query == "any"],
                 "max_abs_err": brute_err[query], "ms": k_ms,
-                "rays": rays, "plain_ms": p_ms, "plain_rays": plain_rays,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                "slots": slots, "live": live, "plain_ms": p_ms,
+                "plain_slots": plain_slots, "plain_live": plain_live,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                **extra}
 
     src = "u_4a_2s_p3d_raytracer_template2_tpu_torch/csrc/"
     pk_src = "u_4a_2s_p3d_raytracer_template2_tpu/accel/packets.py"
@@ -2020,17 +2179,17 @@ def main() -> int:
         bvh_entry("bvh_walk any multi", "multi",
                   "multi, primary hits, both lights", ":729", multi_launches),
         brute_entry("brute_intersect closest, spheres (K4a)", "closest",
-                    "closest, primary, field spheres (K4a)", ":186"),
+                    "closest, level 0, field spheres (K4a)", ":186"),
         brute_entry("brute_intersect closest, triangles and spheres (K4b)",
-                    "closest", "closest, primary, main table (K4b)", ":377"),
+                    "closest", "closest, level 0, main table (K4b)", ":377",
+                    frame=frame_parts["closest"]),
         brute_entry("brute_intersect any, spheres (K4c)", "any",
-                    "any, primary hits, light 0, field spheres (K4c)",
-                    ":525"),
+                    "any, level 0, light 0, field spheres (K4c)", ":525",
+                    frame=frame_parts["any"]),
         brute_entry("brute_intersect any, triangles (K4d)", "any",
-                    "any, primary hits, light 0, soup triangles (K4d)",
-                    ":553"),
+                    "any, level 0, light 0, soup triangles (K4d)", ":553"),
         brute_entry("brute_intersect closest, triangles (K4e)", "closest",
-                    "closest, primary, soup triangles (K4e)", ":590"),
+                    "closest, level 0, soup triangles (K4e)", ":590"),
     {
         "name": "probes op_rate (T1)", "route": "cuda",
         "source": src + "probes.cu",

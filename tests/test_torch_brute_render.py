@@ -89,6 +89,40 @@ def test_brute_shadow_queries_pass_dead_lanes(monkeypatch, no_kernels):
         max_depth=3, accel_impl="brute")))
 
 
+def test_the_sweep_hands_brute_force_its_dead_slots(monkeypatch,
+                                                   no_kernels):
+    """_level_step hands the brute-force closest hit ~active: every slot is
+    live at level 0, some are dead below it, and those read (BIG, -1); the
+    BVH walk is handed no mask, and the images are equal, bit for bit."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import packets
+
+    sd = scenes.sphere_field_scene(n_side=8, res=16)
+    scene = pt.build_scene(sd, device=CPU, accel=C.ACCEL_NONE)
+    assert intersect._small_total(scene.prims) > intersect.SMALL_UNROLL_MAX
+    seen = []
+    closest = intersect.closest_hit_brute
+
+    def record(prims, rays, tables=None, dead=None):
+        out = closest(prims, rays, tables, dead)
+        seen.append((dead, out))
+        return out
+
+    monkeypatch.setattr(intersect, "closest_hit_brute", record)
+    img = pt.render_image(scene, pt.RenderConfig(max_depth=3))
+    assert len(seen) == 3 and not bool(seen[0][0].any())
+    assert all(bool(d.any()) and not bool(d.all()) for d, _ in seen[1:])
+    for dead, (t, obj) in seen:
+        assert bool((t[dead] == C.BIG).all()) and bool((obj[dead] == -1).all())
+    walked = []
+    walk = packets.packet_closest_hit
+    monkeypatch.setattr(packets, "packet_closest_hit",
+                        lambda *a, **k: walked.append((a, k)) or walk(*a, **k))
+    bvh = pt.build_scene(sd, device=CPU)
+    assert torch.equal(img, pt.render_image(bvh, pt.RenderConfig(
+        max_depth=3)))
+    assert len(walked) == 3 and all(len(a) == 2 and not k for a, k in walked)
+
+
 def test_cli_renders_brute_scenes_on_cpu(tmp_path, capsys, monkeypatch,
                                         no_kernels):
     """cli render --builtin spheres --accel 0 (258 primitives) reaches the

@@ -240,8 +240,8 @@ def test_brute_kernels_match_plain_on_a_mixed_soup():
     lanes) over the soup's triangles alone, spheres alone and both tables
     against the plain version, under chip_smoke.BRUTE_LIMITS; a render of
     the whole soup (planes and the box folded after the kernels) against
-    the BVH walk's; the counters' instantiation answers the same and
-    records every test of a closest hit at one of its stages."""
+    the BVH walk's; the plain version's count of the closest hit's work
+    (intersect.brute_stages) records every test at one of its stages."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
 
@@ -275,14 +275,52 @@ def test_brute_kernels_match_plain_on_a_mixed_soup():
     want = render_image(build_scene(sd, device=dev), RenderConfig())
     assert got.shape == (32, 32, 3) and bool(torch.isfinite(got).all())
     assert _bad_fraction(got, want) <= MAX_BAD
-    tables = brute.brute
-    counts = torch.zeros((8192, kernels.BRUTE_COUNTS), dtype=torch.int32,
-                         device=dev)
-    counted = kernels.brute_closest(tables, o, d, counts=counts)
-    plain = kernels.brute_closest(tables, o, d)
-    assert all(torch.equal(a, b) for a, b in zip(counted, plain))
-    assert bool((counts[:, :4].sum(dim=1) == tables.n_tri).all())
-    assert bool((counts[:, 4:].sum(dim=1) == tables.n_sph).all())
+    stages = intersect.brute_stages(brute.prims, Rays.make(o, d))
+    assert int(stages[:4].sum()) == 8192 * brute.brute.n_tri
+    assert int(stages[4:].sum()) == 8192 * brute.brute.n_sph
+
+
+@pytest.mark.cuda
+def test_brute_kernels_trace_only_live_slots():
+    """Masked queries on the card (csrc/brute_intersect.cu's compaction and
+    table slices): with 0, 1, 31, 33, 4,097 and all 8,192 slots live, the
+    live slots read the unmasked launch's answer bit for bit and the plain
+    version's under chip_smoke.BRUTE_LIMITS, and the dead slots exactly
+    (BIG, -1), or occluded, in outputs poisoned before the launch."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
+
+    dev = _cuda()
+    soup = _soup(dev)
+    prims = chip_smoke.subset(soup.prims)
+    tables = intersect.brute_tables(prims)
+    g = torch.Generator(device=dev).manual_seed(1)
+    o = torch.rand(8192, 3, device=dev, generator=g) * 16 - 8
+    d = torch.nn.functional.normalize(
+        torch.randn(8192, 3, device=dev, generator=g), dim=-1)
+    segs = torch.rand(8192, 3, device=dev, generator=g) * 16 - 8 - o
+    full = kernels.brute_closest(tables, o, d)
+    full_occ = kernels.brute_any(tables, o, segs, 1.0)
+    for n_live in (0, 1, 31, 33, 4097, 8192):
+        dead = torch.ones(8192, dtype=torch.bool, device=dev)
+        dead[torch.randperm(8192, device=dev, generator=g)[:n_live]] = False
+        live = ~dead
+        for query, args, unmasked in (
+                ("closest", (o, d, dead), full),
+                ("any", (o, segs, 1.0, dead), full_occ)):
+            got = chip_smoke.brute_run(query, tables, args, poison=True)
+            want = chip_smoke.brute_plain(query, prims, args)
+            reading = chip_smoke.brute_agreement(query, got, want, dead)
+            assert not chip_smoke.rejects(reading, chip_smoke.BRUTE_LIMITS), (
+                n_live, query, reading)
+            if query == "closest":
+                assert torch.equal(got[0][live], unmasked[0][live])
+                assert torch.equal(got[1][live], unmasked[1][live])
+                assert bool((got[0][dead] == C.BIG).all())
+                assert bool((got[1][dead] == -1).all())
+            else:
+                assert torch.equal(got[live], unmasked[live])
+                assert bool(got[dead].all())
 
 
 @pytest.mark.cuda

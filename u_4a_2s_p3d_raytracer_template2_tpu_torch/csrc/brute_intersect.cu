@@ -1,6 +1,6 @@
-// Brute-force closest hit and any hit for Hopper (sm_90a): every ray
-// against every triangle and sphere of a scene, one thread per ray
-// (ops/intersect.brute_tables packs the tables).
+// Brute-force closest hit and any hit for Hopper (sm_90a): every live ray
+// against every triangle and sphere of a scene (ops/intersect.brute_tables
+// packs the tables).
 //
 // Replaces the brute-force TPU kernels of the JAX package
 //   u_4a_2s_p3d_raytracer_template2_tpu/ops/pallas_intersect.py
@@ -18,33 +18,68 @@
 //
 // What bounds it: operations. A ray reads 24 B and writes 8 B (closest) or
 // 1 B (any), the tables are 20 B a sphere and 48 B a triangle, and every
-// ray tests every primitive: 7,396 spheres a ray in the 7,396-sphere field,
-// nearly all of them misses that end at the discriminant after about 20
-// operations. So:
-//   * one thread per ray; the block loads the tables into shared memory a
-//     tile at a time (1,024 spheres or 512 triangles, coalesced float4
-//     loads) and every thread folds the whole tile, reading each row as a
-//     broadcast;
-//   * the primitive tests are the formulas of ops/intersect.py operation
-//     for operation (the direct (o-c) sphere form of _sphere_t_one,
-//     Moller-Trumbore with |det| > eps and t > eps of _triangle_t_one),
-//     shared with bvh_walk.cu in prim_tests.cuh, with an early return where
-//     the plain version's answer is already a miss (a negative discriminant
-//     skips the divisions and the square root);
-//   * closest-hit ties resolve as the plain version and the BVH walk do:
-//     the smallest t, then triangle before sphere, then the lower object
-//     id, compared explicitly (table order is not relied on);
-//   * any hit: a thread stops testing once occluded, and the block skips
-//     its remaining tiles once every lane is (__syncthreads_and); dead
-//     lanes and lanes past the last ray start occluded.
-// With a non-null counts [R, 6] each thread records the tests it ran by
-// where they ended: triangle tests at the det, u and v gates and with their
-// t, then sphere tests at the discriminant and with their roots
-// (prim_tests.cuh's stages); the main path passes null and runs the
-// instantiation without counters.
-// Built without multiply-add contraction (kernels/build.NO_CONTRACTION), so
-// its f32 operations are the plain version's one for one: IEEE division
-// and square root, no fast math.
+// live ray tests every row (an any hit up to its first occluder): 7,398
+// rows a ray in the 7,396-sphere field, nearly all of them sphere misses
+// that end at the discriminant. A sweep level hands the kernels every slot
+// of a 512x512 frame's level (up to 2,097,152), of which few carry a ray
+// (12% at level 1, 0.08% at level 3); the rest are `dead`. So:
+//   * compaction: with a dead mask, brute_compact_count and
+//     brute_compact_scatter pack the live slots' indices densely, in slot
+//     order (a ballot and a prefix over the chunks before), and write the
+//     live count on the device; they also write each dead slot's answer
+//     ((kBig, -1), or occluded) and each live slot's starting state. The
+//     host never reads the count: the sweeps read it, and work past it
+//     exits at once.
+//   * work items: a sweep's grid is persistent (the blocks the card holds
+//     at once) and loops over (ray group, table slice) items. The number
+//     of slices is chosen on the device from the live count
+//     (choose_slices): the fewest that keep the grid's last round of items
+//     7/8 full, no slice under kMinSlice rows (closest) or kAnySlice rows
+//     (any). Many live rays: few slices; a level-3 query's 1,647 rays: a
+//     hundred slices, so the card stays full.
+//   * closest hit: a block of kThreads threads takes kGroup rays, each
+//     thread kRays of them, and sweeps its slice's rows through shared
+//     memory a tile at a time (512 triangles or 1,024 spheres, coalesced
+//     float4 loads); one broadcast row read feeds kRays tests, and the
+//     row's r*r is computed once for them. Within an item a ray keeps its
+//     best (t, rank, id) by the tie rule (the smallest t, then triangle
+//     before sphere, then the lower object id, compared explicitly; the id
+//     is read only when a test reaches its roots); then one 64-bit
+//     atomicMin per (ray, slice) with a hit folds the slices into one key:
+//     the bits of t (which order as unsigned integers for t >= 0; -0.0 is
+//     keyed, and read back, as +0.0, which it equals), then the rank, then
+//     the id, which is the tie rule exactly. brute_closest_finish writes
+//     each live slot's (t, id), or (kBig, -1) where no slice hit.
+//   * any hit: one warp per (live ray, slice); the 32 lanes test 32
+//     consecutive rows (triangles, then spheres, in table order) and vote
+//     after each step, so no lane idles while its warp sweeps for
+//     another: a lit ray sweeps with every lane busy, an occluded ray
+//     stops within 32 rows of its first occluder. Rows come through L1
+//     (the kernel asks for the most L1); triangle rows are 48 B apart. A
+//     slice that finds an occluder sets the ray's output byte, which is
+//     also its flag: the other slices of that ray read it every
+//     kFlagEvery steps and stop.
+//   * the sphere test reads its discriminant's sign first: with
+//     b = 2 (d.l), bb = b*b and ac = 4a * cc computed as the plain version
+//     computes them, its delta is fl(bb - ac), and delta >= 0 implies
+//     bb >= ac (an exact difference of floats is 0 or at least 2^-149 in
+//     magnitude; inf - inf is NaN and fails delta >= 0, so the gate only
+//     passes more). The gate is bb >= ac; the rare tests that pass it
+//     compute delta = bb - ac and the roots exactly as the plain version
+//     does (sphere_roots), so every answer is the plain version's, bit for
+//     bit, with no argument about overflow or subnormals. The gate saves
+//     the subtraction; r*r and 4a are per-row and per-ray constants. A
+//     closest-hit thread computes its kRays gates of a row as one straight
+//     run of independent operations and branches once, where one branch a
+//     ray would cut the row into blocks the scheduler cannot interleave;
+//     its triangle rows likewise run the triangle test to its u gate for
+//     kRays rays (TriGate: triangle_t's formulas, split there), then
+//     branch once.
+// The decisions are f32 comparisons over products of depth 3: no TF32 and
+// no tensor cores (the JAX package's matrix-unit sphere form loses about 8
+// bits), and the source is built without multiply-add contraction
+// (kernels/build.NO_CONTRACTION), so its f32 operations are the plain
+// version's one for one: IEEE division and square root, no fast math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,13 +88,26 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSphTile = 1024;  // (c, r) rows: 16 KB, ids 4 KB
-constexpr int kTriTile = 512;   // (v0, e1, e2, id) rows: 24 KB
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kThreads = 128;            // closest hit: threads a block
+constexpr int kRays = 4;                 // closest hit: rays a thread
+constexpr int kGroup = kThreads * kRays;  // closest hit: rays a work item
+constexpr int kSphTile = 1024;           // (c, r) rows: 16 KB
+constexpr int kTriTile = 512;            // (v0, e1, e2, id) rows: 24 KB
+constexpr int kMinSlice = 64;            // closest hit: fewest rows a slice
+constexpr int kAnyThreads = 256;         // any hit: 8 warps a block
+constexpr int kAnyWarps = kAnyThreads / 32;
+constexpr int kAnySlice = 256;           // any hit: fewest rows a slice
+constexpr int kFlagEvery = 8;            // any hit: steps between flag reads
+constexpr int kScanThreads = 256;        // compaction: threads a block
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kChunk = 4096;             // compaction: slots a block
+constexpr unsigned long long kNoKey = ~0ull;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
-  float a;  // d.d
+  float a;   // d.d
+  float a4;  // 4a, as the plain version's 4 * a * cc starts
 };
 
 __device__ __forceinline__ Ray make_ray(const float* o, const float* d) {
@@ -67,40 +115,84 @@ __device__ __forceinline__ Ray make_ray(const float* o, const float* d) {
   r.ox = o[0]; r.oy = o[1]; r.oz = o[2];
   r.dx = d[0]; r.dy = d[1]; r.dz = d[2];
   r.a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  r.a4 = 4.f * r.a;
   return r;
 }
 
-// A thread's tests by where they ended (the counters' instantiation).
-struct Work {
-  int tri[kTriStages], sph[kSphStages];
-};
-
-template <int N>
-__device__ __forceinline__ void tally(int (&c)[N], int stage) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) c[k] += stage == k;
+// A ray past the live count: NaN directions end every test at its first
+// gate, and its answer is never written.
+__device__ __forceinline__ Ray no_ray() {
+  Ray r;
+  r.ox = r.oy = r.oz = 0.f;
+  r.dx = r.dy = r.dz = r.a = r.a4 = __int_as_float(0x7fc00000);
+  return r;
 }
 
-template <bool COUNT>
-__device__ __forceinline__ void store_work(int* counts, int r,
-                                           const Work& w) {
-  if (COUNT) {
-    int* c = counts + (kTriStages + kSphStages) * r;
-#pragma unroll
-    for (int k = 0; k < kTriStages; ++k) c[k] = w.tri[k];
-#pragma unroll
-    for (int k = 0; k < kSphStages; ++k) c[kTriStages + k] = w.sph[k];
+// The sphere test up to its gate (see the note), as the plain version
+// computes it: b, and the two terms of the discriminant bb - ac.
+struct Gate {
+  float b, bb, ac;
+  __device__ __forceinline__ bool open() const { return bb >= ac; }
+  // the rest of the test, for a gate that is open: t or kBig
+  __device__ __forceinline__ float t(const Ray& r) const {
+    return sphere_roots(b, bb - ac, r.a);
   }
+};
+
+__device__ __forceinline__ Gate sphere_gate(float4 p, float rr, const Ray& r) {
+  const float lx = r.ox - p.x, ly = r.oy - p.y, lz = r.oz - p.z;
+  Gate g;
+  g.b = 2.f * (r.dx * lx + r.dy * ly + r.dz * lz);
+  const float cc = lx * lx + ly * ly + lz * lz - rr;
+  g.bb = g.b * g.b;
+  g.ac = r.a4 * cc;
+  return g;
+}
+
+// The triangle test (prim_tests.cuh's triangle_t, Moller-Trumbore) up to
+// its u gate with no branch: f = 1/det is taken whatever det is, and read
+// only where the det gate passed, so an open gate's values are
+// triangle_t's.
+struct TriGate {
+  float det, f, u, sx, sy, sz;
+  __device__ __forceinline__ bool open() const {
+    return fabsf(det) > kEps && u >= 0.f && u <= 1.f;
+  }
+  // the rest of triangle_t, for a gate that is open: t or kBig
+  __device__ __forceinline__ float t(float4 p0, float4 p1, float4 p2,
+                                     const Ray& r) const {
+    const float e1x = p0.w, e1y = p1.x, e1z = p1.y;
+    const float e2x = p1.z, e2y = p1.w, e2z = p2.x;
+    const float qx = sy * e1z - sz * e1y;
+    const float qy = sz * e1x - sx * e1z;
+    const float qz = sx * e1y - sy * e1x;
+    const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+    if (!(v >= 0.f && u + v <= 1.f)) return kBig;
+    const float tt = f * (e2x * qx + e2y * qy + e2z * qz);
+    return tt > kEps ? tt : kBig;
+  }
+};
+
+__device__ __forceinline__ TriGate triangle_gate(float4 p0, float4 p1,
+                                                 float4 p2, const Ray& r) {
+  const float e1x = p0.w, e1y = p1.x, e1z = p1.y;
+  const float e2x = p1.z, e2y = p1.w, e2z = p2.x;
+  const float hx = r.dy * e2z - r.dz * e2y;
+  const float hy = r.dz * e2x - r.dx * e2z;
+  const float hz = r.dx * e2y - r.dy * e2x;
+  TriGate g;
+  g.det = e1x * hx + e1y * hy + e1z * hz;
+  g.f = 1.f / g.det;
+  g.sx = r.ox - p0.x;
+  g.sy = r.oy - p0.y;
+  g.sz = r.oz - p0.z;
+  g.u = g.f * (g.sx * hx + g.sy * hy + g.sz * hz);
+  return g;
 }
 
 // An occluder is a hit closer than the segment's end.
 __device__ __forceinline__ bool blocks(float t, float max_t) {
   return t < max_t;
-}
-
-// Tiles of `tile` rows that cover n rows, the last one partial.
-__device__ __forceinline__ int n_tiles(int n, int tile) {
-  return (n + tile - 1) / tile;
 }
 
 struct Tables {
@@ -111,6 +203,128 @@ struct Tables {
   int n_tri;
 };
 
+// What a query writes: the closest hit's answer and per-ray keys, or the
+// any hit's occlusion bytes.
+struct Outputs {
+  float* t;
+  int* id;
+  unsigned long long* key;
+  uint8_t* occ;
+};
+
+// The live count: the compaction's, on the device, else every slot.
+__device__ __forceinline__ int live_count(const int* n_live, int n_slots) {
+  return n_live ? *n_live : n_slots;
+}
+
+// The fewest table slices for `units` ray units (groups or rays) that keep
+// the last round of `grid` workers at least 7/8 busy; at most `most`.
+__device__ __forceinline__ int choose_slices(int units, int grid, int most) {
+  for (int s = 1; s < most; ++s) {
+    const long long items = (long long)units * s;
+    const long long rounds = (items + grid - 1) / grid;
+    if (8 * items >= 7 * rounds * grid) return s;
+  }
+  return most;
+}
+
+// ---------------------------------------------------------------------------
+// compaction of the live slots
+
+__device__ __forceinline__ int block_sum(int v, int* s_warp) {
+  for (int k = 16; k > 0; k >>= 1) v += __shfl_xor_sync(kAll, v, k);
+  __syncthreads();  // s_warp is free
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x / 32] = v;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kScanWarps; ++w) total += s_warp[w];
+  return total;
+}
+
+// Live slots of each chunk of kChunk slots: counts[chunk].
+__global__ void __launch_bounds__(kScanThreads)
+brute_compact_count(const uint8_t* __restrict__ dead, int n_slots,
+                    int* __restrict__ counts) {
+  const int base = blockIdx.x * kChunk;
+  int live = 0;
+  for (int k = threadIdx.x; k < kChunk; k += kScanThreads)
+    live += base + k < n_slots && !dead[base + k];
+  __shared__ int s_warp[kScanWarps];
+  live = block_sum(live, s_warp);
+  if (threadIdx.x == 0) counts[blockIdx.x] = live;
+}
+
+__device__ __forceinline__ void init_slot(const Outputs& out, int slot,
+                                          int at, bool live) {
+  if (out.occ) {
+    out.occ[slot] = !live;  // a dead slot reports occluded, a live one lit
+  } else if (live) {
+    out.key[at] = kNoKey;
+  } else {
+    out.t[slot] = kBig;  // a dead slot: no hit
+    out.id[slot] = -1;
+  }
+}
+
+// The live slots' indices in slot order (idx), their count (n_live), and
+// each slot's starting state (init_slot).
+__global__ void __launch_bounds__(kScanThreads)
+brute_compact_scatter(const uint8_t* __restrict__ dead, int n_slots,
+                      const int* __restrict__ counts, int* __restrict__ idx,
+                      int* __restrict__ n_live, Outputs out) {
+  __shared__ int s_warp[kScanWarps];
+  int before = 0;  // live slots of the chunks before this one
+  for (int c = threadIdx.x; c < blockIdx.x; c += kScanThreads)
+    before += counts[c];
+  int at0 = block_sum(before, s_warp);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int base = blockIdx.x * kChunk;
+  for (int k = 0; k < kChunk; k += kScanThreads) {
+    const int slot = base + k + threadIdx.x;
+    const bool in = slot < n_slots;
+    const bool live = in && !dead[slot];
+    const unsigned ballot = __ballot_sync(kAll, live);
+    __syncthreads();  // every thread has read the previous round's s_warp
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int at = at0 + __popc(ballot & ((1u << lane) - 1)), round = 0;
+#pragma unroll
+    for (int w = 0; w < kScanWarps; ++w) {
+      at += w < warp ? s_warp[w] : 0;
+      round += s_warp[w];
+    }
+    if (live) idx[at] = slot;
+    if (in) init_slot(out, slot, at, live);
+    at0 += round;
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) *n_live = at0;
+}
+
+// ---------------------------------------------------------------------------
+// closest hit
+
+// A ray's best hit within a work item, by the tie rule.
+struct Best {
+  float t;
+  int rank, id;
+  __device__ __forceinline__ void offer(float tt, int r, int i) {
+    if (tt < kBig && (tt < t || (tt == t && (r < rank ||
+                                             (r == rank && i < id))))) {
+      t = tt;
+      rank = r;
+      id = i;
+    }
+  }
+};
+
+// (t, rank, id) as one key whose unsigned order is the tie rule; t >= 0.
+__device__ __forceinline__ unsigned long long key_of(const Best& b) {
+  const unsigned tb = b.t == 0.f ? 0u : __float_as_uint(b.t);
+  return ((unsigned long long)tb << 32) | ((unsigned)b.rank << 31) |
+         (unsigned)b.id;
+}
+
 // Rows [base, base + n) of a table into shared memory, w float4 a row.
 __device__ __forceinline__ void load_tile(float4* dst,
                                           const float4* __restrict__ src,
@@ -119,131 +333,258 @@ __device__ __forceinline__ void load_tile(float4* dst,
     dst[i] = __ldg(src + w * base + i);
 }
 
-template <bool COUNT>
 __global__ void __launch_bounds__(kThreads)
-closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
-               int n_rays, Tables T, float* __restrict__ out_t,
-               int* __restrict__ out_id, int* __restrict__ counts) {
+brute_closest_sweep(const float* __restrict__ o, const float* __restrict__ d,
+                    int n_slots, const int* __restrict__ idx,
+                    const int* __restrict__ n_live, Tables T,
+                    unsigned long long* __restrict__ key) {
   __shared__ float4 s_row[3 * kTriTile];
-  __shared__ int s_id[kSphTile];
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = r < n_rays;
-  Ray ray;
-  if (live) ray = make_ray(o + 3 * r, d + 3 * r);
-  float bt = kBig;
-  int brank = 2, bid = 0x7fffffff;
-  Work w = {};
-  int stage;
-  auto offer = [&](float t, int rank, int id) {
-    if (t < kBig && (t < bt || (t == bt && (rank < brank ||
-                                            (rank == brank && id < bid))))) {
-      bt = t;
-      brank = rank;
-      bid = id;
+  const int n = live_count(n_live, n_slots);
+  const int groups = (n + kGroup - 1) / kGroup;
+  const int n_rows = T.n_tri + T.n_sph;
+  const int slices = choose_slices(groups, gridDim.x,
+                                   max(1, n_rows / kMinSlice));
+  const int per = (n_rows + slices - 1) / slices;  // rows a slice
+  for (int w = blockIdx.x; w < groups * slices; w += gridDim.x) {
+    const int g = w / slices;
+    const int lo = (w % slices) * per, hi = min(n_rows, lo + per);
+    Ray ray[kRays];
+    Best best[kRays];
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      const int i = g * kGroup + k * kThreads + threadIdx.x;
+      if (i < n) {
+        const int slot = idx ? idx[i] : i;
+        ray[k] = make_ray(o + 3 * slot, d + 3 * slot);
+      } else {
+        ray[k] = no_ray();
+      }
+      best[k] = Best{kBig, 2, 0x7fffffff};
     }
-  };
-
-  for (int k = 0; k < n_tiles(T.n_tri, kTriTile); ++k) {
-    const int base = k * kTriTile;
-    const int n = min(kTriTile, T.n_tri - base);
-    __syncthreads();  // every thread has folded the previous tile
-    load_tile(s_row, T.tri, base, n, 3);
-    __syncthreads();
-    if (live) {
+    const int tri_hi = min(hi, T.n_tri);
+    for (int base = lo; base < tri_hi; base += kTriTile) {
+      const int m = min(kTriTile, tri_hi - base);
+      __syncthreads();  // every thread has swept the previous tile
+      load_tile(s_row, T.tri, base, m, 3);
+      __syncthreads();
 #pragma unroll 2
-      for (int j = 0; j < n; ++j) {
-        float4 p2 = s_row[3 * j + 2];
-        offer(triangle_t(s_row[3 * j], s_row[3 * j + 1], p2, ray, stage), 0,
-              __float_as_int(p2.y));
-        if (COUNT) tally(w.tri, stage);
+      for (int j = 0; j < m; ++j) {
+        const float4 p0 = s_row[3 * j], p1 = s_row[3 * j + 1],
+                     p2 = s_row[3 * j + 2];
+        TriGate gate[kRays];
+        bool open = false;
+#pragma unroll
+        for (int k = 0; k < kRays; ++k) {
+          gate[k] = triangle_gate(p0, p1, p2, ray[k]);
+          open |= gate[k].open();
+        }
+        if (open) {
+#pragma unroll
+          for (int k = 0; k < kRays; ++k)
+            if (gate[k].open())
+              best[k].offer(gate[k].t(p0, p1, p2, ray[k]), 0,
+                            __float_as_int(p2.y));
+        }
       }
     }
-  }
-  for (int k = 0; k < n_tiles(T.n_sph, kSphTile); ++k) {
-    const int base = k * kSphTile;
-    const int n = min(kSphTile, T.n_sph - base);
-    __syncthreads();
-    load_tile(s_row, T.sph, base, n, 1);
-    for (int i = threadIdx.x; i < n; i += kThreads)
-      s_id[i] = __ldg(T.sph_id + base + i);
-    __syncthreads();
-    if (live) {
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        offer(sphere_t(s_row[j], ray, stage), 1, s_id[j]);
-        if (COUNT) tally(w.sph, stage);
+    const int sph_hi = hi - T.n_tri;
+    for (int base = max(lo - T.n_tri, 0); base < sph_hi; base += kSphTile) {
+      const int m = min(kSphTile, sph_hi - base);
+      __syncthreads();
+      load_tile(s_row, T.sph, base, m, 1);
+      __syncthreads();
+#pragma unroll 2
+      for (int j = 0; j < m; ++j) {
+        const float4 p = s_row[j];
+        const float rr = p.w * p.w;
+        // the kRays gates as one straight run of independent operations,
+        // then one branch, rarely taken
+        Gate gate[kRays];
+        bool open = false;
+#pragma unroll
+        for (int k = 0; k < kRays; ++k) {
+          gate[k] = sphere_gate(p, rr, ray[k]);
+          open |= gate[k].open();
+        }
+        if (open) {
+          const int id = __ldg(T.sph_id + base + j);
+#pragma unroll
+          for (int k = 0; k < kRays; ++k)
+            if (gate[k].open()) best[k].offer(gate[k].t(ray[k]), 1, id);
+        }
       }
     }
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      const int i = g * kGroup + k * kThreads + threadIdx.x;
+      if (i < n && best[k].t < kBig) atomicMin(key + i, key_of(best[k]));
+    }
   }
-  if (!live) return;
-  out_t[r] = bt;
-  out_id[r] = bt < kBig ? bid : -1;
-  store_work<COUNT>(counts, r, w);
 }
 
-template <bool COUNT>
-__global__ void __launch_bounds__(kThreads)
-any_kernel(const float* __restrict__ o, const float* __restrict__ d,
-           int n_rays, float max_t, const uint8_t* __restrict__ dead,
-           Tables T, uint8_t* __restrict__ out, int* __restrict__ counts) {
-  __shared__ float4 s_row[3 * kTriTile];
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = r < n_rays;
-  // dead lanes report occluded without a test; lanes past the end are done
-  bool occ = !live || (dead && dead[r]);
-  Ray ray;
-  if (live) ray = make_ray(o + 3 * r, d + 3 * r);
-  Work w = {};
-  int stage;
+// Each live slot's (t, id) from its key.
+__global__ void brute_closest_finish(int n_slots, const int* __restrict__ idx,
+                                     const int* __restrict__ n_live,
+                                     const unsigned long long* __restrict__ key,
+                                     float* __restrict__ out_t,
+                                     int* __restrict__ out_id) {
+  const int n = live_count(n_live, n_slots);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const int slot = idx ? idx[i] : i;
+    const unsigned long long k = key[i];
+    out_t[slot] = k == kNoKey ? kBig : __uint_as_float((unsigned)(k >> 32));
+    out_id[slot] = k == kNoKey ? -1 : (int)(k & 0x7fffffffu);
+  }
+}
 
-  for (int k = 0; k < n_tiles(T.n_tri, kTriTile); ++k) {
-    // every lane occluded: skip the rest; else the barrier before the
-    // previous tile is overwritten
-    if (__syncthreads_and(occ)) break;
-    const int base = k * kTriTile;
-    const int n = min(kTriTile, T.n_tri - base);
-    load_tile(s_row, T.tri, base, n, 3);
-    __syncthreads();
-    for (int j = 0; j < n && !occ; ++j) {
-      occ = blocks(triangle_t(s_row[3 * j], s_row[3 * j + 1],
-                              s_row[3 * j + 2], ray, stage), max_t);
-      if (COUNT) tally(w.tri, stage);
+// ---------------------------------------------------------------------------
+// any hit
+
+// Whether any lane of the warp found an occluder.
+__device__ __forceinline__ bool vote(bool hit) {
+  return __any_sync(kAll, hit);
+}
+
+__global__ void __launch_bounds__(kAnyThreads)
+brute_any_sweep(const float* __restrict__ o, const float* __restrict__ d,
+                int n_slots, const int* __restrict__ idx,
+                const int* __restrict__ n_live, float max_t, Tables T,
+                uint8_t* out) {
+  const int n = live_count(n_live, n_slots);
+  const int warps = gridDim.x * kAnyWarps;
+  const int n_rows = T.n_tri + T.n_sph;
+  const int slices = choose_slices(n, warps, max(1, n_rows / kAnySlice));
+  const int per = (n_rows + slices - 1) / slices;
+  const int lane = threadIdx.x & 31;
+  for (int w = blockIdx.x * kAnyWarps + threadIdx.x / 32; w < n * slices;
+       w += warps) {
+    const int i = w / slices;
+    const int lo = (w % slices) * per, hi = min(n_rows, lo + per);
+    const int slot = idx ? idx[i] : i;
+    const Ray r = make_ray(o + 3 * slot, d + 3 * slot);
+    volatile uint8_t* flag = out + slot;
+    bool occ = false;
+    for (int base = lo; base < hi && !occ; base += 32) {
+      // another slice of this ray found an occluder: stop
+      if (slices > 1 && (base - lo) % (32 * kFlagEvery) == 0 &&
+          vote(*flag != 0))
+        break;
+      const int j = base + lane;
+      bool hit = false;
+      if (j < hi) {
+        if (j < T.n_tri) {
+          const float4* p = T.tri + 3 * j;
+          const float4 p0 = __ldg(p), p1 = __ldg(p + 1), p2 = __ldg(p + 2);
+          const TriGate g = triangle_gate(p0, p1, p2, r);
+          hit = g.open() && blocks(g.t(p0, p1, p2, r), max_t);
+        } else {
+          const float4 p = __ldg(T.sph + j - T.n_tri);
+          const Gate g = sphere_gate(p, p.w * p.w, r);
+          hit = g.open() && blocks(g.t(r), max_t);
+        }
+      }
+      occ = vote(hit);
     }
+    if (occ && lane == 0) *flag = 1;
   }
-  for (int k = 0; k < n_tiles(T.n_sph, kSphTile); ++k) {
-    if (__syncthreads_and(occ)) break;
-    const int base = k * kSphTile;
-    const int n = min(kSphTile, T.n_sph - base);
-    load_tile(s_row, T.sph, base, n, 1);
-    __syncthreads();
-    for (int j = 0; j < n && !occ; ++j) {
-      occ = blocks(sphere_t(s_row[j], ray, stage), max_t);
-      if (COUNT) tally(w.sph, stage);
-    }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+
+// Blocks of `threads` that the card holds at once for `kernel`; `l1` asks
+// for the most L1 on this device first (the any hit reads its rows there).
+int persistent_grid(const void* kernel, int threads, int which, bool l1) {
+  static int cache[2][64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  int& grid = cache[which][dev];
+  if (grid == 0) {
+    if (l1)
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxL1);
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  0);
+    grid = max(1, sms) * max(1, per_sm);
   }
-  if (!live) return;
-  out[r] = occ ? 1 : 0;
-  store_work<COUNT>(counts, r, w);
+  return grid;
+}
+
+int n_chunks(int n_slots) { return (n_slots + kChunk - 1) / kChunk; }
+
+// The scratch a launch carves: per-ray keys (closest), then with a dead
+// mask the live indices, the live count and the chunks' counts.
+struct Scratch {
+  unsigned long long* key;
+  int* idx;
+  int* n_live;
+  int* counts;
+};
+
+long long scratch_bytes(int n_slots, bool closest, bool masked) {
+  return (closest ? 8ll * n_slots : 0) +
+         (masked ? 4ll * n_slots + 4 + 4ll * n_chunks(n_slots) : 0);
+}
+
+Scratch carve(void* scratch, int n_slots, bool closest, bool masked) {
+  char* p = (char*)scratch;
+  Scratch s{nullptr, nullptr, nullptr, nullptr};
+  if (closest) {
+    s.key = (unsigned long long*)p;
+    p += 8ll * n_slots;
+  }
+  if (masked) {
+    s.idx = (int*)p;
+    s.n_live = s.idx + n_slots;
+    s.counts = s.n_live + 1;
+  }
+  return s;
+}
+
+void compact(cudaStream_t st, const uint8_t* dead, int n_slots,
+             const Scratch& s, const Outputs& out) {
+  brute_compact_count<<<n_chunks(n_slots), kScanThreads, 0, st>>>(
+      dead, n_slots, s.counts);
+  brute_compact_scatter<<<n_chunks(n_slots), kScanThreads, 0, st>>>(
+      dead, n_slots, s.counts, s.idx, s.n_live, out);
 }
 
 }  // namespace
 
+// Bytes of scratch that a launch over n_rays slots needs.
+extern "C" long long brute_scratch_bytes(int n_rays, int closest, int masked) {
+  return scratch_bytes(n_rays, closest != 0, masked != 0);
+}
+
 extern "C" int brute_closest_launch(void* stream, const float* o,
                                     const float* d, int n_rays,
-                                    const float* sph, const int* sph_id,
-                                    int n_sph, const float* tri, int n_tri,
-                                    float* out_t, int* out_id, int* counts) {
+                                    const uint8_t* dead, const float* sph,
+                                    const int* sph_id, int n_sph,
+                                    const float* tri, int n_tri,
+                                    float* out_t, int* out_id,
+                                    void* scratch) {
   if (n_rays <= 0) return 0;
-  if (n_sph < 0 || n_tri < 0) return (int)cudaErrorInvalidValue;
+  if (n_sph < 0 || n_tri < 0 || !scratch) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Scratch s = carve(scratch, n_rays, true, dead != nullptr);
+  if (dead) {
+    compact(st, dead, n_rays, s, Outputs{out_t, out_id, s.key, nullptr});
+  } else {
+    const cudaError_t e = cudaMemsetAsync(s.key, 0xff, 8ll * n_rays, st);
+    if (e != cudaSuccess) return (int)e;
+  }
   Tables T{(const float4*)sph, sph_id, n_sph, (const float4*)tri, n_tri};
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (counts)
-    closest_kernel<true><<<blocks, kThreads, 0, s>>>(o, d, n_rays, T, out_t,
-                                                     out_id, counts);
-  else
-    closest_kernel<false><<<blocks, kThreads, 0, s>>>(o, d, n_rays, T, out_t,
-                                                      out_id, counts);
+  const int grid = persistent_grid((const void*)brute_closest_sweep,
+                                   kThreads, 0, false);
+  brute_closest_sweep<<<grid, kThreads, 0, st>>>(o, d, n_rays, s.idx,
+                                                 s.n_live, T, s.key);
+  brute_closest_finish<<<min((n_rays + 255) / 256, 1024), 256, 0, st>>>(
+      n_rays, s.idx, s.n_live, s.key, out_t, out_id);
   return (int)cudaGetLastError();
 }
 
@@ -251,17 +592,22 @@ extern "C" int brute_any_launch(void* stream, const float* o, const float* d,
                                 int n_rays, float max_t, const uint8_t* dead,
                                 const float* sph, const int* sph_id,
                                 int n_sph, const float* tri, int n_tri,
-                                uint8_t* out, int* counts) {
+                                uint8_t* out, void* scratch) {
   if (n_rays <= 0) return 0;
-  if (n_sph < 0 || n_tri < 0) return (int)cudaErrorInvalidValue;
+  if (n_sph < 0 || n_tri < 0 || (dead && !scratch))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Scratch s = carve(scratch, n_rays, false, dead != nullptr);
+  if (dead) {
+    compact(st, dead, n_rays, s, Outputs{nullptr, nullptr, nullptr, out});
+  } else {
+    const cudaError_t e = cudaMemsetAsync(out, 0, n_rays, st);
+    if (e != cudaSuccess) return (int)e;
+  }
   Tables T{(const float4*)sph, sph_id, n_sph, (const float4*)tri, n_tri};
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (counts)
-    any_kernel<true><<<blocks, kThreads, 0, s>>>(o, d, n_rays, max_t, dead, T,
-                                                 out, counts);
-  else
-    any_kernel<false><<<blocks, kThreads, 0, s>>>(o, d, n_rays, max_t, dead,
-                                                  T, out, counts);
+  const int grid = persistent_grid((const void*)brute_any_sweep, kAnyThreads,
+                                   1, true);
+  brute_any_sweep<<<grid, kAnyThreads, 0, st>>>(o, d, n_rays, s.idx,
+                                                s.n_live, max_t, T, out);
   return (int)cudaGetLastError();
 }

@@ -39,10 +39,12 @@
 //     sweep slots trace axis-parallel rays;
 //   * the host checks that the tree's depth fits kStack
 //     (accel/packets.STACK_DEPTH).
-// With a non-null counts [R, 5] (node box tests, then triangle, sphere,
-// plane and box tests) each thread records its walk's work, summed over its
-// segment sets; the main path passes null and runs the instantiation
-// without counters.
+// With a non-null counts [R, 9] (node box tests; triangle tests ended at
+// the det, u and v gates and with their t; sphere tests ended at the
+// discriminant and with their roots, prim_tests.cuh's stages; plane and box
+// tests) each thread records its walk's work, summed over its segment sets;
+// the main path passes null and runs the instantiation without counters,
+// which ignores the stages and compiles to the walk without them.
 // All math is f32 with IEEE division and square root, built without
 // multiply-add contraction (kernels/build.NO_CONTRACTION).
 
@@ -67,8 +69,15 @@ struct Ray {
 };
 
 struct Work {
-  int nodes, tris, sphs, planes, boxes;
+  int nodes, tri[kTriStages], sph[kSphStages], planes, boxes;
 };
+constexpr int kWorkCounts = 3 + kTriStages + kSphStages;
+
+template <int N>
+__device__ __forceinline__ void tally(int (&c)[N], int stage) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) c[k] += stage == k;
+}
 
 __device__ __forceinline__ float safe_inv(float c) {
   if (fabsf(c) < 1e-30f) return c < 0.f ? -1e30f : 1e30f;
@@ -145,16 +154,19 @@ __device__ __forceinline__ float row_t(const float4* __restrict__ rows, int i,
   int type = __float_as_int(m.x);
   id = __float_as_int(m.y);
   float4 p0 = __ldg(p);
+  int stage;
   if (type == kSph) {
     rank = 1;
-    if (COUNT) ++w.sphs;
-    return sphere_t(p0, r);
+    const float t = sphere_t(p0, r, stage);
+    if (COUNT) tally(w.sph, stage);
+    return t;
   }
   float4 p1 = __ldg(p + 1);
   if (type == kTri) {
     rank = 0;
-    if (COUNT) ++w.tris;
-    return triangle_t(p0, p1, __ldg(p + 2), r);
+    const float t = triangle_t(p0, p1, __ldg(p + 2), r, stage);
+    if (COUNT) tally(w.tri, stage);
+    return t;
   }
   if (type == kPlane) {
     rank = 2;
@@ -280,12 +292,14 @@ template <bool COUNT>
 __device__ __forceinline__ void store_work(int* counts, int r,
                                            const Work& w) {
   if (COUNT) {
-    int* c = counts + 5 * r;
+    int* c = counts + kWorkCounts * r;
     c[0] = w.nodes;
-    c[1] = w.tris;
-    c[2] = w.sphs;
-    c[3] = w.planes;
-    c[4] = w.boxes;
+#pragma unroll
+    for (int k = 0; k < kTriStages; ++k) c[1 + k] = w.tri[k];
+#pragma unroll
+    for (int k = 0; k < kSphStages; ++k) c[1 + kTriStages + k] = w.sph[k];
+    c[1 + kTriStages + kSphStages] = w.planes;
+    c[2 + kTriStages + kSphStages] = w.boxes;
   }
 }
 
@@ -297,7 +311,7 @@ closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   Ray ray = make_ray(o + 3 * r, d + 3 * r);
-  Work w{0, 0, 0, 0, 0};
+  Work w = {};
   float bt;
   int bid;
   walk_closest<COUNT>(T, ray, bt, bid, w);
@@ -315,7 +329,7 @@ any_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
            uint8_t* __restrict__ out, int* __restrict__ counts) {
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
-  Work w{0, 0, 0, 0, 0};
+  Work w = {};
   for (int l = 0; l < n_sets; ++l) {
     size_t k = (size_t)l * n_rays + r;
     bool occ = true;  // dead lanes report occluded without a walk

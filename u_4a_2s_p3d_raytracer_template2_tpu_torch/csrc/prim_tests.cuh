@@ -19,6 +19,18 @@ constexpr int kSphMiss = 0, kSphRoots = 1, kSphStages = 2;
 // with its t
 constexpr int kTriDet = 0, kTriU = 1, kTriV = 2, kTriT = 3, kTriStages = 4;
 
+// The end of ops/intersect._sphere_t_one from its discriminant delta, its
+// b and the ray's a: the smaller root >= 0, else the larger, or kBig.
+__device__ __forceinline__ float sphere_roots(float b, float delta, float a) {
+  if (!(delta >= 0.f)) return kBig;
+  float sq = delta > 0.f ? sqrtf(delta) : 0.f;
+  float t0 = (-b - sq) / (2.f * a);
+  float t1 = (-b + sq) / (2.f * a);
+  float lo = fminf(t0, t1), hi = fmaxf(t0, t1);
+  float t = lo < 0.f ? hi : lo;
+  return t >= 0.f ? t : kBig;
+}
+
 // ops/intersect._sphere_t_one: p = (center, radius), the direct (o-c) form
 template <class R>
 __device__ __forceinline__ float sphere_t(float4 p, const R& r, int& stage) {
@@ -26,15 +38,8 @@ __device__ __forceinline__ float sphere_t(float4 p, const R& r, int& stage) {
   float b = 2.f * (r.dx * lx + r.dy * ly + r.dz * lz);
   float cc = lx * lx + ly * ly + lz * lz - p.w * p.w;
   float delta = b * b - 4.f * r.a * cc;
-  stage = kSphMiss;
-  if (!(delta >= 0.f)) return kBig;
-  stage = kSphRoots;
-  float sq = delta > 0.f ? sqrtf(delta) : 0.f;
-  float t0 = (-b - sq) / (2.f * r.a);
-  float t1 = (-b + sq) / (2.f * r.a);
-  float lo = fminf(t0, t1), hi = fmaxf(t0, t1);
-  float t = lo < 0.f ? hi : lo;
-  return t >= 0.f ? t : kBig;
+  stage = delta >= 0.f ? kSphRoots : kSphMiss;
+  return sphere_roots(b, delta, r.a);
 }
 
 template <class R>

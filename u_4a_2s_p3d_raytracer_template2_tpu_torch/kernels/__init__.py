@@ -199,9 +199,11 @@ def pt_megakernel(tables, o, d, time, uni, cfg) -> torch.Tensor:
 pt_megakernel.launches = 0
 
 
-# per-ray work counters of the BVH walk: node box tests, then triangle,
-# sphere, plane and box tests
-WORK_COUNTS = 5
+# per-ray work counters of the BVH walk: node box tests; triangle tests
+# ended at the det, u and v gates and with their t; sphere tests ended at
+# the discriminant and with their roots (csrc/prim_tests.cuh's stages, in
+# ops/intersect.BRUTE_STAGES' order); plane and box tests
+WORK_COUNTS = 9
 
 
 def _bvh_args(tables, o, d, counts):
@@ -235,8 +237,9 @@ def bvh_closest(tables, o, d, counts=None):
     """(t [R], obj_id [R] int32, -1 on a miss) of rays (o, d) [R,3] through
     the BVH walk on the card (csrc/bvh_walk.cu). ``tables`` is
     ``accel.packets.PacketTables``; ``counts``, an optional int32
-    [R, WORK_COUNTS], receives each ray's node box, triangle, sphere, plane
-    and box tests (the main path passes None)."""
+    [R, WORK_COUNTS], receives each ray's node box tests, triangle and
+    sphere tests by where they ended, plane and box tests (the main path
+    passes None)."""
     dev, R, tbl = _bvh_args(tables, o, d, counts)
     t = torch.empty(R, dtype=torch.float32, device=dev)
     obj = torch.empty(R, dtype=torch.int32, device=dev)
@@ -303,34 +306,33 @@ def bvh_any_multi(tables, o, dirs, max_t: float, dead=None, counts=None):
 bvh_any_multi.launches = 0
 
 
-# per-ray work counters of the brute-force kernels, tests by where they
-# ended (csrc/prim_tests.cuh): triangle tests at the det, u and v gates and
-# with their t, then sphere tests at the discriminant and with their roots
-BRUTE_COUNTS = 6
-
-
 @functools.cache
 def _brute_entry(name: str):
     fn = getattr(load("brute_intersect"), name)
+    if name == "brute_scratch_bytes":
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int] * 3
+        return fn
     fn.restype = ctypes.c_int
     tables = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
                                       ctypes.c_int]
     if name == "brute_closest_launch":
         fn.argtypes = ([ctypes.c_void_p]                         # stream
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int]  # o, d, R
+                       + [ctypes.c_void_p]                       # dead
                        + tables            # sph, sph_id, n_sph, tri, n_tri
-                       + [ctypes.c_void_p] * 3)          # t, id, counts
+                       + [ctypes.c_void_p] * 3)          # t, id, scratch
     else:
         fn.argtypes = ([ctypes.c_void_p]                         # stream
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int]  # o, d, R
                        + [ctypes.c_float, ctypes.c_void_p]       # max_t, dead
                        + tables
-                       + [ctypes.c_void_p] * 2)          # out, counts
+                       + [ctypes.c_void_p] * 2)          # out, scratch
     return fn
 
 
-def _brute_args(tables, o, d, counts):
-    """Check the brute-force tables, rays and counter buffer; returns the
+def _brute_args(tables, o, d, dead):
+    """Check the brute-force tables, rays and dead mask; returns the
     device, the ray count and the table arguments of the C entry points."""
     if o.device.type != "cuda":
         raise ValueError(f"the brute-force kernels run on CUDA tensors, not "
@@ -342,6 +344,8 @@ def _brute_args(tables, o, d, counts):
                          f"{tuple(o.shape)} and {tuple(d.shape)}")
     _check("o", o, dev)
     _check("d", d, dev)
+    if dead is not None:
+        _check("dead", dead, dev, R, torch.bool)
     _check("sph", tables.sph, dev, 4 * tables.n_sph)
     _check("sph_ids", tables.sph_ids, dev, tables.n_sph, torch.int32)
     _check("tri", tables.tri, dev, 12 * tables.n_tri)
@@ -349,28 +353,46 @@ def _brute_args(tables, o, d, counts):
     for name, t in (("sph", tables.sph), ("tri", tables.tri)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: want 16-byte aligned rows")
-    if counts is not None:
-        _check("counts", counts, dev, BRUTE_COUNTS * R, torch.int32)
     return dev, R, [tables.sph.data_ptr(), tables.sph_ids.data_ptr(),
                     tables.n_sph, tables.tri.data_ptr(), tables.n_tri]
 
 
-def brute_closest(tables, o, d, counts=None):
+def _brute_scratch(R, dev, closest: bool, dead):
+    """The launch's scratch (per-ray keys, and with a dead mask the
+    compaction's indices and counts), or None where it needs none."""
+    n = _brute_entry("brute_scratch_bytes")(R, int(closest),
+                                            int(dead is not None))
+    return torch.empty(n, dtype=torch.uint8, device=dev) if n else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def brute_closest(tables, o, d, dead=None, out=None):
     """(t [R], obj_id [R] int32, -1 on a miss) of rays (o, d) [R,3] against
     every triangle and sphere of ``tables`` (``ops.intersect.BruteTables``)
-    on the card (csrc/brute_intersect.cu). ``counts``, an optional int32
-    [R, BRUTE_COUNTS], receives each ray's triangle and sphere tests by
-    where they ended (the main path passes None)."""
-    dev, R, tbl = _brute_args(tables, o, d, counts)
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    obj = torch.empty(R, dtype=torch.int32, device=dev)
+    on the card (csrc/brute_intersect.cu). ``dead`` [R] bool slots are not
+    traced and read (BIG, -1); the live ones are packed on the device
+    before the sweep, and the host never waits for their count. ``out``:
+    the (t, obj_id) tensors to write into, else new ones; the card's
+    checks pass them filled with other values, so that a slot the kernel
+    leaves unwritten shows."""
+    dev, R, tbl = _brute_args(tables, o, d, dead)
+    if out is None:
+        out = (torch.empty(R, dtype=torch.float32, device=dev),
+               torch.empty(R, dtype=torch.int32, device=dev))
+    t, obj = out
+    _check("t", t, dev, R)
+    _check("obj_id", obj, dev, R, torch.int32)
     if R == 0:
         return t, obj
+    scratch = _brute_scratch(R, dev, True, dead)
     with torch.cuda.device(dev):
         rc = _brute_entry("brute_closest_launch")(
             torch.cuda.current_stream(dev).cuda_stream, o.data_ptr(),
-            d.data_ptr(), R, *tbl, t.data_ptr(), obj.data_ptr(),
-            None if counts is None else counts.data_ptr())
+            d.data_ptr(), R, _ptr(dead), *tbl, t.data_ptr(), obj.data_ptr(),
+            _ptr(scratch))
     if rc != 0:
         raise RuntimeError(f"brute_closest launch failed: CUDA error {rc}")
     brute_closest.launches += 1
@@ -380,23 +402,24 @@ def brute_closest(tables, o, d, counts=None):
 brute_closest.launches = 0
 
 
-def brute_any(tables, o, d, max_t: float, dead=None, counts=None):
+def brute_any(tables, o, d, max_t: float, dead=None, out=None):
     """Occlusion [R] bool of segments o + t·d, t < ``max_t``, against every
-    triangle and sphere of ``tables`` on the card; ``dead`` [R] bool lanes
-    report occluded without a test. ``counts`` as for ``brute_closest``,
-    counting the tests each ray ran before its first occluder."""
-    dev, R, tbl = _brute_args(tables, o, d, counts)
-    if dead is not None:
-        _check("dead", dead, dev, R, torch.bool)
-    out = torch.empty(R, dtype=torch.bool, device=dev)
+    triangle and sphere of ``tables`` on the card; ``dead`` [R] bool slots
+    report occluded without a test, and the live ones are packed on the
+    device before the sweep. ``out`` as for ``brute_closest``: the [R]
+    bool tensor to write into."""
+    dev, R, tbl = _brute_args(tables, o, d, dead)
+    if out is None:
+        out = torch.empty(R, dtype=torch.bool, device=dev)
+    _check("out", out, dev, R, torch.bool)
     if R == 0:
         return out
+    scratch = _brute_scratch(R, dev, False, dead)
     with torch.cuda.device(dev):
         rc = _brute_entry("brute_any_launch")(
             torch.cuda.current_stream(dev).cuda_stream, o.data_ptr(),
-            d.data_ptr(), R, max_t,
-            None if dead is None else dead.data_ptr(), *tbl, out.data_ptr(),
-            None if counts is None else counts.data_ptr())
+            d.data_ptr(), R, max_t, _ptr(dead), *tbl, out.data_ptr(),
+            _ptr(scratch))
     if rc != 0:
         raise RuntimeError(f"brute_any launch failed: CUDA error {rc}")
     brute_any.launches += 1

@@ -9,7 +9,9 @@ child, ``2i+1`` = refraction child of slot ``i``). The forward sweep traces
 and locally shades each level; the backward sweep folds children into
 parents with ``local + KR·specColor·refl + (1-KR)·refr`` (main.cpp:719).
 Everything is masked rather than branched: inactive slots trace with
-direction (0,0,1) and contribute zero.
+direction (0,0,1) and contribute zero; brute force, which would test every
+primitive for them, is told which slots are inactive and traces only the
+others.
 
 ``engine="megakernel"`` hands the whole tree to one CUDA kernel on CUDA
 tensors (models/whitted_megakernel.py). In a BVH or grid scene the sweep's
@@ -83,13 +85,17 @@ def _walks(scene: Scene, cfg: RenderConfig | None) -> bool:
             and _bvh_impl(cfg) == "walk" and scene.packets is not None)
 
 
-def trace_closest(scene: Scene, rays: Rays, cfg: RenderConfig | None = None):
-    """Closest hit via the scene's accelerator; returns (t, obj_id)."""
+def trace_closest(scene: Scene, rays: Rays, cfg: RenderConfig | None = None,
+                  dead=None):
+    """Closest hit via the scene's accelerator; returns (t, obj_id).
+    ``dead`` [R] bool marks slots the caller masks downstream: brute force
+    traces only the others and gives them (BIG, -1); the walk traces every
+    slot."""
     if _walks(scene, cfg):
         from ..accel.packets import packet_closest_hit
 
         return packet_closest_hit(scene.packets, rays)
-    return intersect.closest_hit_brute(scene.prims, rays, scene.brute)
+    return intersect.closest_hit_brute(scene.prims, rays, scene.brute, dead)
 
 
 def _grid_initfail(scene: Scene, cfg: RenderConfig | None) -> bool:
@@ -197,7 +203,7 @@ def _level_step(scene: Scene, rays: Rays, active, ior_in, cfg: RenderConfig,
     """Trace + locally shade level ``lvl``; optionally emit children.
     ``layout``/``rows``: the stream layout and the trace's sample values
     (models/samples.py; ``rows`` None when the layout has none)."""
-    t_disc, obj_id = trace_closest(scene, rays, cfg)
+    t_disc, obj_id = trace_closest(scene, rays, cfg, dead=~active)
     hit = active & (obj_id >= 0)
 
     params, ptype, mat_id = intersect.gather_prims(scene.prims, obj_id)

@@ -38,8 +38,8 @@ def _cols3(a):
     return a[..., 0], a[..., 1], a[..., 2]
 
 
-def _sphere_t_one(p, o_cols, d_cols):
-    """Sphere t in the reference's direct (o−c) form; BIG on miss."""
+def _sphere_parts(p, o_cols, d_cols):
+    """(discriminant, t) of ``_sphere_t_one``, t BIG on a miss."""
     ox, oy, oz = o_cols
     dx, dy, dz = d_cols
     a = dx * dx + dy * dy + dz * dz
@@ -57,10 +57,17 @@ def _sphere_t_one(p, o_cols, d_cols):
     hi = torch.maximum(t0, t1)
     t = torch.where(lo < 0.0, hi, lo)
     ok = (delta >= 0.0) & (t >= 0.0)
-    return torch.where(ok, t, C.BIG)
+    return delta, torch.where(ok, t, C.BIG)
 
 
-def _triangle_t_one(p, o_cols, d_cols):
+def _sphere_t_one(p, o_cols, d_cols):
+    """Sphere t in the reference's direct (o−c) form; BIG on miss."""
+    return _sphere_parts(p, o_cols, d_cols)[1]
+
+
+def _triangle_parts(p, o_cols, d_cols):
+    """(passed the det gate, the u gate, the v gate, t) of
+    ``_triangle_t_one`` (Möller–Trumbore), t BIG on a miss."""
     ox, oy, oz = o_cols
     dx, dy, dz = d_cols
     v0x, v0y, v0z = p[0], p[1], p[2]
@@ -70,21 +77,25 @@ def _triangle_t_one(p, o_cols, d_cols):
     hy = dz * e2x - dx * e2z
     hz = dx * e2y - dy * e2x
     det = e1x * hx + e1y * hy + e1z * hz
-    ok = det.abs() > _EPS
-    f = 1.0 / torch.where(ok, det, 1.0)
+    ok_det = det.abs() > _EPS
+    f = 1.0 / torch.where(ok_det, det, 1.0)
     sx = ox - v0x
     sy = oy - v0y
     sz = oz - v0z
     u = f * (sx * hx + sy * hy + sz * hz)
-    ok = ok & (u >= 0.0) & (u <= 1.0)
+    ok_u = ok_det & (u >= 0.0) & (u <= 1.0)
     qx = sy * e1z - sz * e1y
     qy = sz * e1x - sx * e1z
     qz = sx * e1y - sy * e1x
     v = f * (dx * qx + dy * qy + dz * qz)
-    ok = ok & (v >= 0.0) & (u + v <= 1.0)
+    ok_v = ok_u & (v >= 0.0) & (u + v <= 1.0)
     t = f * (e2x * qx + e2y * qy + e2z * qz)
-    ok = ok & (t > _EPS)
-    return torch.where(ok, t, C.BIG)
+    ok = ok_v & (t > _EPS)
+    return ok_det, ok_u, ok_v, torch.where(ok, t, C.BIG)
+
+
+def _triangle_t_one(p, o_cols, d_cols):
+    return _triangle_parts(p, o_cols, d_cols)[3]
 
 
 def _plane_t_one(p, o_cols, d_cols):
@@ -243,26 +254,87 @@ _ALL_TYPES = (C.TRIANGLE, C.SPHERE, C.PLANE, C.AABOX)
 _SWEPT_TYPES = (C.PLANE, C.AABOX)  # beside the kernels, as JAX sweeps them
 
 
-def closest_hit_plain(prims: Primitives, rays: Rays, chunk: int = 2048):
+def closest_hit_plain(prims: Primitives, rays: Rays, dead=None,
+                      chunk: int = 2048):
     """Closest hit over every primitive in [R, chunk] blocks per type: the
-    brute-force kernels' plain version (csrc/brute_intersect.cu).
+    brute-force kernels' plain version (csrc/brute_intersect.cu). ``dead``
+    [R] bool rays are not traced and read (BIG, -1): only the live rows
+    are computed.
 
     Returns (t [R], obj_id [R] int32); obj_id == -1 on miss.
     """
     o, d = rays.origin, rays.direction
-    t_best, id_best = _fold_closest(prims, _ALL_TYPES, o, d, *_no_hit(o),
-                                    chunk)
-    return t_best, torch.where(t_best >= C.BIG, -1, id_best)
+    if dead is not None:
+        o, d = o[~dead], d[~dead]
+    t, ids = _fold_closest(prims, _ALL_TYPES, o, d, *_no_hit(o), chunk)
+    ids = torch.where(t >= C.BIG, -1, ids)
+    if dead is None:
+        return t, ids
+    t_best, id_best = _no_hit(rays.origin)
+    t_best[~dead], id_best[~dead] = t, ids
+    return t_best, id_best
 
 
 def any_hit_plain(prims: Primitives, rays: Rays, max_t, dead=None,
                   chunk: int = 2048) -> torch.Tensor:
     """Occlusion over every primitive in [R, chunk] blocks per type: the
     brute-force kernels' plain version. ``dead`` [R] bool lanes report
-    occluded."""
+    occluded without a test: only the live rows are computed."""
     o, d = rays.origin, rays.direction
-    return _any_blocks(prims, _ALL_TYPES, o, d, max_t, _no_occluder(o, dead),
-                       chunk)
+    if dead is not None:
+        o, d = o[~dead], d[~dead]
+    occ = _any_blocks(prims, _ALL_TYPES, o, d, max_t, _no_occluder(o), chunk)
+    if dead is None:
+        return occ
+    out = dead.clone()
+    out[~dead] = occ
+    return out
+
+
+# Where a brute-force test ended, in the order of the kernels' stages
+# (csrc/prim_tests.cuh) and of the walk's counters (kernels.WORK_COUNTS)
+BRUTE_STAGES = ("triangle at the det gate", "triangle at the u gate",
+                "triangle at the v gate", "triangle with its t",
+                "sphere at the discriminant", "sphere with its roots")
+
+
+def brute_stages(prims: Primitives, rays: Rays, max_t=None, dead=None,
+                 chunk: int = 2048) -> torch.Tensor:
+    """The brute-force kernels' tests on ``rays`` by where each ended,
+    summed: int64 [len(BRUTE_STAGES)]. A closest hit (``max_t`` None) tests
+    every triangle and sphere; an any hit tests them in table order
+    (triangles, then spheres) up to and including its first occluder
+    (t < ``max_t``). ``dead`` [R] bool rays test nothing. Counted from the
+    plain version's formulas, whatever order a kernel tests the rows in."""
+    o, d = rays.origin, rays.direction
+    if dead is not None:
+        o, d = o[~dead], d[~dead]
+    o_cols = tuple(o[:, k:k + 1] for k in range(3))
+    d_cols = tuple(d[:, k:k + 1] for k in range(3))
+    counts = torch.zeros(len(BRUTE_STAGES), dtype=torch.int64,
+                         device=o.device)
+    done = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    for table, n, first in ((prims.tri_p, prims.n_tri, 0),
+                            (prims.sph_p, prims.n_sph, 4)):
+        for s in range(0, n, chunk):
+            rows = table[s:min(s + chunk, n)]
+            p = [rows[:, k][None, :] for k in range(rows.shape[1])]
+            if first == 0:
+                ok_det, ok_u, ok_v, t = _triangle_parts(p, o_cols, d_cols)
+                stage = (ok_det.long() + ok_u.long() + ok_v.long())
+            else:
+                delta, t = _sphere_parts(p, o_cols, d_cols)
+                stage = (delta >= 0.0).long()
+            tested = torch.ones_like(stage, dtype=torch.bool)
+            if max_t is not None:
+                occ = t < max_t
+                before = occ.long().cumsum(dim=1) - occ.long()
+                tested = ~done[:, None] & (before == 0)
+                done = done | occ.any(dim=1)
+            k = 4 if first == 0 else 2
+            counts[first:first + k] += torch.bincount(stage[tested],
+                                                      minlength=k)
+    return counts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,30 +371,39 @@ def _kernel_tables(tables: BruteTables | None) -> BruteTables:
 
 
 def closest_hit_brute(prims: Primitives, rays: Rays,
-                      tables: BruteTables | None = None):
+                      tables: BruteTables | None = None, dead=None):
     """Brute-force closest hit (accel NONE path, main.cpp:542-553).
 
     Up to SMALL_UNROLL_MAX primitives, one [R] test per primitive on any
     device. Above it, CPU tensors run the plain version and CUDA tensors
     one launch of the kernel over the triangles and spheres
     (``kernels.brute_closest`` on ``tables``, the scene's ``Scene.brute``),
-    with planes and boxes folded after it in PyTorch. Returns (t [R],
+    with planes and boxes folded after it in PyTorch. ``dead`` [R] bool
+    marks slots the caller masks downstream: they read (BIG, -1), and the
+    kernel and the plain version trace only the others. Returns (t [R],
     obj_id [R] int32); obj_id == -1 on miss.
     """
     if 0 < _small_total(prims) <= SMALL_UNROLL_MAX:
-        return _small_closest(prims, rays)
-    if rays.origin.device.type == "cpu":
-        return closest_hit_plain(prims, rays)
-    o = rays.origin.contiguous()
-    d = rays.direction.contiguous()
-    if prims.n_tri + prims.n_sph:
-        from ..kernels import brute_closest
-
-        t_best, id_best = brute_closest(_kernel_tables(tables), o, d)
+        t_best, id_best = _small_closest(prims, rays)
+    elif rays.origin.device.type == "cpu":
+        return closest_hit_plain(prims, rays, dead)
     else:
-        t_best, id_best = _no_hit(o)
-    t_best, id_best = _fold_closest(prims, _SWEPT_TYPES, o, d, t_best,
-                                    id_best, 2048)
+        o = rays.origin.contiguous()
+        d = rays.direction.contiguous()
+        if prims.n_tri + prims.n_sph:
+            from ..kernels import brute_closest
+
+            t_best, id_best = brute_closest(
+                _kernel_tables(tables), o, d,
+                None if dead is None else dead.contiguous())
+        else:
+            t_best, id_best = _no_hit(o)
+        if not prims.n_pl + prims.n_box:
+            return t_best, id_best
+        t_best, id_best = _fold_closest(prims, _SWEPT_TYPES, o, d, t_best,
+                                        id_best, 2048)
+    if dead is not None:
+        t_best = torch.where(dead, C.BIG, t_best)
     return t_best, torch.where(t_best >= C.BIG, -1, id_best)
 
 
