@@ -4,11 +4,12 @@
 
 Builds copies of csrc/whitted_megakernel.cu, csrc/pt_megakernel.cu,
 csrc/bvh_walk.cu, csrc/brute_intersect.cu and csrc/probes.cu (with the
-headers they include) with one fault planted in each (under build/faults/,
-one nvcc per copy, all started together), and two controls of the Whitted
-kernel (WHITTED_CONTROLS), and runs the sound kernels and every faulty one
-through chip_smoke.py's cases against the plain versions on the same
-inputs:
+headers they include) with one fault planted in each (under build/copies/,
+kernels/build.build_copy, one nvcc per copy, all started together), two
+controls of the Whitted kernel (WHITTED_CONTROLS) and the design controls
+of both megakernels (WHITTED_DESIGN, PT_DESIGN), and runs the sound kernels
+and every faulty one through chip_smoke.py's cases against the plain
+versions on the same inputs:
   * the Whitted kernel's (chip_smoke.whitted_cases), printing the share of
     pixels beyond 2e-3 and the mean and max abs difference of each, and
     whether the case's limits (chip_smoke.WHITTED_LIMITS) reject it;
@@ -37,9 +38,16 @@ inputs:
   * the device probes' checks of chip_smoke.py's phase 15: T3's walks of
     tools/probe_features.walk_cases against the oracle, exactly, in both
     stack placements, and T1's cheap class against its plain version
-    (tools/roofline_mount.RTOL) and under 1.05 x its class ceiling.
-Exits non-zero if a limit rejects a sound kernel or no case rejects a faulty
-one.
+    (tools/roofline_mount.RTOL) and under 1.05 x its class ceiling;
+  * the megakernels' design controls, each of which puts back one element
+    of the kernel's design before its redesign for the card (the rows
+    without pads, one primitive a step, the refraction stack in registers,
+    the launch bounds, the centre's lerp for static spheres): each must
+    answer as the sound kernel does, bit for bit, on the main paths'
+    launches (tools/megakernels.main_inputs), and is timed beside it in
+    turns.
+Exits non-zero if a limit rejects a sound kernel, no case rejects a faulty
+one, or a design control answers otherwise than the sound kernel.
 """
 import concurrent.futures
 import ctypes
@@ -47,13 +55,10 @@ import dataclasses
 import tempfile
 import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
 import chip_smoke
-
-ROOT = Path(__file__).resolve().parent
 
 # (name, text of csrc/whitted_megakernel.cu, its faulty replacement)
 WHITTED_FAULTS = (
@@ -92,6 +97,61 @@ WHITTED_CONTROLS = (
     ("unit-sphere radius as powf(u, 1/3)",
      (("const float r = cbrtf(u3);", "const float r = powf(u3, 1.f / 3.f);"),),
      (), None),
+)
+
+
+# The megakernels' design controls: builds of csrc/whitted_megakernel.cu
+# and csrc/pt_megakernel.cu that each put back one element of the design
+# the kernel had before it was redesigned for the card, or
+# take the alternative the element was chosen over (four rows a step), as
+# (name, (text, its replacement) pairs). Each must answer as the sound
+# kernel does, bit for bit, on the main paths' launches
+# (tools/megakernels.main_inputs), and is timed beside it in turns (sound,
+# control, control, sound); an element stays only where its control is
+# slower.
+_SCALAR_ROWS = ("  return reinterpret_cast<const float4*>(row)[k];",
+                "  return make_float4(row[4 * k], row[4 * k + 1], "
+                "row[4 * k + 2], row[4 * k + 3]);")
+_REGISTER_STACK = (
+    """  __device__ __forceinline__ void push(const Entry& x) { e[size++] = x; }
+  __device__ __forceinline__ Entry pop() { return e[--size]; }""",
+    """  __device__ __forceinline__ void push(const Entry& x) {
+#pragma unroll
+    for (int k = CAP - 1; k > 0; --k) e[k] = e[k - 1];
+    e[0] = x;
+    ++size;
+  }
+  __device__ __forceinline__ Entry pop() {
+    const Entry x = e[0];
+#pragma unroll
+    for (int k = 0; k < CAP - 1; ++k) e[k] = e[k + 1];
+    --size;
+    return x;
+  }""")
+WHITTED_DESIGN = (
+    ("23-float rows read a float at a time",
+     (("constexpr int kTblW = 24;", "constexpr int kTblW = 23;"),
+      _SCALAR_ROWS)),
+    ("one primitive a step",
+     (("constexpr int kGroup = 2;", "constexpr int kGroup = 1;"),)),
+    ("four primitives a step",
+     (("constexpr int kGroup = 2;", "constexpr int kGroup = 4;"),)),
+    ("the refraction stack in registers (a shift register)",
+     (_REGISTER_STACK,)),
+    ("launch bounds (128, 4)",
+     (("constexpr int kMinBlocks = 5;", "constexpr int kMinBlocks = 4;"),)),
+)
+PT_DESIGN = (
+    ("21-float rows read a float at a time",
+     (("constexpr int kRowW = 24;", "constexpr int kRowW = 21;"),
+      ("constexpr int kGeomW = 12;", "constexpr int kGeomW = 9;"),
+      _SCALAR_ROWS)),
+    ("one sphere a step",
+     (("constexpr int kGroup = 4;", "constexpr int kGroup = 1;"),)),
+    ("the centre lerped for every sphere",
+     (("""  if (span == 0.f) return c0;
+  const float frac = (time - p1.w) / span;""",
+       """  const float frac = span == 0.f ? 0.f : (time - p1.w) / span;"""),)),
 )
 
 
@@ -246,33 +306,6 @@ PROBE_FAULTS = (
      "if (OP == kCheap) return fabsf(acc - x);",
      "if (OP == kCheap) return fmaxf(acc, x);"),
 )
-
-
-def build_fault(source, tag, edits, drop_flags=()):
-    """Compile csrc/<source>.cu with each ``(old, new)`` of ``edits``
-    replaced, in the source or in a header it includes (csrc/*.cuh), and
-    without the nvcc flags ``drop_flags``: copies of both in a directory of
-    the build's own, so the copy's includes find the faulty header first."""
-    from u_4a_2s_p3d_raytracer_template2_tpu_torch.kernels import build as kb
-
-    files = [kb.CSRC / f"{source}.cu", *sorted(kb.CSRC.glob("*.cuh"))]
-    texts = {f.name: f.read_text() for f in files}
-    for old, new in edits:
-        where = [name for name, text in texts.items() if old in text]
-        if len(where) != 1 or texts[where[0]].count(old) != 1:
-            raise AssertionError(f"{source} {tag}: {old!r} is not in the "
-                                 "source and its headers exactly once")
-        texts[where[0]] = texts[where[0]].replace(old, new)
-    out_dir = ROOT / "build" / "faults" / f"{source}_{tag}"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for name, text in texts.items():
-        (out_dir / name).write_text(text)
-    lib = out_dir / f"lib{source}_{tag}.so"
-    flags = [f for f in kb.flags(source) if f not in drop_flags]
-    subprocess.run([kb.nvcc(), *flags, "-o", str(lib),
-                    str(out_dir / f"{source}.cu")],
-                   check=True, capture_output=True, text=True)
-    return lib
 
 
 def entry_of(lib, name, like):
@@ -557,6 +590,27 @@ def brute_controls(dev, kernels, sound, controls):
     return failed
 
 
+def design_controls(dev, controls):
+    """Names of the megakernels' design controls (WHITTED_DESIGN,
+    PT_DESIGN) that answer otherwise than the sound kernel on the main
+    paths' launches; each is timed beside it in turns (sound, control,
+    control, sound, twice)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        megakernels as mt,
+    )
+
+    inputs = mt.main_inputs(dev)
+    failed = []
+    for name, kernel, lib in controls:
+        builds = [("sound", kernel, None,
+                   mt.row_width(mt.kb.CSRC, kernel)),
+                  (name, kernel, lib, mt.row_width(lib.parent, kernel))]
+        if not all(mt.answers(inputs, builds).values()):
+            failed.append(f"control {name}")
+        mt.timed_in_turns(inputs, builds)
+    return failed
+
+
 def probe_verdicts(dev, kernels, sound, faulty):
     """Names of the probe kernels that phase 15's checks judge wrongly:
     each must pass the sound library and reject its fault (T3 on the deep
@@ -597,6 +651,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.kernels import build as kb
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -614,13 +669,17 @@ def main() -> int:
                     for i, (_, edits, drop, _) in enumerate(WHITTED_CONTROLS)]
     brute_control_jobs = [(f"control{i}", edits)
                           for i, (_, edits) in enumerate(BRUTE_CONTROLS)]
+    design_jobs = ([("whitted_megakernel", f"design{i}", c)
+                    for i, c in enumerate(WHITTED_DESIGN)]
+                   + [("pt_megakernel", f"design{i}", c)
+                      for i, c in enumerate(PT_DESIGN)])
     bvh_names = ("bvh_closest_launch", "bvh_any_launch")
     brute_names = ("brute_closest_launch", "brute_any_launch",
                    "brute_scratch_bytes")
     probe_names = ("op_rate_launch", "fma_peak_launch", "stack_walk_launch")
     with concurrent.futures.ThreadPoolExecutor(
             len(jobs) + len(control_jobs) + len(brute_control_jobs)
-            + 5) as pool:
+            + len(design_jobs) + 5) as pool:
         whitted_sound = pool.submit(kernels._whitted_entry)
         pt_sound = pool.submit(kernels._pt_entry)
         bvh_sound = pool.submit(lambda: {n: kernels._bvh_entry(n)
@@ -629,12 +688,15 @@ def main() -> int:
                                            for n in brute_names})
         probe_sound = pool.submit(lambda: {n: kernels._probe_entry(n)
                                            for n in probe_names})
-        control_libs = [pool.submit(build_fault, "whitted_megakernel", *j)
+        control_libs = [pool.submit(kb.build_copy, "whitted_megakernel", *j)
                         for j in control_jobs]
-        brute_control_libs = [pool.submit(build_fault, "brute_intersect", *j)
-                              for j in brute_control_jobs]
+        brute_control_libs = [
+            pool.submit(kb.build_copy, "brute_intersect", *j)
+            for j in brute_control_jobs]
+        design_libs = [pool.submit(kb.build_copy, src, tag, edits)
+                       for src, tag, (_, edits) in design_jobs]
         libs = list(pool.map(
-            lambda j: build_fault(j[0], f"fault{j[1]}", [j[2][1:]]), jobs))
+            lambda j: kb.build_copy(j[0], f"fault{j[1]}", [j[2][1:]]), jobs))
     controls = [(name, lib.result(), verdict) for (name, _, _, verdict), lib
                 in zip(WHITTED_CONTROLS, control_libs)]
     faulty = {src: [(f[0], lib) for (s, _, f), lib in zip(jobs, libs)
@@ -655,7 +717,10 @@ def main() -> int:
                                [(name, lib.result()) for (name, _), lib
                                 in zip(BRUTE_CONTROLS, brute_control_libs)])
               + probe_verdicts(dev, kernels, probe_sound.result(),
-                               faulty["probes"]))
+                               faulty["probes"])
+              + design_controls(dev, [(c[0], src, lib.result()) for
+                                      (src, _, c), lib in zip(design_jobs,
+                                                              design_libs)]))
     print(f"chip_faults ({card}): " + (
         "the limits pass the sound kernels and reject every fault"
         if not failed else f"wrong verdict for: {', '.join(failed)}"))

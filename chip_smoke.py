@@ -576,7 +576,9 @@ def whitted_work(scene, o, d, cfg, rows=None, offsets=None):
     the pairs that read a jittered light offset (2 rows each); ``fuzzy``,
     the reflection children perturbed by fuzzy reflection (3 rows each);
     ``misses``, the nodes that miss, and ``sky``, those of them that read a
-    texel."""
+    texel; ``warp_nodes``, the sum over warps of 32 consecutive rays of the
+    nodes their deepest ray walks (``tests / (32 warp_nodes)`` is the share
+    of a warp's lanes the walk keeps busy)."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
         Rays,
@@ -604,7 +606,10 @@ def whitted_work(scene, o, d, cfg, rows=None, offsets=None):
     ior = torch.ones(o.shape[0], dtype=o.dtype, device=o.device)
     w = dict(tests=0, hits=0, pairs=0, feelers=0, tri_tests=0, sph_tests=0,
              jitters=0, fuzzy=0, misses=0, sky=0)
+    nodes = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
     for lvl in range(layout.shape.n_levels):
+        # slot = ray * W + path at every level
+        nodes += active.view(o.shape[0], -1).sum(dim=1)
         t_disc, obj_id = whitted.trace_closest(scene, rays)
         hit = active & (obj_id >= 0)
         w["tests"] += int(active.sum())
@@ -663,7 +668,16 @@ def whitted_work(scene, o, d, cfg, rows=None, offsets=None):
         ior = merge(lambda k: k[2])
     if sky:
         w["sky"] = w["misses"]
+    w["warp_nodes"] = warp_max_sum(nodes)
     return w
+
+
+def warp_max_sum(per_ray):
+    """The sum over warps of 32 consecutive rays of each warp's largest
+    count: the steps a warp takes when its lanes step together."""
+    pad = (-per_ray.shape[0]) % 32
+    return int(torch.nn.functional.pad(per_ray, (0, pad)).view(-1, 32)
+               .amax(dim=1).sum())
 
 
 def add_work(total, w):
@@ -681,7 +695,8 @@ def pt_work(scene, cfg, rays, uni):
     hit one more); ``pairs``, the (hit, light) pairs; ``feelers``, the pairs
     that face the light, each a shadow feeler that tests spheres, then
     triangles, up to its first occluder (``sph_tests``, ``tri_tests``), as
-    the kernel does."""
+    the kernel does; ``warp_bounces``, the sum over warps of 32 consecutive
+    paths of the live bounces of their longest path."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
         dot,
@@ -697,12 +712,14 @@ def pt_work(scene, cfg, rays, uni):
              sph_tests=0, tri_tests=0)
     state = (rays, rays.origin.new_ones((R, 3)), rays.origin.new_zeros((R, 3)),
              torch.ones(R, dtype=torch.bool, device=rays.origin.device))
+    bounces = torch.zeros(R, dtype=torch.int64, device=rays.origin.device)
     for i in range(uni.shape[0]):
         r, active = state[0], state[3]
         n_alive = int(active.sum())
         if n_alive == 0:
             break
         w["alive"].append(n_alive)
+        bounces += active
         hit = pt.hit_world(scene, r)
         live = active & hit.hit
         mtype = scene.materials.mtype[hit.mat_id[live]]
@@ -727,6 +744,7 @@ def pt_work(scene, cfg, rays, uni):
         state = pt._bounce(scene, cfg, uni[i], state)
     w["tests"] = sum(w["alive"])
     w["hits"] = sum(w["hits_by_type"])
+    w["warp_bounces"] = warp_max_sum(bounces)
     return w
 
 
@@ -1550,7 +1568,10 @@ def main() -> int:
     w_bytes = o.shape[0] * 36 + 4 * (tbl.numel() + lt.numel() + bg.numel())
     w_bound_ms, w_bound_by = bound(w_flops, w_bytes)
     print(f"whitted work: {ww['tests']} nodes ({ww['tests'] / o.shape[0]:.3f} "
-          f"per ray), {ww['hits']} hits, {ww['pairs']} hit-light pairs, "
+          f"per ray; a warp's deepest ray "
+          f"{32 * ww['warp_nodes'] / o.shape[0]:.3f}, lanes busy "
+          f"{ww['tests'] / (32 * ww['warp_nodes']):.3f}), {ww['hits']} hits, "
+          f"{ww['pairs']} hit-light pairs, "
           f"{ww['feelers']} shadow rays testing {ww['tri_tests']} triangles "
           f"and {ww['sph_tests']} spheres; {w_flops / 1e9:.4f} GFLOP, "
           f"{w_bytes / 1e6:.4f} MB; bound {w_bound_ms:.5f} ms ({w_bound_by})")
@@ -1645,7 +1666,10 @@ def main() -> int:
                 + 4 * (tables.tbl.numel() + tables.lt.numel()))
     pt_bound_ms, pt_bound_by = bound(pt_flops, pt_bytes)
     print(f"path tracer work: alive per bounce {pw['alive']}; "
-          f"{pw['tests'] / R:.4f} live bounces per path, {pw['hits'] / R:.4f} "
+          f"{pw['tests'] / R:.4f} live bounces per path (a warp's longest "
+          f"{32 * pw['warp_bounces'] / R:.4f}, lanes busy "
+          f"{pw['tests'] / (32 * pw['warp_bounces']):.4f}), "
+          f"{pw['hits'] / R:.4f} "
           f"hits per path (diffuse, metal, dielectric {pw['hits_by_type']}); "
           f"{pw['pairs']} hit-light pairs, {pw['feelers']} feelers testing "
           f"{pw['sph_tests']} spheres and {pw['tri_tests']} triangles; "

@@ -16,6 +16,7 @@ from u_4a_2s_p3d_raytracer_template2_tpu.models.whitted_streamed import (
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import scenes as pscenes
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted_megakernel import (
+    TBL_W,
     scene_tables,
 )
 from test_whitted_vs_oracle import mixed_scene as oracle_mixed_scene
@@ -69,10 +70,17 @@ def test_build_scene_matches_jax(name):
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_scene_tables_match_jax(name):
+    """The port's rows are JAX's 23 floats and a zero pad (the kernel reads
+    a row as six float4); the lights and background are JAX's."""
     jdef, pdef = SCENES[name]
     got = scene_tables(pt.build_scene(pdef(), device=CPU))
     want = jax_scene_tables(rt.build_scene(jdef()))
-    for a, b in zip(got, want):
+    rows = got[0].reshape(-1, TBL_W)
+    jax_w = TBL_W - 1
+    np.testing.assert_array_equal(rows[:, :jax_w].reshape(-1).numpy(),
+                                  np.asarray(want[0]), strict=True)
+    assert not rows[:, jax_w:].any()
+    for a, b in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), strict=True)
 
 

@@ -81,6 +81,68 @@ def test_whitted_kernel_case(label):
     chip_smoke.check_pt(label, got, want, limits)
 
 
+# ray counts at the edges of a block and of a warp: one ray, a warp short
+# of 32 and one past it, and 4,097 (32 blocks and one ray); depth 4 is the
+# main path's template, 1-8 every template
+_RAY_COUNTS = ([(4, n) for n in (1, 31, 33, 4097)]
+               + [(depth, 4097) for depth in (1, 2, 3, 5, 6, 7, 8)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,n", _RAY_COUNTS)
+def test_whitted_kernel_ray_counts_and_depths(depth, n):
+    """The kernel against its plain version on the first n rays of the
+    four-type scene (every primitive type, both branches, two lights) at
+    128x128, under WHITTED_LIMITS["exact"]."""
+    dev = _cuda()
+    scene = build_scene(chip_smoke.four_type_scene(128), device=dev)
+    cfg = RenderConfig(engine="megakernel", max_depth=depth)
+    cam = scene.camera
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+        pixel_grid,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.camera import (
+        pinhole_rays,
+    )
+
+    px, py = pixel_grid(cam.res_x, cam.res_y, dev)
+    r = pinhole_rays(cam, px + 0.5, py + 0.5)
+    o, d = r.origin[:n].contiguous(), r.direction[:n].contiguous()
+    shape, (tbl, lt, bg) = mk.shape_of(scene), mk.scene_tables(scene)
+    got = kernels.whitted_megakernel(tbl, lt, bg, o, d, shape, cfg)
+    want = mk.trace_rays_plain(shape, tbl, lt, bg, o, d, cfg)
+    assert got.shape == (n, 3)
+    chip_smoke.check_pt(f"depth {depth}, {n} rays", got, want,
+                        chip_smoke.WHITTED_LIMITS["exact"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 4097])
+def test_pt_kernel_ray_counts(n):
+    """The path tracer's kernel against its plain version on the first n
+    paths of a 128x128 frame of the seven-sphere world (3 bounces), under
+    PT_LIMITS["tiny"]."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_camera,
+    )
+
+    dev = _cuda()
+    cam = chip_smoke.pt_time_span(build_camera(dict(
+        eye=[0.0, 2.0, 6.0], at=[0, 0.5, -1], up=[0, 1, 0], fov=60.0,
+        hither=0.01, res_x=128, res_y=128, aperture_ratio=0.0,
+        focal_ratio=1.0), device=dev))
+    cfg = pt.PTConfig(max_bounces=3)
+    tables = ptk.pt_tables(chip_smoke.tiny_pt_world(dev))
+    o, d, tm, uni = chip_smoke.pt_inputs(cam, cfg, 10, dev)
+    args = (o[:n].contiguous(), d[:n].contiguous(), tm[:n].contiguous(),
+            uni[:, :, :n].contiguous())
+    got = kernels.pt_megakernel(tables, *args, cfg)
+    want = ptk.trace_rays_plain(tables, *args, cfg)
+    assert got.shape == (n, 3)
+    chip_smoke.check_pt(f"seven-sphere world, {n} paths", got, want,
+                        chip_smoke.PT_LIMITS["tiny"])
+
+
 @pytest.mark.cuda
 def test_whitted_distribution_render_image():
     """render_image on the megakernel engine with a scene's spp, soft

@@ -128,68 +128,6 @@ __device__ __forceinline__ Ray no_ray() {
   return r;
 }
 
-// The sphere test up to its gate (see the note), as the plain version
-// computes it: b, and the two terms of the discriminant bb - ac.
-struct Gate {
-  float b, bb, ac;
-  __device__ __forceinline__ bool open() const { return bb >= ac; }
-  // the rest of the test, for a gate that is open: t or kBig
-  __device__ __forceinline__ float t(const Ray& r) const {
-    return sphere_roots(b, bb - ac, r.a);
-  }
-};
-
-__device__ __forceinline__ Gate sphere_gate(float4 p, float rr, const Ray& r) {
-  const float lx = r.ox - p.x, ly = r.oy - p.y, lz = r.oz - p.z;
-  Gate g;
-  g.b = 2.f * (r.dx * lx + r.dy * ly + r.dz * lz);
-  const float cc = lx * lx + ly * ly + lz * lz - rr;
-  g.bb = g.b * g.b;
-  g.ac = r.a4 * cc;
-  return g;
-}
-
-// The triangle test (prim_tests.cuh's triangle_t, Moller-Trumbore) up to
-// its u gate with no branch: f = 1/det is taken whatever det is, and read
-// only where the det gate passed, so an open gate's values are
-// triangle_t's.
-struct TriGate {
-  float det, f, u, sx, sy, sz;
-  __device__ __forceinline__ bool open() const {
-    return fabsf(det) > kEps && u >= 0.f && u <= 1.f;
-  }
-  // the rest of triangle_t, for a gate that is open: t or kBig
-  __device__ __forceinline__ float t(float4 p0, float4 p1, float4 p2,
-                                     const Ray& r) const {
-    const float e1x = p0.w, e1y = p1.x, e1z = p1.y;
-    const float e2x = p1.z, e2y = p1.w, e2z = p2.x;
-    const float qx = sy * e1z - sz * e1y;
-    const float qy = sz * e1x - sx * e1z;
-    const float qz = sx * e1y - sy * e1x;
-    const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-    if (!(v >= 0.f && u + v <= 1.f)) return kBig;
-    const float tt = f * (e2x * qx + e2y * qy + e2z * qz);
-    return tt > kEps ? tt : kBig;
-  }
-};
-
-__device__ __forceinline__ TriGate triangle_gate(float4 p0, float4 p1,
-                                                 float4 p2, const Ray& r) {
-  const float e1x = p0.w, e1y = p1.x, e1z = p1.y;
-  const float e2x = p1.z, e2y = p1.w, e2z = p2.x;
-  const float hx = r.dy * e2z - r.dz * e2y;
-  const float hy = r.dz * e2x - r.dx * e2z;
-  const float hz = r.dx * e2y - r.dy * e2x;
-  TriGate g;
-  g.det = e1x * hx + e1y * hy + e1z * hz;
-  g.f = 1.f / g.det;
-  g.sx = r.ox - p0.x;
-  g.sy = r.oy - p0.y;
-  g.sz = r.oz - p0.z;
-  g.u = g.f * (g.sx * hx + g.sy * hy + g.sz * hz);
-  return g;
-}
-
 // An occluder is a hit closer than the segment's end.
 __device__ __forceinline__ bool blocks(float t, float max_t) {
   return t < max_t;

@@ -13,24 +13,35 @@
 // per live bounce and 12 B of color out, tens of MB at 512x512, a few
 // microseconds of the card's memory. The work is arithmetic: every live
 // bounce tests every sphere and triangle for the closest hit, then once more
-// per light for the shadow feeler, and the bounce count varies per path. The
-// design follows from that:
+// per light for the shadow feeler, and the bounce count varies per path.
+// Most of that work is sphere tests that miss: glsl_world's closest hit
+// tests 102 spheres, of which a ray hits one. The design follows from that:
 //   * one thread per path, running its own bounce loop until the path dies
 //     (sky miss, absorption, Russian roulette) or the bounces run out; the
 //     ragged edge is masked with r < R, with no pad rays;
 //   * the world arrives as operand tables (models/pt_megakernel.pt_tables):
-//     [N*21] sphere then triangle rows, each with its material, and [L*6]
-//     lights, copied into shared memory at block start; every thread of a
-//     warp reads the same primitive at the same time, so reads are
-//     broadcasts, and one build serves every world within the ceilings;
-//   * shadow feelers stop at the first occluder;
+//     [N*24] sphere then triangle rows, each its geometry padded to 12
+//     floats and its material, and [L*6] lights, copied into shared memory
+//     at block start; every thread of a warp reads the same primitive at
+//     the same time, so reads are broadcasts, 16 bytes at a time (ld4), and
+//     one build serves every world within the ceilings;
+//   * a static sphere (zero time span) skips the centre's lerp and its
+//     division; the branch is uniform across a warp;
+//   * the sphere test is split before its square root: a walk runs the
+//     gates of kGroup spheres (the c>0 && b>0 reject and the discriminant)
+//     as one straight run of independent chains and branches once, and
+//     only an open gate takes its square root; the closest hit folds the
+//     group in table order with strict <, so it keeps the first minimum;
+//   * the closest hit and the shadow feelers share that walk; a feeler
+//     stops at its first occluder;
 //   * uniforms are read at [(b*11 + k)*R + r]: consecutive threads read
 //     consecutive words.
 // All math is f32 with IEEE division, square root, cbrtf, expf, sinf and
-// cosf (no fast math). nvcc contracts multiply-adds (its default), as for
-// the Whitted kernel (kernels/build.py).
+// cosf (no fast math). nvcc contracts multiply-adds (its default), as the
+// path tracer's limits (chip_smoke.PT_LIMITS) were set for.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -39,10 +50,11 @@ constexpr float kTMax = 1e4f;   // P3D_RT.glsl:243
 constexpr float kBig = 1e30f;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530718f;  // ops/sampling.TWO_PI
-constexpr int kRowW = 21;
-constexpr int kGeomW = 9;
+constexpr int kRowW = 24;            // floats a row (ROW_W)
+constexpr int kGeomW = 12;           // the material's first float (GEOM_W)
 constexpr int kNU = 11;
 constexpr int kThreads = 128;
+constexpr int kGroup = 4;            // spheres a step of a walk
 constexpr int kMaxSpheres = 256;
 constexpr int kMaxTris = 16;
 constexpr int kMaxLights = 8;
@@ -68,6 +80,12 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
 }
 __device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
 
+// The k-th 16 bytes of a table row: rows are kRowW floats, 16-byte
+// aligned, three float4 of geometry, then the material.
+__device__ __forceinline__ float4 ld4(const float* row, int k) {
+  return reinterpret_cast<const float4*>(row)[k];
+}
+
 // zero vectors map to zero, as core/types.normalize
 __device__ __forceinline__ V3 normalize(V3 a) {
   float n2 = dot(a, a);
@@ -89,40 +107,62 @@ __device__ __forceinline__ V3 unit_sphere(float u1, float u2, float u3) {
 // primitive tests over the shared-memory rows; kBig when not hit in
 // (t_min, t_max) (models/pathtracer._hit_spheres, _hit_triangles)
 
-// Sphere row: c0(3) c1(3) r t0 t1. The center is lerped by the ray's time;
-// a zero time span means frac 0. GLSL half-b quadratic with the c>0 && b>0
-// reject; t = t0 < 0 ? t1 : t0.
+// Sphere row: c0(3) c1(3) r t0 t1, then 3 pad floats, as (c0, c1.x),
+// (c1.yz, r, t0), (t1, pad). The center is lerped by the ray's time; a zero
+// time span means frac 0, and then the center is c0: c0 + (c1 - c0) * 0
+// equals c0 (chip_faults.py's PT_DESIGN holds a kernel that lerps every
+// sphere to this one, bit for bit), so a static sphere skips the lerp and
+// its division. The branch is the same in every lane of a warp: they test
+// the same row.
 __device__ __forceinline__ V3 sphere_center(const float* p, float time) {
-  const float span = p[8] - p[7];
-  const float frac = span == 0.f ? 0.f : (time - p[7]) / span;
-  const V3 c0 = load3(p);
-  return c0 + (load3(p + 3) - c0) * frac;
+  const float4 p0 = ld4(p, 0), p1 = ld4(p, 1);
+  const float span = ld4(p, 2).x - p1.w;
+  const V3 c0 = v3(p0.x, p0.y, p0.z);
+  if (span == 0.f) return c0;
+  const float frac = (time - p1.w) / span;
+  return c0 + (v3(p0.w, p1.x, p1.y) - c0) * frac;
 }
 
-__device__ __forceinline__ float sphere_t(const float* p, V3 o, V3 d, float time,
-                                          float t_max) {
+// The sphere test split before its square root, for walks that run the
+// gates of several rows as one straight run and branch once: the GLSL
+// half-b quadratic with the c>0 && b>0 reject; t = t0 < 0 ? t1 : t0.
+struct SphereGate {
+  float b, c, disc;
+  __device__ __forceinline__ bool open() const {
+    return !(c > 0.f && b > 0.f) && disc >= 0.f;
+  }
+  // the rest of the test, for a gate that is open: t or kBig
+  __device__ __forceinline__ float t(float t_max) const {
+    const float sq = sqrtf(disc);
+    const float t0 = -b - sq;
+    const float t1 = -b + sq;
+    const float t = t0 < 0.f ? t1 : t0;
+    return (t > kEps && t < t_max) ? t : kBig;
+  }
+};
+
+__device__ __forceinline__ SphereGate sphere_gate(const float* p, V3 o, V3 d,
+                                                  float time) {
   const V3 L = o - sphere_center(p, time);
-  const float b = dot(L, d);
-  const float c = dot(L, L) - p[6] * p[6];
-  if (c > 0.f && b > 0.f) return kBig;
-  const float disc = b * b - c;
-  if (!(disc >= 0.f)) return kBig;
-  const float sq = sqrtf(disc);
-  const float t0 = -b - sq;
-  const float t1 = -b + sq;
-  const float t = t0 < 0.f ? t1 : t0;
-  return (t > kEps && t < t_max) ? t : kBig;
+  const float r = ld4(p, 1).z;
+  SphereGate g;
+  g.b = dot(L, d);
+  g.c = dot(L, L) - r * r;
+  g.disc = g.b * g.b - g.c;
+  return g;
 }
 
-// Triangle row: v0(3) e1(3) e2(3). Moller-Trumbore with a |det| > 1e-7
-// cutoff, u and v in [0,1] but no u+v <= 1 guard (the GLSL quirk).
+// Triangle row: v0(3) e1(3) e2(3), then 3 pad floats. Moller-Trumbore
+// with a |det| > 1e-7 cutoff, u and v in [0,1] but no u+v <= 1 guard (the
+// GLSL quirk).
 __device__ __forceinline__ float triangle_t(const float* p, V3 o, V3 d, float t_max) {
-  const V3 e1 = load3(p + 3), e2 = load3(p + 6);
+  const float4 p0 = ld4(p, 0), p1 = ld4(p, 1), p2 = ld4(p, 2);
+  const V3 e1 = v3(p0.w, p1.x, p1.y), e2 = v3(p1.z, p1.w, p2.x);
   const V3 h = cross(d, e2);
   const float det = dot(h, e1);
   if (!(fabsf(det) > 1e-7f)) return kBig;
   const float f = 1.f / det;
-  const V3 s = o - load3(p);
+  const V3 s = o - v3(p0.x, p0.y, p0.z);
   const float u = f * dot(s, h);
   if (!(u >= 0.f && u <= 1.f)) return kBig;
   const V3 q = cross(s, e1);
@@ -138,32 +178,56 @@ struct World {
   int n_sph, n_tri, n_lights;
 };
 
+// Visit the rows, spheres then triangles, with each test's t (kBig when
+// not hit in (t_min, t_max)) until visit(row, t) returns true; returns
+// whether it did. Spheres go kGroup rows a step: the group's gates, then
+// one branch that finishes the open ones in table order. A closed gate's
+// test is a miss, which neither walk below needs to see.
+template <class Visit>
+__device__ __forceinline__ bool walk(const World& w, V3 o, V3 d, float time,
+                                     float t_max, Visit visit) {
+  int i = 0;
+  for (; i + kGroup <= w.n_sph; i += kGroup) {
+    SphereGate g[kGroup];
+    bool open = false;
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      g[k] = sphere_gate(w.rows + (i + k) * kRowW, o, d, time);
+      open |= g[k].open();
+    }
+    if (open) {
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k)
+        if (g[k].open() && visit(i + k, g[k].t(t_max))) return true;
+    }
+  }
+  for (; i < w.n_sph; ++i) {
+    const SphereGate g = sphere_gate(w.rows + i * kRowW, o, d, time);
+    if (g.open() && visit(i, g.t(t_max))) return true;
+  }
+  for (; i < w.n_sph + w.n_tri; ++i)
+    if (visit(i, triangle_t(w.rows + i * kRowW, o, d, t_max))) return true;
+  return false;
+}
+
 // Closest hit: the first minimum among spheres, then a triangle only if
-// strictly closer (hit_world's argmin and use_tri = tt < ts). Returns the
-// row or -1.
+// strictly closer (hit_world's argmin and use_tri = tt < ts): a strict-<
+// fold in table order. Returns the row or -1.
 __device__ __forceinline__ int closest(const World& w, V3 o, V3 d, float time,
                                        float& t_best) {
   t_best = kBig;
   int best = -1;
-  for (int i = 0; i < w.n_sph; ++i) {
-    const float t = sphere_t(w.rows + i * kRowW, o, d, time, kTMax);
+  walk(w, o, d, time, kTMax, [&](int i, float t) {
     if (t < t_best) { t_best = t; best = i; }
-  }
-  for (int i = w.n_sph; i < w.n_sph + w.n_tri; ++i) {
-    const float t = triangle_t(w.rows + i * kRowW, o, d, kTMax);
-    if (t < t_best) { t_best = t; best = i; }
-  }
+    return false;
+  });
   return best;
 }
 
 // any hit in (t_min, max_t); stops at the first occluder
 __device__ __forceinline__ bool occluded(const World& w, V3 o, V3 d, float time,
                                          float max_t) {
-  for (int i = 0; i < w.n_sph; ++i)
-    if (sphere_t(w.rows + i * kRowW, o, d, time, max_t) < kBig) return true;
-  for (int i = w.n_sph; i < w.n_sph + w.n_tri; ++i)
-    if (triangle_t(w.rows + i * kRowW, o, d, max_t) < kBig) return true;
-  return false;
+  return walk(w, o, d, time, max_t, [](int, float t) { return t < kBig; });
 }
 
 // Direct light (P3D_RT.glsl:182-232, pathtracer.direct_lighting): per-type
@@ -212,11 +276,11 @@ struct Params {
 };
 
 __global__ void __launch_bounds__(kThreads) pt_kernel(Params P) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem[];  // 16-byte aligned rows
   const int n_rows = P.n_sph + P.n_tri;
   const int n_lt = 6 * (P.n_lights > 1 ? P.n_lights : 1);
-  float* s_rows = smem;
-  float* s_lt = smem + n_rows * kRowW;
+  float* s_rows = reinterpret_cast<float*>(smem);
+  float* s_lt = s_rows + n_rows * kRowW;
   for (int k = threadIdx.x; k < n_rows * kRowW; k += blockDim.x) s_rows[k] = P.tbl[k];
   for (int k = threadIdx.x; k < n_lt; k += blockDim.x) s_lt[k] = P.lt[k];
   __syncthreads();
@@ -250,8 +314,10 @@ __global__ void __launch_bounds__(kThreads) pt_kernel(Params P) {
       // shell orientation from the sign of the radius (common.glsl:460)
       n = normalize(point - sphere_center(p, time)) * (p[6] < 0.f ? -1.f : 1.f);
     } else {
-      n = normalize(cross(load3(p + 3), load3(p + 6)));
+      const float4 p0 = ld4(p, 0), p1 = ld4(p, 1), p2 = ld4(p, 2);
+      n = normalize(cross(v3(p0.w, p1.x, p1.y), v3(p1.z, p1.w, p2.x)));
     }
+    // mtype albedo(3) spec(3) rough ref_idx refract(3)
     const float* m = p + kGeomW;
     const int mtype = (int)m[0];
     const V3 albedo = load3(m + 1);
@@ -336,7 +402,8 @@ __global__ void __launch_bounds__(kThreads) pt_kernel(Params P) {
 
 // Plain C entry point, bound with ctypes. Pointers are device pointers to
 // contiguous f32: ray_o, ray_d, out [n_rays*3]; ray_t [n_rays]; uni
-// [n_bounces*11*n_rays]; tbl [(n_sph+n_tri)*21]; lt [max(1,n_lights)*6].
+// [n_bounces*11*n_rays]; tbl [(n_sph+n_tri)*24], 16-byte aligned; lt
+// [max(1,n_lights)*6].
 // Launches on `stream` on the caller's current device (the caller selects
 // it), does not synchronise, and returns the cudaError_t of the launch
 // (0 = success).
@@ -346,12 +413,13 @@ extern "C" int pt_megakernel_launch(
     int n_sph, int n_tri, const float* lt, int n_lights, int russian_roulette,
     int shadow_len1) {
   if (n_rays <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(tbl) % 16) return (int)cudaErrorMisalignedAddress;
   if (n_sph < 0 || n_tri < 0 || n_lights < 0 || n_bounces < 0 ||
       n_sph > kMaxSpheres || n_tri > kMaxTris || n_lights > kMaxLights)
     return (int)cudaErrorInvalidValue;
   Params P{ray_o, ray_d, ray_t, uni, out, n_rays, n_bounces, tbl, lt,
            n_sph, n_tri, n_lights, russian_roulette, shadow_len1};
-  // at the ceilings: (256 + 16) * 21 + 8 * 6 floats, 23 KB, under the 48 KB
+  // at the ceilings: (256 + 16) * 24 + 8 * 6 floats, 26 KB, under the 48 KB
   // a block gets without opting in
   const size_t smem = sizeof(float) *
       (size_t)((n_sph + n_tri) * kRowW + 6 * (n_lights > 1 ? n_lights : 1));

@@ -6,9 +6,9 @@
 //     _build_kernel          (scene baked in as immediates)
 //   u_4a_2s_p3d_raytracer_template2_tpu/models/whitted_streamed.py
 //     _build_streamed_kernel (scene read from SMEM tables)
-// The scene arrives as the streamed kernel's tables: [N*23] primitive rows
-// (12 params + 11 material fields, in tri, sphere, plane, box order), [L*6]
-// lights, [3] background, so one build serves every scene.
+// The scene arrives as the streamed kernel's tables: [N*24] primitive rows
+// (12 params, 11 material fields and a pad, in tri, sphere, plane, box
+// order), [L*6] lights, [3] background, so one build serves every scene.
 //
 // Distribution mode (models/samples.py): the primary rays of a subpixel
 // (jittered, thin lens) are made outside, and the random values of the tree
@@ -24,23 +24,38 @@
 // 512x512, which the card's memory moves in a few microseconds; a
 // distribution frame adds the stream rows (4 B per row and ray, 53.5 MB a
 // subpixel for mount_low at depth 4 with soft shadows and fuzzy reflection)
-// and a 3-byte texel per miss. The work is arithmetic and divergence: for
-// mount_low at depth 4 every pixel walks up to 15 nodes, each a closest-hit
-// test over every primitive and a shadow test per light. The design follows
-// from that:
+// and a 3-byte texel per miss. The work is arithmetic: for mount_low at
+// depth 4 a pixel walks 1.8 nodes on average and up to 15, each a
+// closest-hit test over every primitive and a shadow test per light. On
+// the card it runs far from that bound, and not for lack of issue slots:
+// the 64-, 128- and 256-thread launches take the same time, and what a
+// node costs is the latency of one thread's dependent chain at 16 warps an
+// SM (PERF.md). The design follows from that:
 //   * one thread per ray; the tables are copied into shared memory at block
 //     start, and every thread of a warp reads the same primitive at the same
-//     time, so the reads are broadcasts;
+//     time, so the reads are broadcasts, 16 bytes at a time (ld4: a row is
+//     three float4 of geometry and three of material);
 //   * the tree is walked depth first, and a miss ends its path: a thread
 //     skips every subtree that never spawns, where the TPU kernel masked all
 //     lanes through all nodes;
+//   * the triangle and sphere tests are prim_tests.cuh's, split at their
+//     gates: a walk runs the gates of kGroup rows of a type as one
+//     straight run of independent chains and branches once, and only an
+//     open gate pays for the rest (a sphere's square root and divisions, a
+//     triangle's v and t); the fold over the group keeps table order and
+//     strict <, so the winner and the tie rule are a one-at-a-time fold's.
+//     Two rows a step beat one and four (four hold more registers);
+//   * the closest hit and the shadow test share that walk; the shadow
+//     test stops at the first occluder, and light_sample has one call
+//     site, so it is compiled once;
 //   * pending refraction children wait on a stack of at most max_depth-1
-//     entries; max_depth is a template parameter and the stack is a shift
-//     register with compile-time indices only, so it stays in registers;
-//     an entry carries its node's (lvl, path), the key of its stream rows:
-//     with both branches the reflection child of path p is 2p and the
-//     refraction child 2p+1, with one branch the child is p;
-//   * the shadow test stops at the first occluder.
+//     entries in the thread's local memory (an array indexed by its size),
+//     not in registers: the registers go to the tests, no template depth
+//     spills, and five blocks of 128 fit an SM (kMinBlocks); an entry
+//     carries its node's (lvl, path) packed in one int,
+//     the key of its stream rows: with both branches the reflection child
+//     of path p is 2p and the refraction child 2p+1, with one branch the
+//     child is p.
 // Color is the linear fold local + KR*spec*refl + (1-KR)*refr of
 // whitted_megakernel.py:551-577, accumulated as weight*local along each path;
 // leaf colors are clamped, and so is the pixel. All math is f32, IEEE
@@ -50,13 +65,16 @@
 // version's do.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "prim_tests.cuh"
 
 namespace {
 
-constexpr float kEps = 1e-3f;
-constexpr float kBig = 1e30f;
-constexpr int kTblW = 23;
+constexpr int kTblW = 24;               // floats a row (TBL_W)
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 5;           // resident blocks an SM ptxas plans for
+constexpr int kGroup = 2;               // triangles or spheres a step of a walk
 constexpr int kMaxDepth = 8;
 constexpr float kTwoPi = 6.28318530718f;  // ops/sampling.TWO_PI
 constexpr float kU8Scale = 255.99f;       // u8tofloat (maths.h)
@@ -72,10 +90,14 @@ __device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
 __device__ __forceinline__ V3 operator*(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
 __device__ __forceinline__ V3 operator*(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
 __device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
 __device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
+__device__ __forceinline__ V3 xyz(float4 p) { return {p.x, p.y, p.z}; }
+
+// The k-th 16 bytes of a table row: rows are kTblW floats, 16-byte aligned,
+// three float4 of geometry and three of material.
+__device__ __forceinline__ float4 ld4(const float* row, int k) {
+  return reinterpret_cast<const float4*>(row)[k];
+}
 
 // zero vectors map to zero, as core/types.normalize
 __device__ __forceinline__ V3 normalize(V3 a) {
@@ -94,45 +116,28 @@ __device__ __forceinline__ float safe_inv(float x) {
   return 1.f / x;
 }
 
+// A ray of prim_tests.cuh: a = d.d and a4 = 4a as the plain version's
+// sphere test forms them (d need not be unit: shadow rays run along the
+// unnormalized L).
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  float a, a4;
+};
+
+__device__ __forceinline__ Ray make_ray(V3 o, V3 d) {
+  const float a = dot(d, d);
+  return {o.x, o.y, o.z, d.x, d.y, d.z, a, 4.f * a};
+}
+
 // ---------------------------------------------------------------------------
-// primitive tests; BIG on miss (ops/intersect._*_t_one)
+// plane and box tests over a row's geometry; BIG on miss
+// (ops/intersect._*_t_one); the triangle and sphere tests are
+// prim_tests.cuh's
 
-__device__ __forceinline__ float triangle_t(const float* p, V3 o, V3 d) {
-  V3 e1 = load3(p + 3), e2 = load3(p + 6);
-  V3 h = cross(d, e2);
-  float det = dot(e1, h);
-  if (!(fabsf(det) > kEps)) return kBig;
-  float f = 1.f / det;
-  V3 s = o - load3(p);
-  float u = f * dot(s, h);
-  if (!(u >= 0.f && u <= 1.f)) return kBig;
-  V3 q = cross(s, e1);
-  float v = f * dot(d, q);
-  if (!(v >= 0.f && u + v <= 1.f)) return kBig;
-  float t = f * dot(e2, q);
-  return t > kEps ? t : kBig;
-}
-
-// direct (o-c) form; d need not be unit (shadow rays run along unnormalized L)
-__device__ __forceinline__ float sphere_t(const float* p, V3 o, V3 d) {
-  float a = dot(d, d);
-  V3 l = o - load3(p);
-  float b = 2.f * dot(d, l);
-  float cc = dot(l, l) - p[3] * p[3];
-  float delta = b * b - 4.f * a * cc;
-  float sq = delta > 0.f ? sqrtf(delta) : 0.f;
-  float t0 = (-b - sq) / (2.f * a);
-  float t1 = (-b + sq) / (2.f * a);
-  float lo = fminf(t0, t1), hi = fmaxf(t0, t1);
-  float t = lo < 0.f ? hi : lo;
-  return (delta >= 0.f && t >= 0.f) ? t : kBig;
-}
-
-__device__ __forceinline__ float plane_t(const float* p, V3 o, V3 d) {
-  V3 pn = load3(p);
-  float denom = dot(d, pn);
+__device__ __forceinline__ float plane_t(float4 p, const Ray& r) {
+  const float denom = r.dx * p.x + r.dy * p.y + r.dz * p.z;
   if (!(fabsf(denom) > kEps)) return kBig;
-  float t = -(dot(o, pn) + p[3]) / denom;
+  const float t = -((r.ox * p.x + r.oy * p.y + r.oz * p.z) + p.w) / denom;
   return t > 0.f ? t : kBig;
 }
 
@@ -145,11 +150,12 @@ __device__ __forceinline__ void slab(float lo_p, float hi_p, float o, float inv,
   tmax = pos ? hi : lo;
 }
 
-__device__ __forceinline__ float box_t(const float* p, V3 o, V3 inv) {
+// a box row: lo in p0.xyz, hi in (p0.w, p1.x, p1.y)
+__device__ __forceinline__ float box_t(float4 p0, float4 p1, V3 o, V3 inv) {
   float tn0, tx0, tn1, tx1, tn2, tx2;
-  slab(p[0], p[3], o.x, inv.x, tn0, tx0);
-  slab(p[1], p[4], o.y, inv.y, tn1, tx1);
-  slab(p[2], p[5], o.z, inv.z, tn2, tx2);
+  slab(p0.x, p0.w, o.x, inv.x, tn0, tx0);
+  slab(p0.y, p1.x, o.y, inv.y, tn1, tx1);
+  slab(p0.z, p1.y, o.z, inv.z, tn2, tx2);
   float t_in = fmaxf(fmaxf(tn0, tn1), tn2);
   float t_out = fminf(fminf(tx0, tx1), tx2);
   if (!(t_in < t_out && t_out > kEps)) return kBig;
@@ -158,11 +164,11 @@ __device__ __forceinline__ float box_t(const float* p, V3 o, V3 inv) {
 
 // entry or exit face normal (ops/intersect.per_ray_normal): the first axis
 // of the largest entry / smallest exit slab, signed by that slab's t
-__device__ __forceinline__ V3 box_normal(const float* p, V3 o, V3 d) {
+__device__ __forceinline__ V3 box_normal(float4 p0, float4 p1, V3 o, V3 d) {
   float tn0, tx0, tn1, tx1, tn2, tx2;
-  slab(p[0], p[3], o.x, safe_inv(d.x), tn0, tx0);
-  slab(p[1], p[4], o.y, safe_inv(d.y), tn1, tx1);
-  slab(p[2], p[5], o.z, safe_inv(d.z), tn2, tx2);
+  slab(p0.x, p0.w, o.x, safe_inv(d.x), tn0, tx0);
+  slab(p0.y, p1.x, o.y, safe_inv(d.y), tn1, tx1);
+  slab(p0.z, p1.y, o.z, safe_inv(d.z), tn2, tx2);
   // scalar argmax/argmin (first index on ties): no dynamically indexed array
   int ax_in = 0, ax_out = 0;
   float t_in = tn0, t_out = tx0;
@@ -175,9 +181,6 @@ __device__ __forceinline__ V3 box_normal(const float* p, V3 o, V3 d) {
   const float s = (use_in ? t_in : t_out) < 0.f ? -1.f : 1.f;
   return v3(ax == 0 ? s : 0.f, ax == 1 ? s : 0.f, ax == 2 ? s : 0.f);
 }
-
-// ---------------------------------------------------------------------------
-// scene walks over the shared-memory table
 
 // ---------------------------------------------------------------------------
 // the skybox (ops/shade.cubemap_index, skybox_color; scene.cpp:383-461)
@@ -227,54 +230,92 @@ __device__ __forceinline__ V3 sky_color(const Sky& sky, V3 d) {
 }
 
 struct SceneView {
-  const float* tbl;
+  const float* tbl;  // kTblW floats a row
   const float* lt;
   V3 bg;
   int n_tri, n_sph, n_pl, n_box, n_lights;
 };
 
-// Strict-< fold in tri, sphere, plane, box order; returns the row or -1.
-__device__ __forceinline__ int closest(const SceneView& s, V3 o, V3 d, float& t_best) {
-  t_best = kBig;
-  int best = -1;
+// Visit the rows in tri, sphere, plane, box order with each test's t (kBig
+// on a miss) until visit(row, t) returns true; returns whether it did.
+// Triangles and spheres go kGroup rows a step: the gates of the group's
+// tests run as one straight run of independent operations, then one
+// branch finishes the open ones in table order. A closed gate's test is a
+// miss, which neither walk below needs to see.
+template <class Visit>
+__device__ __forceinline__ bool walk(const SceneView& s, const Ray& r, Visit visit) {
+  const float* row = s.tbl;
   int i = 0;
-  for (int k = 0; k < s.n_tri; ++k, ++i) {
-    float t = triangle_t(s.tbl + i * kTblW, o, d);
-    if (t < t_best) { t_best = t; best = i; }
-  }
-  for (int k = 0; k < s.n_sph; ++k, ++i) {
-    float t = sphere_t(s.tbl + i * kTblW, o, d);
-    if (t < t_best) { t_best = t; best = i; }
-  }
-  for (int k = 0; k < s.n_pl; ++k, ++i) {
-    float t = plane_t(s.tbl + i * kTblW, o, d);
-    if (t < t_best) { t_best = t; best = i; }
-  }
-  if (s.n_box > 0) {
-    V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
-    for (int k = 0; k < s.n_box; ++k, ++i) {
-      float t = box_t(s.tbl + i * kTblW, o, inv);
-      if (t < t_best) { t_best = t; best = i; }
+  for (; i + kGroup <= s.n_tri; i += kGroup) {
+    TriGate g[kGroup];
+    bool open = false;
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      const float* p = row + (i + k) * kTblW;
+      g[k] = triangle_gate(ld4(p, 0), ld4(p, 1), ld4(p, 2), r);
+      open |= g[k].open();
+    }
+    if (open) {
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const float* p = row + (i + k) * kTblW;
+        if (g[k].open() &&
+            visit(i + k, g[k].t(ld4(p, 0), ld4(p, 1), ld4(p, 2), r)))
+          return true;
+      }
     }
   }
+  for (; i < s.n_tri; ++i) {
+    const float* p = row + i * kTblW;
+    if (visit(i, triangle_t(ld4(p, 0), ld4(p, 1), ld4(p, 2), r))) return true;
+  }
+  const int sph_end = s.n_tri + s.n_sph;
+  for (; i + kGroup <= sph_end; i += kGroup) {
+    Gate g[kGroup];
+    bool open = false;
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      const float4 p = ld4(row + (i + k) * kTblW, 0);
+      g[k] = sphere_gate(p, p.w * p.w, r);
+      open |= g[k].open();
+    }
+    if (open) {
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k)
+        if (g[k].open() && visit(i + k, g[k].t(r))) return true;
+    }
+  }
+  for (; i < sph_end; ++i)
+    if (visit(i, sphere_t(ld4(row + i * kTblW, 0), r))) return true;
+  const int pl_end = sph_end + s.n_pl;
+  for (; i < pl_end; ++i)
+    if (visit(i, plane_t(ld4(row + i * kTblW, 0), r))) return true;
+  if (s.n_box > 0) {
+    const V3 o = v3(r.ox, r.oy, r.oz);
+    const V3 inv = v3(safe_inv(r.dx), safe_inv(r.dy), safe_inv(r.dz));
+    for (; i < pl_end + s.n_box; ++i) {
+      const float* p = row + i * kTblW;
+      if (visit(i, box_t(ld4(p, 0), ld4(p, 1), o, inv))) return true;
+    }
+  }
+  return false;
+}
+
+// Strict-< fold in table order, which picks the row a fold one at a time
+// picks, ties included; returns the row or -1.
+__device__ __forceinline__ int closest(const SceneView& s, const Ray& r, float& t_best) {
+  t_best = kBig;
+  int best = -1;
+  walk(s, r, [&](int i, float t) {
+    if (t < t_best) { t_best = t; best = i; }
+    return false;
+  });
   return best;
 }
 
 // any hit with t < max_t; stops at the first occluder
-__device__ __forceinline__ bool occluded(const SceneView& s, V3 o, V3 d, float max_t) {
-  int i = 0;
-  for (int k = 0; k < s.n_tri; ++k, ++i)
-    if (triangle_t(s.tbl + i * kTblW, o, d) < max_t) return true;
-  for (int k = 0; k < s.n_sph; ++k, ++i)
-    if (sphere_t(s.tbl + i * kTblW, o, d) < max_t) return true;
-  for (int k = 0; k < s.n_pl; ++k, ++i)
-    if (plane_t(s.tbl + i * kTblW, o, d) < max_t) return true;
-  if (s.n_box > 0) {
-    V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
-    for (int k = 0; k < s.n_box; ++k, ++i)
-      if (box_t(s.tbl + i * kTblW, o, inv) < max_t) return true;
-  }
-  return false;
+__device__ __forceinline__ bool occluded(const SceneView& s, const Ray& r, float max_t) {
+  return walk(s, r, [&](int, float t) { return t < max_t; });
 }
 
 struct Mat {
@@ -289,7 +330,7 @@ __device__ __forceinline__ V3 light_sample(const SceneView& s, V3 lpos, V3 lcol,
                            V3 precise, V3 n, V3 d, const Mat& m, float max_t) {
   V3 L = lpos - hp;
   if (!(dot(L, n) > 0.f)) return v3(0.f, 0.f, 0.f);
-  if (occluded(s, precise, L, max_t)) return v3(0.f, 0.f, 0.f);
+  if (occluded(s, make_ray(precise, L), max_t)) return v3(0.f, 0.f, 0.f);
   V3 Lh = normalize(L);
   V3 H = normalize(Lh + normalize(-d));
   float ndl = fmaxf(0.f, dot(n, Lh));
@@ -308,13 +349,17 @@ struct Jitter {
 };
 
 // `jit.u` null: no jittered soft shadows
+// One call site of light_sample, so the walk to the first occluder is
+// compiled once: a light is one position, or with the soft-shadow grid 16.
 __device__ __forceinline__ V3 direct_light(const SceneView& s, V3 hp, V3 precise, V3 n, V3 d,
                            const Mat& m, float max_t, bool soft_grid,
                            const Jitter& jit) {
   V3 col = v3(0.f, 0.f, 0.f);
+  const bool grid = jit.u == nullptr && soft_grid;
   for (int li = 0; li < s.n_lights; ++li) {
-    V3 lpos = load3(s.lt + 6 * li);
-    V3 lcol = load3(s.lt + 6 * li + 3);
+    const V3 lpos = load3(s.lt + 6 * li);
+    const V3 lcol = load3(s.lt + 6 * li + 3);
+    V3 pos = lpos;
     if (jit.u != nullptr) {
       // one jittered light position tied to the AA subpixel, the whole
       // light color: offset 0.5 * ((i + u) / spp)
@@ -322,19 +367,15 @@ __device__ __forceinline__ V3 direct_light(const SceneView& s, V3 hp, V3 precise
       const float uy = __ldg(jit.u + (size_t)(2 * li + 1) * jit.n_rays);
       const float jx = 0.5f * ((jit.si + ux) / (float)jit.spp);
       const float jy = 0.5f * ((jit.sj + uy) / (float)jit.spp);
-      col = col + light_sample(s, lpos + v3(jx, jy, 0.f), lcol, hp, precise,
-                               n, d, m, max_t);
-    } else if (soft_grid) {
-      // 4x4 grid of light positions, each 1/16 of the color
-      // (main.cpp:601-618): spacing 0.125, start at pos - 0.25
-      V3 c16 = lcol * (1.f / 16.f);
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j) {
-          V3 pos = lpos + v3(-0.25f + 0.125f * j, -0.25f + 0.125f * i, 0.f);
-          col = col + light_sample(s, pos, c16, hp, precise, n, d, m, max_t);
-        }
-    } else {
-      col = col + light_sample(s, lpos, lcol, hp, precise, n, d, m, max_t);
+      pos = lpos + v3(jx, jy, 0.f);
+    }
+    // the 4x4 grid of light positions, each 1/16 of the color
+    // (main.cpp:601-618): spacing 0.125, start at pos - 0.25, row by row
+    const V3 c = grid ? lcol * (1.f / 16.f) : lcol;
+    for (int k = 0; k < (grid ? 16 : 1); ++k) {
+      if (grid)
+        pos = lpos + v3(-0.25f + 0.125f * (k & 3), -0.25f + 0.125f * (k >> 2), 0.f);
+      col = col + light_sample(s, pos, c, hp, precise, n, d, m, max_t);
     }
   }
   return col;
@@ -346,31 +387,24 @@ __device__ __forceinline__ V3 direct_light(const SceneView& s, V3 hp, V3 precise
 struct Entry {
   V3 o, d, w;
   float ior;
-  int depth;  // lvl + 1
-  int path;   // the node's index within its level (stream rows' key)
+  int key;  // entry_key: the node's depth (lvl + 1) and path
 };
 
-// Pending refraction children. Entries hold strictly increasing depths in
-// 2..MAXD, so CAP = MAXD-1 suffices. e[0] is the top: push and pop shift
-// the whole array by one, so every index is a compile-time constant and the
-// array stays in registers (a dynamic index would put it in local memory).
+// depth in 1..8 in the low 4 bits, the node's index within its level (the
+// stream rows' key, below 2^7) above them
+__device__ __forceinline__ int entry_key(int depth, int path) { return path << 4 | depth; }
+
+// Pending refraction children, LIFO. Entries hold strictly increasing
+// depths in 2..MAXD, so CAP = MAXD-1 suffices. The array is indexed by the
+// stack's size, so it lives in the thread's local memory (cached in L1):
+// a walk pushes at most one entry a refracting node, and the 11 words an
+// entry stay out of the register file the tests need.
 template <int CAP>
 struct Stack {
   Entry e[CAP];
   int size = 0;
-  __device__ __forceinline__ void push(const Entry& x) {
-#pragma unroll
-    for (int k = CAP - 1; k > 0; --k) e[k] = e[k - 1];
-    e[0] = x;
-    ++size;
-  }
-  __device__ __forceinline__ Entry pop() {
-    const Entry x = e[0];
-#pragma unroll
-    for (int k = 0; k < CAP - 1; ++k) e[k] = e[k + 1];
-    --size;
-    return x;
-  }
+  __device__ __forceinline__ void push(const Entry& x) { e[size++] = x; }
+  __device__ __forceinline__ Entry pop() { return e[--size]; }
 };
 
 struct Params {
@@ -423,16 +457,15 @@ __device__ __forceinline__ int node_row(const Params& P, int lvl, int path,
   return base + path * rows_per_node(P, lvl, n_levels);
 }
 
-// The minimum of 4 blocks per SM caps a thread at 128 registers; with it
-// ptxas keeps the depth-4 instantiation free of spills and stack (without
-// it, 96 registers and 120 bytes of spill stores on sm_90a, nvcc 12.8).
+// kMinBlocks resident blocks an SM caps a thread's registers at
+// 65536 / (kThreads * kMinBlocks).
 template <int MAXD>
-__global__ void __launch_bounds__(kThreads, 4) whitted_kernel(Params P) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads, kMinBlocks) whitted_kernel(Params P) {
+  extern __shared__ float4 smem[];  // 16-byte aligned rows
   const int n = P.n_tri + P.n_sph + P.n_pl + P.n_box;
   const int n_lt = 6 * (P.n_lights > 1 ? P.n_lights : 1);
-  float* s_tbl = smem;
-  float* s_lt = smem + n * kTblW;
+  float* s_tbl = reinterpret_cast<float*>(smem);
+  float* s_lt = s_tbl + n * kTblW;
   for (int k = threadIdx.x; k < n * kTblW; k += blockDim.x) s_tbl[k] = P.tbl[k];
   for (int k = threadIdx.x; k < n_lt; k += blockDim.x) s_lt[k] = P.lt[k];
   __syncthreads();
@@ -460,7 +493,7 @@ __global__ void __launch_bounds__(kThreads, 4) whitted_kernel(Params P) {
   while (true) {
     bool descend = false;
     float t;
-    const int id = closest(s, o, d, t);
+    const int id = closest(s, make_ray(o, d), t);
     if (id < 0) {
       acc = acc + w * (P.sky.tex != nullptr ? sky_color(P.sky, d) : s.bg);
     } else {
@@ -468,17 +501,20 @@ __global__ void __launch_bounds__(kThreads, 4) whitted_kernel(Params P) {
       const V3 hp = o + d * t;
       V3 nrm;
       if (id < P.n_tri) {
-        nrm = load3(p + 9);
+        const float4 g2 = ld4(p, 2);
+        nrm = v3(g2.y, g2.z, g2.w);
       } else if (id < P.n_tri + P.n_sph) {
-        nrm = normalize(hp - load3(p));
+        nrm = normalize(hp - xyz(ld4(p, 0)));
       } else if (id < P.n_tri + P.n_sph + P.n_pl) {
-        nrm = load3(p);
+        nrm = xyz(ld4(p, 0));
       } else {
-        nrm = box_normal(p, o, d);
+        nrm = box_normal(ld4(p, 0), ld4(p, 1), o, d);
       }
       nrm = normalize(nrm);
       const V3 precise = hp + nrm * kEps;
-      Mat m{load3(p + 12), load3(p + 15), p[18], p[19], p[20], p[21], p[22]};
+      // diff(3) spec(3) kd ks shine transmit ior, then a pad
+      const float4 m0 = ld4(p, 3), m1 = ld4(p, 4), m2 = ld4(p, 5);
+      Mat m{xyz(m0), v3(m0.w, m1.x, m1.y), m1.z, m1.w, m2.x, m2.y, m2.z};
       // this node's stream rows at this ray
       const float* node = streamed
           ? P.rows + (size_t)node_row(P, depth - 1, path, n_levels, branch) * P.n_rays + r
@@ -530,7 +566,7 @@ __global__ void __launch_bounds__(kThreads, 4) whitted_kernel(Params P) {
               rd = t_hat * sin_t + nf;
             }
             stack.push(Entry{hp + rd * 0.001f, rd, w * (1.f - kr), new_ior,
-                             depth + 1, refr_path});
+                             entry_key(depth + 1, refr_path)});
           }
         }
         if (P.has_refl && m.ks > 0.f) {
@@ -561,8 +597,8 @@ __global__ void __launch_bounds__(kThreads, 4) whitted_kernel(Params P) {
     d = e.d;
     w = e.w;
     ior = e.ior;
-    depth = e.depth;
-    path = e.path;
+    depth = e.key & 15;
+    path = e.key >> 4;
   }
 
   acc = clamp01(acc);
@@ -587,7 +623,8 @@ int launch(const Params& P, size_t smem, cudaStream_t stream) {
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Pointers are device pointers to
-// contiguous f32: ray_o, ray_d, out [n_rays*3]; tbl [n*23]; lt
+// contiguous f32: ray_o, ray_d, out [n_rays*3]; tbl [n*24], 16-byte
+// aligned; lt
 // [max(1,n_lights)*6]; bg [3]; rows [n_rows*n_rays] raw U[0,1) draws (null
 // when neither soft_jit nor fuzzy) of the subpixel (si, sj) of spp; sky
 // [6*sky_h*sky_w*3] u8 (sky_f32 = 0) or f32, or null for the flat
@@ -604,6 +641,7 @@ extern "C" int whitted_megakernel_launch(
     float sj, int spp, const void* sky, int sky_h, int sky_w, int sky_f32) {
   if (n_rays <= 0) return 0;
   if ((soft_jit || fuzzy) && rows == nullptr) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(tbl) % 16) return (int)cudaErrorMisalignedAddress;
   Params P{ray_o, ray_d, out, n_rays, tbl, lt, bg,
            n_tri, n_sph, n_pl, n_box, n_lights,
            has_refl, has_refr, fresnel_mode, refraction_mode,

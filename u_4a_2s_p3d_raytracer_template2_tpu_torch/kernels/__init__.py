@@ -17,7 +17,7 @@ import torch
 
 from ..models.pathtracer import N_UNIFORMS
 from ..models.pt_megakernel import ROW_W
-from ..models.whitted_megakernel import layout_of
+from ..models.whitted_megakernel import TBL_W, layout_of
 from .build import load
 
 _FRESNEL = {"schlick": 0, "reference_schlick": 1, "reference_exact": 2}
@@ -84,6 +84,12 @@ def _check(name: str, t: torch.Tensor, device: torch.device, numel=None,
             "item 11)")
 
 
+def _check_aligned(name: str, t: torch.Tensor):
+    """The megakernels read their table rows as float4."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: want a 16-byte aligned tensor")
+
+
 def whitted_megakernel(tbl, lt, bg, o, d, shape, cfg, rows=None,
                        sky=None, offsets=None) -> torch.Tensor:
     """Clamped [R,3] color of rays (o, d) [R,3] through the whole Whitted
@@ -108,7 +114,8 @@ def whitted_megakernel(tbl, lt, bg, o, d, shape, cfg, rows=None,
                          f"{tuple(o.shape)} and {tuple(d.shape)}")
     _check("o", o, dev)
     _check("d", d, dev)
-    _check("tbl", tbl, dev, shape.n * 23)
+    _check("tbl", tbl, dev, shape.n * TBL_W)
+    _check_aligned("tbl", tbl)
     _check("lt", lt, dev, 6 * max(1, shape.n_lights))
     _check("bg", bg, dev, 3)
     layout = layout_of(shape, cfg)
@@ -180,6 +187,7 @@ def pt_megakernel(tables, o, d, time, uni, cfg) -> torch.Tensor:
     _check("time", time, dev, R)
     _check("uni", uni, dev)
     _check("tbl", tables.tbl, dev, (tables.n_sph + tables.n_tri) * ROW_W)
+    _check_aligned("tbl", tables.tbl)
     _check("lt", tables.lt, dev, 6 * max(1, tables.n_lights))
     out = torch.empty_like(o)
     with torch.cuda.device(dev):  # restores the caller's device after

@@ -86,6 +86,40 @@ def build(name: str) -> Path:
     return out
 
 
+def build_copy(name: str, tag: str, edits=(), drop_flags=(),
+               src_dir: Path = CSRC) -> Path:
+    """Compile a copy of ``src_dir/<name>.cu`` with each ``(old, new)`` of
+    ``edits`` replaced, in the source or a header beside it (``*.cuh``),
+    and without the nvcc flags ``drop_flags``, into
+    ``build/copies/<name>_<tag>/`` (a directory of its own, so the copy's
+    includes find its own headers); nvcc's report goes beside the library
+    as ``.log``. Raises if an ``old`` is not in the files exactly once or
+    the build fails. chip_faults.py builds its planted faults and controls
+    this way, tools/megakernels.py its block sizes and baselines."""
+    files = [src_dir / f"{name}.cu", *sorted(src_dir.glob("*.cuh"))]
+    texts = {f.name: f.read_text() for f in files}
+    for old, new in edits:
+        where = [n for n, text in texts.items() if old in text]
+        if len(where) != 1 or texts[where[0]].count(old) != 1:
+            raise AssertionError(f"{name} {tag}: {old!r} is not in the "
+                                 "source and its headers exactly once")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    out_dir = BUILD_DIR.parent / "copies" / f"{name}_{tag}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for n, text in texts.items():
+        (out_dir / n).write_text(text)
+    lib = out_dir / f"lib{name}_{tag}.so"
+    proc = subprocess.run(
+        [nvcc(), *[f for f in flags(name) if f not in drop_flags],
+         "-o", str(lib), str(out_dir / f"{name}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name} {tag}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    return lib
+
+
 def build_log(name: str) -> str:
     """nvcc's output for the built library (ptxas registers and spills)."""
     return library_path(name).with_suffix(".log").read_text()

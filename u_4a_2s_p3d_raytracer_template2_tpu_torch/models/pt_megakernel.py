@@ -6,8 +6,9 @@ It replaces the TPU kernel of
 ``u_4a_2s_p3d_raytracer_template2_tpu/models/pt_megakernel.py``
 (``_build_kernel``, launched by ``_trace_fn_cached``), which baked the world
 into the kernel as immediates. Here the world arrives as operand tables
-(``pt_tables``: ``[N·21]`` sphere rows then triangle rows, each with its
-material, and ``[L·6]`` lights), packed once per scene and kept in
+(``pt_tables``: ``[N·24]`` sphere rows then triangle rows, each its
+geometry padded to 12 floats and its material, so the kernel reads a row as
+six 16-byte loads, and ``[L·6]`` lights), packed once per scene and kept in
 ``PTScene.cache``, so one build serves every world within the ceilings.
 Padding rows (radius-0 spheres, degenerate triangles) are dropped, as the
 TPU kernel's ``_PTConsts`` drops them.
@@ -41,10 +42,11 @@ from .pathtracer import (
 MAX_SPHERES = 256
 MAX_TRIS = 16
 MAX_LIGHTS = 8
-# c0(3) c1(3) r t0 t1 | v0(3) e1(3) e2(3); then the material:
-# mtype albedo(3) spec(3) rough ref_idx refract(3)
-ROW_W = 21
-GEOM_W = 9
+# A row is three float4 of geometry and three of material, which the kernel
+# reads as 16-byte loads: c0(3) c1(3) r t0 t1 | v0(3) e1(3) e2(3), padded
+# to GEOM_W; then mtype albedo(3) spec(3) rough ref_idx refract(3).
+ROW_W = 24
+GEOM_W = 12
 
 
 class PTTables(NamedTuple):
@@ -76,16 +78,20 @@ def _pack_tables(scene: PTScene) -> PTTables:
             m.spec_color[mi], m.roughness[mi][:, None], m.ref_idx[mi][:, None],
             m.refract_color[mi]], dim=-1)
 
+    def pad(geom):
+        return torch.nn.functional.pad(geom, (0, GEOM_W - geom.shape[1]))
+
     sph = torch.nonzero(scene.sp_radius != 0.0)[:, 0]
-    sph_rows = torch.cat([
+    sph_rows = torch.cat([pad(torch.cat([
         scene.sp_center0[sph], scene.sp_center1[sph],
         scene.sp_radius[sph][:, None], scene.sp_time0[sph][:, None],
-        scene.sp_time1[sph][:, None], mat_block(scene.sp_mat[sph])], dim=-1)
+        scene.sp_time1[sph][:, None]], dim=-1)),
+        mat_block(scene.sp_mat[sph])], dim=-1)
     area = torch.linalg.vector_norm(
         torch.linalg.cross(scene.tri_e1, scene.tri_e2), dim=-1)
     tri = torch.nonzero(area != 0.0)[:, 0]
-    tri_rows = torch.cat([
-        scene.tri_v0[tri], scene.tri_e1[tri], scene.tri_e2[tri],
+    tri_rows = torch.cat([pad(torch.cat([
+        scene.tri_v0[tri], scene.tri_e1[tri], scene.tri_e2[tri]], dim=-1)),
         mat_block(scene.tri_mat[tri])], dim=-1)
     n_lights = scene.light_pos.shape[0]
     lt = torch.cat([scene.light_pos, scene.light_color], dim=-1)

@@ -11,8 +11,10 @@ function and differ only in how the scene arrives:
     (``_build_streamed_kernel``): the scene read from SMEM tables.
 
 Here the scene arrives as the streamed kernel's tables (``scene_tables``:
-``[N·23]`` primitive+material rows in tri, sphere, plane, box order, ``[L·6]``
-lights, ``[3]`` background), so one build serves every scene. The plain
+``[N·24]`` primitive+material rows in tri, sphere, plane, box order, each 12
+floats of geometry and 11 of material padded to 12, so the kernel reads a
+row as six 16-byte loads; ``[L·6]`` lights; ``[3]`` background), so one
+build serves every scene. The plain
 version is the sweep engine (models/whitted.py) over a scene rebuilt from the
 same tables (``reconstruct_scene``), then clamped: the split of
 ``whitted_streamed.py:389-395``.
@@ -57,7 +59,9 @@ from .samples import stream_layout
 
 MAX_PRIMS = 256      # the JAX megakernels' unroll ceiling, kept as the envelope
 MAX_DEPTH = 8        # deepest tree the kernel is instantiated for
-TBL_W = 23           # 12 params + diff(3) spec(3) kd ks shine transmit ior
+# 12 params + diff(3) spec(3) kd ks shine transmit ior + a pad: six float4,
+# which the kernel reads as 16-byte loads
+TBL_W = 24
 
 
 class StaticShape(NamedTuple):
@@ -99,7 +103,7 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
 
 
 def scene_tables(scene: Scene):
-    """``[N*23]`` / ``[L*6]`` / ``[3]`` f32 views of the scene
+    """``[N*24]`` / ``[L*6]`` / ``[3]`` f32 views of the scene
     (``whitted_streamed.py:124-158``), in the type-grouped order so
     cross-type closest-hit ties break as in the sweep. Packed on the first
     call and kept in ``scene.cache``: a frame only launches."""
@@ -128,7 +132,8 @@ def _pack_tables(scene: Scene):
         if n == 0:
             continue
         pr = torch.nn.functional.pad(tp[:n], (0, 12 - tp.shape[1]))
-        segs.append(torch.cat([pr, mat_block(ids[:n])], dim=-1))
+        mat = torch.nn.functional.pad(mat_block(ids[:n]), (0, TBL_W - 23))
+        segs.append(torch.cat([pr, mat], dim=-1))
     tbl = torch.cat(segs, dim=0).reshape(-1)
     L = max(1, scene.n_lights)
     lt = torch.cat([scene.lights.position[:L], scene.lights.color[:L]],

@@ -1,0 +1,392 @@
+"""The two megakernels on the card: what ptxas gave them, how many blocks an
+SM holds, their SASS, and their time on the main paths' inputs by block
+size and against another checkout's build of them.
+
+The kernels are K1/K2 (``csrc/whitted_megakernel.cu``) and K3
+(``csrc/pt_megakernel.cu``). For each source this prints:
+
+  * ptxas's registers, spills and stack frame for each kernel instantiation
+    (the Whitted kernel's depths 1-8);
+  * the blocks an SM holds at the main path's shared memory, counted from
+    the registers;
+  * the SASS size of each kernel and of each loop in it (``cuobjdump
+    -sass``; a loop is a backward branch), a static count;
+  * the time of each kernel at 64, 128 and 256 threads a block, measured in
+    turns on the main paths' inputs. The copies are built with ``kThreads``
+    edited, keeping threads x the minimum blocks at 512 where the source
+    sets a minimum, so the register cap stays the same.
+
+The inputs are mount_low 512², depth 4 (one launch); a subpixel launch of
+the 512² distribution frame (spp 4, jittered soft shadows, fuzzy
+reflection, a 6x2048² u8 sky); and glsl_world 512², 10 bounces.
+
+``--baseline DIR`` names the ``csrc/`` of another checkout, such as an
+earlier commit unpacked with ``git archive``. Its two kernels are built
+the same way and timed in turns with this checkout's: baseline, this,
+this, baseline. Their tables are cut down to the rows they read.
+
+    python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.megakernels \\
+        [--baseline DIR] [--threads 64 128 256]
+"""
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import contextlib
+import ctypes
+import re
+import statistics
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from ..kernels import build as kb
+
+KERNELS = ("whitted_megakernel", "pt_megakernel")
+
+# compute capability 9.0 (CUDA C++ Programming Guide, "Technical
+# Specifications per Compute Capability"): registers an SM, the register
+# allocation unit of a warp, resident warps and blocks an SM, shared memory
+# an SM and the 1 KB the runtime reserves a block
+SM_REGS, REG_UNIT, SM_WARPS, SM_BLOCKS = 65536, 256, 64, 32
+SM_SMEM, BLOCK_SMEM_RESERVED = 233472, 1024
+
+# the row widths of the tables each layout's kernel reads, and the columns
+# of the current rows it keeps: the rows before the pad columns
+ROW_COLUMNS = {
+    ("whitted_megakernel", 23): list(range(23)),
+    ("pt_megakernel", 21): list(range(9)) + list(range(12, 24)),
+}
+
+
+def thread_edits(text: str, threads: int):
+    """The edits that set a source's block size to ``threads``, keeping
+    threads x the minimum blocks of its launch bounds as they are."""
+    edits = [("constexpr int kThreads = 128;",
+              f"constexpr int kThreads = {threads};")]
+    if "__launch_bounds__(kThreads, 4)" in text:
+        edits.append(("__launch_bounds__(kThreads, 4)",
+                      f"__launch_bounds__(kThreads, {512 // threads})"))
+    m = re.search(r"constexpr int kMinBlocks = (\d+);", text)
+    if m:
+        edits.append((m.group(0), f"constexpr int kMinBlocks = "
+                      f"{int(m.group(1)) * 128 // threads};"))
+    return edits
+
+
+def min_block_edits(text: str, blocks: int):
+    """The edit that sets a source's kMinBlocks to ``blocks``, or None for
+    a source without one."""
+    m = re.search(r"constexpr int kMinBlocks = (\d+);", text)
+    return None if m is None else [
+        (m.group(0), f"constexpr int kMinBlocks = {blocks};")]
+
+
+def ptxas_resources(log: str) -> dict[str, dict]:
+    """{kernel: {"registers", "spill_stores", "spill_loads", "stack"}} from
+    ptxas's ``-v`` report, by demangled-enough name (the template argument
+    kept: ``whitted_kernel<4>``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            name = demangle(m.group(1))
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items() if "registers" in v}
+
+
+def demangle(symbol: str) -> str:
+    """``whitted_kernel<4>`` from ``_ZN12_GLOBAL__N_114whitted_kernelILi4EE
+    Ev6Params``, ``pt_kernel`` from its symbol; other names as they are."""
+    m = re.search(r"([a-z]+_kernel)(?:ILi(\d+)E)?", symbol)
+    if not m:
+        return symbol
+    return f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+
+
+def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
+    """Resident blocks an SM at ``registers`` a thread, ``threads`` a
+    block and ``smem`` bytes of dynamic shared memory a block."""
+    warps = -(-threads // 32)
+    per_warp = -(-registers * 32 // REG_UNIT) * REG_UNIT
+    by_regs = (SM_REGS // per_warp) // warps if per_warp else SM_BLOCKS
+    by_smem = SM_SMEM // (smem + BLOCK_SMEM_RESERVED)
+    return min(SM_BLOCKS, SM_WARPS // warps, by_regs, by_smem)
+
+
+def sass_loops(text: str) -> dict[str, dict]:
+    """{kernel: {"instructions", "loops"}} from ``cuobjdump -sass``: every
+    instruction of each kernel, and the size in instructions of each loop
+    (a branch back to an earlier address: the instructions from its target
+    to itself), in address order."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = demangle(m.group(1))
+            out[name] = {"instructions": 0, "loops": []}
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*)", line)
+        if not (m and name):
+            continue
+        addr, ins = int(m.group(1), 16), m.group(2)
+        out[name]["instructions"] += 1
+        b = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
+        if b and int(b.group(1), 16) < addr:
+            out[name]["loops"].append((addr - int(b.group(1), 16)) // 16 + 1)
+    return out
+
+
+def sass_text(lib: Path) -> str:
+    cuobjdump = kb.nvcc().replace("nvcc", "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def row_width(src_dir: Path, name: str) -> int:
+    """The row width the source's kernel reads (its ``kTblW`` or
+    ``kRowW``)."""
+    text = (src_dir / f"{name}.cu").read_text()
+    return int(re.search(r"constexpr int k(?:TblW|RowW) = (\d+);",
+                         text).group(1))
+
+
+def main_inputs(dev):
+    """The main paths' launches, as {label: (kernel name, [args of the
+    wrapper])}: mount_low 512² depth 4 (and 8, the deepest template) on
+    seven drifting ray sets; the 16
+    subpixel launches of a 512² distribution frame; glsl_world 512², 10
+    bounces, on six frames' draws."""
+    from ..core.build import build_scene
+    from ..core.types import RenderConfig
+    from ..models import pathtracer as pt
+    from ..models import pt_megakernel as ptk
+    from ..models import samples
+    from ..models import whitted_megakernel as mk
+    from ..models.glsl_scene import glsl_camera, glsl_world
+    from ..models.scenes import mount_scene
+    from ..models.whitted import pixel_grid, subpixel_rays
+    from ..ops.camera import pinhole_rays
+    from .device_validate import distribution_scene
+
+    res = 512
+    px, py = pixel_grid(res, res, dev)
+    scene = build_scene(mount_scene(res=res), device=dev)
+    cfg = RenderConfig(engine="megakernel")
+    tables, shape = mk.scene_tables(scene), mk.shape_of(scene)
+    mount, mount8 = [], []
+    cfg8 = RenderConfig(engine="megakernel", max_depth=8)
+    for i in range(7):
+        r = pinhole_rays(scene.camera, px + 0.5 + 0.37 * i, py + 0.5)
+        o, d = r.origin.contiguous(), r.direction.contiguous()
+        mount.append((*tables, o, d, shape, cfg))
+        mount8.append((*tables, o, d, shape, cfg8))
+    with tempfile.TemporaryDirectory() as env:
+        dscene, dcfg = distribution_scene(dev, env_dir=env, res=res)
+    plan = samples.draw_plan(torch.Generator(device=dev).manual_seed(1),
+                             samples.scene_layout(dscene, dcfg), dcfg,
+                             res * res)
+    dtables, dshape = mk.scene_tables(dscene), mk.shape_of(dscene)
+    sky = mk.sky_of(dscene, dcfg)
+    dist = []
+    for s in plan:
+        r = subpixel_rays(dscene, px, py, dcfg, s)
+        dist.append((*dtables, r.origin.contiguous(),
+                     r.direction.contiguous(), dshape, dcfg, s.rows, sky,
+                     s.ij))
+    world, cam = glsl_world(device=dev), glsl_camera(res, res, device=dev)
+    ptcfg, pttables = pt.PTConfig(), ptk.pt_tables(world)
+    glsl = []
+    for i in range(6):
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        rays = pt.camera_rays(cam, g)
+        uni = pt.draw_uniforms(g, ptcfg.max_bounces, res * res)
+        glsl.append((pttables, rays.origin, rays.direction, rays.time, uni,
+                     ptcfg))
+    return {"mount_low 512^2 depth 4": ("whitted_megakernel", mount),
+            "mount_low 512^2 depth 8": ("whitted_megakernel", mount8),
+            "distribution 512^2, a subpixel launch":
+                ("whitted_megakernel", dist),
+            "glsl_world 512^2, 10 bounces": ("pt_megakernel", glsl)}
+
+
+def with_rows(name: str, width: int, args):
+    """``args`` of the wrapper with the tables cut to the rows of a kernel
+    that reads ``width`` floats a row."""
+    from ..models import pt_megakernel as ptk
+    from ..models import whitted_megakernel as mk
+
+    cols = ROW_COLUMNS.get((name, width))
+    current = mk.TBL_W if name == "whitted_megakernel" else ptk.ROW_W
+    if cols is None or width == current:
+        return args
+    if name == "whitted_megakernel":
+        tbl = args[0].reshape(-1, mk.TBL_W)[:, cols].contiguous().reshape(-1)
+        return (tbl, *args[1:])
+    t = args[0]
+    tbl = t.tbl.reshape(-1, ptk.ROW_W)[:, cols].contiguous().reshape(-1)
+    return (t._replace(tbl=tbl), *args[1:])
+
+
+@contextlib.contextmanager
+def entry(name: str, lib: Path | None, width: int):
+    """Route the wrapper of kernel ``name`` through the library ``lib``
+    (None: the sound build) whose kernel reads ``width`` floats a row."""
+    from .. import kernels
+
+    attr = {"whitted_megakernel": "_whitted_entry",
+            "pt_megakernel": "_pt_entry"}[name]
+    width_attr = {"whitted_megakernel": "TBL_W",
+                  "pt_megakernel": "ROW_W"}[name]
+    sound = getattr(kernels, attr)()
+    fn = sound
+    if lib is not None:
+        fn = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
+        fn.restype, fn.argtypes = sound.restype, sound.argtypes
+    old_width = getattr(kernels, width_attr)
+    setattr(kernels, attr, lambda: fn)
+    setattr(kernels, width_attr, width)
+    try:
+        yield getattr(kernels, name)
+    finally:
+        setattr(kernels, attr, lambda: sound)
+        setattr(kernels, width_attr, old_width)
+
+
+def answers(inputs, builds) -> dict:
+    """{(label, build): equal}: whether each build of ``builds`` answers
+    each input's first launch as the first build does, bit for bit; each
+    reading is printed."""
+    first, out = {}, {}
+    for tag, name, lib, width in builds:
+        for label, (kname, args) in inputs.items():
+            if kname != name:
+                continue
+            with entry(name, lib, width) as fn:
+                got = fn(*with_rows(name, width, args[0]))
+            want = first.setdefault(label, got)
+            out[label, tag] = torch.equal(got, want)
+            print(f"answers {tag} | {label}: " + (
+                "equal to " if out[label, tag] else
+                f"max abs diff {float((got - want).abs().max()):.3g} from ")
+                + builds[0][0], flush=True)
+    return out
+
+
+def timed_in_turns(inputs, builds, rounds: int = 2) -> dict:
+    """{(label, build): [ms, ...]}: each build of ``builds`` ((tag, kernel
+    name, library or None, row width)) timed on each input of its kernel
+    with the launches queued (utils/timing.queued_ms), in the order
+    A, B, ..., B, A, ``rounds`` times; each time and each build's median
+    is printed."""
+    from ..utils.timing import queued_ms
+
+    times = {}
+    for _ in range(rounds):
+        for tag, name, lib, width in list(builds) + list(builds)[::-1]:
+            for label, (kname, args) in inputs.items():
+                if kname != name:
+                    continue
+                with entry(name, lib, width) as fn:
+                    ms = queued_ms(fn, [with_rows(name, width, a)
+                                        for a in args])
+                times.setdefault((label, tag), []).append(ms)
+                print(f"time {tag} | {label}: {ms:.4f} ms a launch",
+                      flush=True)
+    for (label, tag), ms in times.items():
+        print(f"median {tag} | {label}: {statistics.median(ms):.4f} ms a "
+              f"launch ({', '.join(f'{m:.4f}' for m in ms)})", flush=True)
+    return times
+
+
+def report(lib: Path, tag: str, smem: int, threads: int) -> None:
+    """Print the library's ptxas resources, blocks an SM and SASS sizes."""
+    log = lib.with_suffix(".log").read_text()
+    for kern, r in ptxas_resources(log).items():
+        print(f"resources {tag} {kern}: {r['registers']} registers, "
+              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
+              f"spill loads, {r['stack']} B stack; "
+              f"{blocks_per_sm(r['registers'], threads, smem)} blocks of "
+              f"{threads} an SM at {smem} B shared")
+    try:
+        sass = sass_loops(sass_text(lib))
+    except (OSError, subprocess.CalledProcessError) as e:
+        print(f"sass {tag}: cuobjdump unavailable ({e})")
+        return
+    for kern, s in sass.items():
+        print(f"sass {tag} {kern}: {s['instructions']} instructions, loops "
+              f"of {s['loops']}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="the csrc/ directory of another checkout")
+    ap.add_argument("--threads", type=int, nargs="*", default=[64, 128, 256])
+    ap.add_argument("--min-blocks", type=int, nargs="*", default=[],
+                    help="kMinBlocks values to build at 128 threads, for a "
+                    "source that declares it")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("megakernels: needs a CUDA card")
+    from .device_validate import card_info
+
+    dev = torch.device("cuda", 0)
+    print(f"card: {card_info()}")
+    inputs = main_inputs(dev)
+    sources = [("this", kb.CSRC)]
+    if args.baseline is not None:
+        sources.insert(0, ("baseline", args.baseline))
+    jobs = []  # (build tag, source directory, kernel, block size, edits)
+    for tag, src in sources:
+        for name in KERNELS:
+            text = (src / f"{name}.cu").read_text()
+            jobs += [(f"{tag}{n}", src, name, n, thread_edits(text, n))
+                     for n in args.threads]
+            jobs += [(f"{tag}128m{m}", src, name, 128,
+                      min_block_edits(text, m))
+                     for m in args.min_blocks
+                     if min_block_edits(text, m) is not None]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        libs = list(pool.map(lambda j: kb.build_copy(
+            j[2], j[0], j[4], src_dir=j[1]), jobs))
+    builds = {name: [] for name in KERNELS}
+    for (btag, src, name, n, _), lib in zip(jobs, libs):
+        width = row_width(src, name)
+        report(lib, btag, smem_of(name, inputs, width), n)
+        builds[name].append((btag, name, lib, width))
+    for name in KERNELS:
+        answers(inputs, builds[name])
+        timed_in_turns(inputs, builds[name])
+    return 0
+
+
+def smem_of(name: str, inputs, width: int) -> int:
+    """Dynamic shared memory of the main path's launch of kernel ``name``
+    at ``width`` floats a row: its table and its lights."""
+    for kname, args in inputs.values():
+        if kname != name:
+            continue
+        if name == "whitted_megakernel":
+            shape = args[0][5]
+            return 4 * (shape.n * width + 6 * max(1, shape.n_lights))
+        t = args[0][0]
+        return 4 * ((t.n_sph + t.n_tri) * width + 6 * max(1, t.n_lights))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
