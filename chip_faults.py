@@ -24,13 +24,19 @@ versions on the same inputs:
   * the path tracer's (chip_smoke.pt_cases), printing the share of pixels
     beyond 2e-3 and the mean and max abs difference of each, and whether
     the case's limits (chip_smoke.PT_LIMITS) reject it;
-  * the BVH walk's (chip_smoke.bvh_cases), printing the share of rays whose
-    closest-hit ids differ, the largest relative t difference and the share
-    of occlusion results that differ, and whether chip_smoke.BVH_LIMITS
-    reject it;
+  * the BVH walk's (chip_smoke.bvh_cases), printing over the live slots
+    the share of rays whose closest-hit ids differ, the largest relative t
+    difference and the share of occlusion results that differ, and the
+    share of dead slots whose answer is wrong (chip_smoke.live_agreement,
+    the kernel writing into poisoned outputs), and whether
+    chip_smoke.BVH_LIMITS reject it; then the walk's design controls
+    (BVH_DESIGN: the binary tree, every slot traced or queued, each leaf
+    row read when it is tested), which must answer as the sound walk does
+    on every slot of the BVH frame's 12 launches, each timed beside it in
+    turns (tools/megakernels.walk_timed_in_turns);
   * the brute-force kernels' (chip_smoke.brute_cases) with the same
     readings over the live slots and the share of dead slots whose answer
-    is wrong (chip_smoke.brute_agreement, the kernel writing into poisoned
+    is wrong (chip_smoke.live_agreement, the kernel writing into poisoned
     outputs), judged by chip_smoke.BRUTE_LIMITS; then the brute-force
     controls (BRUTE_CONTROLS: the designs the sound kernel was chosen
     over), which must answer as the sound kernel does, each timed beside
@@ -184,11 +190,72 @@ BVH_FAULTS = (
      "r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);",
      "r.ix = 1.f / r.dx; r.iy = 1.f / r.dy; r.iz = 1.f / r.dz;"),
     ("leaf loop skips its last primitive",
-     "for (int i = m.x; i < m.x + m.y; ++i) {",
-     "for (int i = m.x; i < m.x + m.y - 1; ++i) {"),
+     "if (k < m.y) {  // row m.x + k of the leaf",
+     "if (k < m.y - 1) {  // row m.x + k of the leaf"),
     ("any hit ignores max_t",
-     "if (row_t<COUNT>(T.rows, i, r, rank, id, w) < max_t) return true;",
-     "if (row_t<COUNT>(T.rows, i, r, rank, id, w) < kBig) return true;"),
+     "if (t < max_t) return true;  // an occluder",
+     "if (t < kBig) return true;  // an occluder"),
+    ("a dead slot's answer left unwritten",
+     "        out_t[slot] = kBig;\n        out_id[slot] = -1;\n", ""),
+    ("the pack drops the last live ray of a block",
+     "if (threadIdx.x < queued) {", "if (threadIdx.x + 1 < queued) {"),
+    ("a wide visit skips its fourth child",
+     "const bool hit = count >= 0 && tn <= tf",
+     "const bool hit = c < 3 && count >= 0 && tn <= tf"),
+)
+
+
+# Builds of csrc/bvh_walk.cu timed beside the sound walk on the BVH frame's
+# 12 launches (tools/megakernels.walk_inputs): each puts back one element
+# of the walk's design before its redesign for the card (the binary tree;
+# every slot traced; every slot queued, the dead ones idle in their warps,
+# as the any hit ran; each leaf row read when it is tested), as (name,
+# (text, its replacement) pairs). Each must answer as the sound walk does,
+# bit for bit, and an element stays only where its control is slower. A
+# control whose kWidth differs reads the tree collapsed to that width
+# (tools/megakernels.walk_tables).
+_EVERY_SLOT = ("const bool live = in && !(dead && dead[mine]);",
+               "const bool live = in;")
+BVH_DESIGN = (
+    ("the binary tree (2-wide nodes, the 64-B child pair of PRs 3-8)",
+     (("constexpr int kWidth = 4;", "constexpr int kWidth = 2;"),)),
+    ("every slot traced, dead answers written after the walk",
+     (_EVERY_SLOT,
+      ("    on_live(slot);\n",
+       "    on_live(slot);\n    if (dead && dead[slot]) on_dead(slot);\n"))),
+    ("every slot queued, dead slots idle in their warps",
+     (_EVERY_SLOT,
+      ("    on_live(slot);\n",
+       "    if (dead && dead[slot])\n      on_dead(slot);\n"
+       "    else\n      on_live(slot);\n"))),
+    ("each leaf row read when it is tested",
+     (("""      float4 head[kLeafRows], p0[kLeafRows];
+      read_leaf(T.rows, m, head, p0);
+#pragma unroll
+      for (int k = 0; k < kLeafRows; ++k) {
+        if (k < m.y) {  // row m.x + k of the leaf
+          float t = row_t<COUNT>(T.rows, m.x + k, head[k], p0[k], r, rank,
+                                 id, w);
+          offer(t, rank, id);
+        }
+      }""", """      for (int i = m.x; i < m.x + m.y; ++i) {
+        float t = row_t<COUNT>(T.rows, i, __ldg(T.rows + 4 * i + 3),
+                               __ldg(T.rows + 4 * i), r, rank, id, w);
+        offer(t, rank, id);
+      }"""),
+      ("""      float4 head[kLeafRows], p0[kLeafRows];
+      read_leaf(T.rows, m, head, p0);
+#pragma unroll
+      for (int k = 0; k < kLeafRows; ++k) {
+        if (k < m.y) {
+          const float t = row_t<COUNT>(T.rows, m.x + k, head[k], p0[k], r,
+                                       rank, id, w);
+          if (t < max_t) return true;  // an occluder
+        }
+      }""", """      for (int i = m.x; i < m.x + m.y; ++i)
+        if (row_t<COUNT>(T.rows, i, __ldg(T.rows + 4 * i + 3),
+                         __ldg(T.rows + 4 * i), r, rank, id, w) < max_t)
+          return true;"""))),
 )
 
 
@@ -473,8 +540,9 @@ def bvh_verdicts(dev, kernels, sound, faulty):
         kernels._bvh_entry = lambda n, entries=entries: entries[n]
         rejected = 0
         for (label, tables, query, args), want in zip(cases, wants):
-            reading = chip_smoke.hit_agreement(
-                query, chip_smoke.bvh_run(query, tables, args), want)
+            reading = chip_smoke.live_agreement(
+                query, chip_smoke.bvh_run(query, tables, args, poison=True),
+                want, chip_smoke.dead_of(query, args))
             out = chip_smoke.rejects(reading, chip_smoke.BVH_LIMITS)
             rejected += bool(out)
             print(f"{name} | {label} ({query}): " + ", ".join(
@@ -497,7 +565,7 @@ def brute_verdicts(dev, kernels, sound, faulty):
         kernels._brute_entry = lambda n, entries=entries: entries[n]
         rejected = 0
         for (label, _, tables, query, args), want in zip(cases, wants):
-            reading = chip_smoke.brute_agreement(
+            reading = chip_smoke.live_agreement(
                 query, chip_smoke.brute_run(query, tables, args, poison=True),
                 want, chip_smoke.dead_of(query, args))
             out = chip_smoke.rejects(reading, chip_smoke.BRUTE_LIMITS)
@@ -590,6 +658,28 @@ def brute_controls(dev, kernels, sound, controls):
     return failed
 
 
+def bvh_controls(dev, kernels, sound, controls):
+    """Names of the walk's design controls (BVH_DESIGN) that answer
+    otherwise than the sound walk on the BVH frame's 12 launches (every
+    slot, bit for bit); each is timed beside it in turns (sound, control,
+    control, sound, twice), each launch on seven drifting frames' queries
+    with the launches queued (tools/megakernels.walk_timed_in_turns)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
+        megakernels as mt,
+    )
+
+    kernels._bvh_entry = lambda n: sound[n]
+    scene, frames = mt.walk_inputs(dev)
+    failed = []
+    for name, lib in controls:
+        builds = [("sound", None, mt.walk_width(mt.kb.CSRC)),
+                  (name, lib, mt.walk_width(lib.parent))]
+        if not all(mt.walk_answers(scene, frames, builds).values()):
+            failed.append(f"control {name}")
+        mt.walk_timed_in_turns(scene, frames, builds)
+    return failed
+
+
 def design_controls(dev, controls):
     """Names of the megakernels' design controls (WHITTED_DESIGN,
     PT_DESIGN) that answer otherwise than the sound kernel on the main
@@ -673,13 +763,15 @@ def main() -> int:
                     for i, c in enumerate(WHITTED_DESIGN)]
                    + [("pt_megakernel", f"design{i}", c)
                       for i, c in enumerate(PT_DESIGN)])
+    bvh_design_jobs = [(f"design{i}", edits)
+                       for i, (_, edits) in enumerate(BVH_DESIGN)]
     bvh_names = ("bvh_closest_launch", "bvh_any_launch")
     brute_names = ("brute_closest_launch", "brute_any_launch",
                    "brute_scratch_bytes")
     probe_names = ("op_rate_launch", "fma_peak_launch", "stack_walk_launch")
     with concurrent.futures.ThreadPoolExecutor(
             len(jobs) + len(control_jobs) + len(brute_control_jobs)
-            + len(design_jobs) + 5) as pool:
+            + len(design_jobs) + len(bvh_design_jobs) + 5) as pool:
         whitted_sound = pool.submit(kernels._whitted_entry)
         pt_sound = pool.submit(kernels._pt_entry)
         bvh_sound = pool.submit(lambda: {n: kernels._bvh_entry(n)
@@ -695,6 +787,8 @@ def main() -> int:
             for j in brute_control_jobs]
         design_libs = [pool.submit(kb.build_copy, src, tag, edits)
                        for src, tag, (_, edits) in design_jobs]
+        bvh_design_libs = [pool.submit(kb.build_copy, "bvh_walk", *j)
+                           for j in bvh_design_jobs]
         libs = list(pool.map(
             lambda j: kb.build_copy(j[0], f"fault{j[1]}", [j[2][1:]]), jobs))
     controls = [(name, lib.result(), verdict) for (name, _, _, verdict), lib
@@ -711,6 +805,9 @@ def main() -> int:
                             faulty["pt_megakernel"])
               + bvh_verdicts(dev, kernels, bvh_sound.result(),
                              faulty["bvh_walk"])
+              + bvh_controls(dev, kernels, bvh_sound.result(),
+                             [(name, lib.result()) for (name, _), lib
+                              in zip(BVH_DESIGN, bvh_design_libs)])
               + brute_verdicts(dev, kernels, brute_sound.result(),
                                faulty["brute_intersect"])
               + brute_controls(dev, kernels, brute_sound.result(),

@@ -34,25 +34,33 @@ Phases, each raising on failure:
      set the kernel's bound.
   BVH path (the sphere field of 7,396 spheres, 512x512, depth 4, sweep):
   9. the walk's kernels (closest, any, fused multi-light any) against their
-     plain version on the same rays under BVH_LIMITS (bvh_cases): the main
-     path's primary rays, level-1 rays and shadow segments with their dead
-     masks, the 18,496-sphere field's primary rays, and a soup of all four
-     primitive types with incoherent and axis-parallel rays; the fused
-     launch against one launch per light, exactly;
+     plain version on the same rays under BVH_LIMITS (bvh_cases,
+     live_agreement: readings over the live slots, and every dead slot
+     exactly (BIG, -1) or occluded, the kernel writing into poisoned
+     outputs): the main path's primary rays, level-1 rays (with the
+     sweep's dead mask, and with EDGE_LIVE of their hitting slots live)
+     and shadow segments with their dead masks, the 18,496-sphere field's
+     primary rays, and a soup of all four primitive types with incoherent
+     and axis-parallel rays; the fused launch against one launch per
+     light, exactly;
   10. main path: render_image of the field with the walk's launch counters
      reset just before and read just after; accel_impl="multi" gives the
      same image through the fused walk; at 128x128 the BVH image against
      brute force; the PNG; the CLI render command on the built-in sphere
      field and random scene with --accel 2;
-  11. timing: each kernel alone on the main path's primary and level-1
-     queries, as device time with the launches queued (utils/timing
-     .queued_ms) and as CUDA-event time per call, its plain version, the
-     bound from the kernel's own work counters, a whole frame and its
-     breakdown under torch.profiler with the walk's share of device time.
+  11. timing: each of the frame's 12 walk launches (a closest hit a
+     level, a shadow query a level and light) alone on the sweep's own
+     queries and dead masks (frame_queries) of seven drifting frames, and
+     the fused multi-light query on level 0's, as device time with the
+     launches queued (utils/timing.queued_ms) and as CUDA-event time per
+     call, its plain version, its bound (bvh_work: the kernel's own work
+     counters, the live rays' inputs, every slot's answer), the frame's
+     sums, a whole frame and its breakdown under torch.profiler with its
+     device ops and the walk's share of device time.
   Brute-force path (the same field under ACCEL_NONE, 512x512, depth 4,
   sweep):
   12. the kernels (closest, any) against their plain version on the same
-     rays under BRUTE_LIMITS (brute_cases, brute_agreement: readings over
+     rays under BRUTE_LIMITS (brute_cases, live_agreement: readings over
      the live slots, and every dead slot exactly (BIG, -1) or occluded, the
      kernel writing into poisoned outputs), the plain version PLAIN_BATCH
      slots a call: the main path's primary rays, level-1 rays and shadow
@@ -126,6 +134,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.megakernels import (
+    frame_queries,
+    warp_max_sum,
+)
 
 ROOT = Path(__file__).resolve().parent
 ATOL = 2e-3       # per-pixel tolerance of the repo's image comparison
@@ -672,14 +685,6 @@ def whitted_work(scene, o, d, cfg, rows=None, offsets=None):
     return w
 
 
-def warp_max_sum(per_ray):
-    """The sum over warps of 32 consecutive rays of each warp's largest
-    count: the steps a warp takes when its lanes step together."""
-    pad = (-per_ray.shape[0]) % 32
-    return int(torch.nn.functional.pad(per_ray, (0, pad)).view(-1, 32)
-               .amax(dim=1).sum())
-
-
 def add_work(total, w):
     """``total`` plus the counts of ``w``, key by key."""
     return {k: total.get(k, 0) + v for k, v in w.items()}
@@ -751,14 +756,17 @@ def pt_work(scene, cfg, rays, uni):
 # ---------------------------------------------------------------------------
 # the BVH walk (csrc/bvh_walk.cu)
 
-# The walk's kernels against their plain version on the same rays, per case:
-# the share of rays whose closest-hit ids differ, the largest t difference
-# relative to max(t, 1) where they agree, and the share of occlusion results
-# that differ. The kernel is built without multiply-add contraction
-# (kernels/build.py), so its f32 operations are the plain version's one for
-# one and the sound kernel reads 0 on all three.
-BVH_LIMITS = {"ids": 1e-4, "t_rel": 1e-5, "occ": 1e-4}
-# Operations per test in the walk's bound: a node's slab test about 20; a
+# The walk's kernels against their plain version on the same rays, per case,
+# over the live slots: the share of rays whose closest-hit ids differ, the
+# largest t difference relative to max(t, 1) where they agree, and the share
+# of occlusion results that differ; and "dead", the share of dead slots
+# whose answer is not exactly (BIG, -1), or occluded, read with the kernel
+# writing into poisoned outputs (live_agreement). The kernel is built
+# without multiply-add contraction (kernels/build.py), so its f32
+# operations are the plain version's one for one and the sound kernel reads
+# 0 on all four.
+BVH_LIMITS = {"ids": 1e-4, "t_rel": 1e-5, "occ": 1e-4, "dead": 0.0}
+# Operations per test in the walk's bound: a child's slab test about 20; a
 # plane about 12 and a box about 30, beside the per-test model above
 NODE_TEST, PLANE_TEST, BOX_TEST = 20, 12, 30
 FIELD_SIDE = 86    # the main scene: 7,396 spheres (the balls_high class)
@@ -850,14 +858,15 @@ def soup_scene(n_tri=2000, n_sph=2000, seed=0, res=64):
 
 def bvh_cases(dev):
     """The walk's kernel-against-plain cases as (label, tables, query,
-    args); query "closest" takes (o, d), "any" (o, d, max_t, dead) and
-    "multi" (o, dirs [L, R, 3], max_t, dead [L, R]). The main scene at
-    512x512: its primary rays, its level-1 reflection and refraction rays,
-    and its shadow segments at the primary hits with their dead masks, per
-    light and fused over both, at max_t 1 (the main path's) and unbounded;
-    the 18,496-sphere field's primary rays; a soup of 2,000 triangles,
-    2,000 spheres, a plane and a box with incoherent rays and segments, and
-    axis-parallel rays started on the box's face."""
+    args); query "closest" takes (o, d) or (o, d, dead), "any" (o, d,
+    max_t, dead) and "multi" (o, dirs [L, R, 3], max_t, dead [L, R]). The
+    main scene at 512x512: its primary rays, its level-1 reflection and
+    refraction rays with the sweep's dead mask, and with EDGE_LIVE of their
+    hitting slots live, and its shadow segments at the primary hits with
+    their dead masks, per light and fused over both, at max_t 1 (the main
+    path's) and unbounded; the 18,496-sphere field's primary rays; a soup
+    of 2,000 triangles, 2,000 spheres, a plane and a box with incoherent
+    rays and segments, and axis-parallel rays started on the box's face."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
         build_scene,
@@ -874,11 +883,22 @@ def bvh_cases(dev):
     o, d = camera_rays(field)
     yield f"{tag} primary rays", field.packets, "closest", (o, d)
     R = o.shape[0]
-    queries, (kids, _, _) = main_path_queries(
+    queries, (kids, active, _) = main_path_queries(
         field, Rays.make(o, d), torch.ones(R, dtype=torch.bool, device=dev),
         torch.ones(R, device=dev), RenderConfig())
-    yield (f"{tag} level-1 reflection and refraction rays", field.packets,
-           "closest", (kids.origin, kids.direction))
+    level1 = (kids.origin, kids.direction, ~active)
+    yield (f"{tag} level-1 reflection and refraction rays, "
+           f"{live_of(level1[2], 0)} of {2 * R} slots live", field.packets,
+           "closest", level1)
+    _, hit_id = bvh_run("closest", field.packets, level1, kernel=False)
+    hits = torch.nonzero(hit_id >= 0)[:, 0]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    for k in EDGE_LIVE:
+        dead = torch.ones_like(active)
+        dead[hits[torch.randperm(hits.numel(), generator=g)[:k].to(dev)]] = (
+            False)
+        yield (f"{tag} level-1 rays, {k} live", field.packets, "closest",
+               (*level1[:2], dead))
     for max_t in (1.0, C.BIG):
         for li, (so, sd, _, dead) in enumerate(queries):
             yield (f"{tag} shadow segments, light {li}, max_t {max_t:g}",
@@ -887,7 +907,7 @@ def bvh_cases(dev):
                f"{max_t:g}", field.packets, "multi",
                (queries[0][0], torch.stack([q[1] for q in queries]), max_t,
                 torch.stack([q[3] for q in queries])))
-    del field, queries, kids
+    del field, queries, kids, level1
 
     big = build_scene(scenes.sphere_field_scene(n_side=BIG_SIDE, res=RES),
                       device=dev)
@@ -929,19 +949,22 @@ def bvh_cases(dev):
            "any", (o, d * 3.0, C.BIG, None))
 
 
-def bvh_run(query, tables, args, kernel=True):
-    """One case's answer from the kernel or from its plain version."""
+def bvh_run(query, tables, args, kernel=True, poison=False):
+    """One case's answer from the kernel or from its plain version.
+    ``poison``: the kernel writes into outputs filled with values no slot
+    should keep (poisoned_outputs)."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import packets
 
+    out = {"out": poisoned_outputs(query, args)} if poison else {}
     if query == "closest":
         fn = kernels.bvh_closest if kernel else packets.closest_hit_plain
-        return fn(tables, *args)
+        return fn(tables, *args, **out)
     if query == "any":
         fn = kernels.bvh_any if kernel else packets.any_hit_plain
-        return fn(tables, *args)
+        return fn(tables, *args, **out)
     if kernel:
-        return kernels.bvh_any_multi(tables, *args)
+        return kernels.bvh_any_multi(tables, *args, **out)
     o, dirs, max_t, dead = args
     return torch.stack([packets.any_hit_plain(tables, o, dirs[i], max_t,
                                               dead[i])
@@ -973,14 +996,17 @@ def rejects(reading, limits):
 
 
 def bvh_work(query, tables, args):
-    """(GFLOP, MB, bound ms, bound by) of one launch on ``args``, from the
-    work the kernel's own walk counts (its per-ray counters): node box
-    tests; triangle and sphere tests by where each ended, each charged
-    BRUTE_STAGE_OPS as brute force's are; plane and box tests; against rays
-    in, results out and the tables once."""
+    """(GFLOP, MB, bound ms, bound by, live) of one launch on ``args``, by
+    brute force's convention (brute_work): the work the kernel's own walk
+    counts (its per-ray counters: child box tests; triangle and sphere
+    tests by where each ended, each charged BRUTE_STAGE_OPS; plane and box
+    tests), against the live rays' inputs (a closest hit's origin and
+    direction; an any hit's direction for each live (set, ray) pair and the
+    origin of each ray with one), every slot's answer and dead byte, and the
+    tables once. ``live``: the live slots, or (set, ray) pairs."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
 
-    o = args[0]
+    o, dead = args[0], dead_of(query, args)
     R = o.shape[0]
     counts = torch.zeros((R, kernels.WORK_COUNTS), dtype=torch.int32,
                          device=o.device)
@@ -994,20 +1020,28 @@ def bvh_work(query, tables, args):
              + sum(n * ops for n, ops in zip(stages, BRUTE_STAGE_OPS)))
     n_bytes = 4 * sum(t.numel() for t in (tables.nodes, tables.rows,
                                           tables.planes))
+    slots = R if query == "closest" else args[1].numel() // 3
+    live = live_of(dead, slots)
     if query == "closest":
-        n_bytes += R * (24 + 8)           # o, d in; t, id out
+        n_bytes += 24 * live + 8 * R      # o, d in; t, id out
     else:
-        sets = args[1].shape[0] if query == "multi" else 1
-        n_bytes += R * 12 + sets * R * (12 + 1 + 1)  # o; d, dead in; occ
+        rays = (R if dead is None
+                else int((~dead.view(-1, R)).any(dim=0).sum()))
+        n_bytes += 12 * rays + 12 * live + slots  # o; d in; occ out
+    if dead is not None:
+        n_bytes += slots
     ms, by = bound(flops, n_bytes)
-    print(f"  work: {nodes / R:.3f} node tests, {tris / R:.3f} triangle "
-          f"(ended at det {stages[0] / R:.3f}, u {stages[1] / R:.3f}, v "
-          f"{stages[2] / R:.3f}, with t {stages[3] / R:.3f}), {sphs / R:.3f} "
-          f"sphere (at the discriminant {stages[4] / R:.3f}, with roots "
-          f"{stages[5] / R:.3f}), {planes / R:.3f} plane and {boxes / R:.3f} "
-          f"box tests per ray; {flops / 1e9:.4f} GFLOP, {n_bytes / 1e6:.4f} "
-          f"MB; bound {ms:.5f} ms ({by})")
-    return flops, n_bytes, ms, by
+    per = max(live, 1)
+    print(f"  work: {live} live of {slots} slots; {nodes / per:.3f} child "
+          f"box tests, {tris / per:.3f} triangle (ended at det "
+          f"{stages[0] / per:.3f}, u {stages[1] / per:.3f}, v "
+          f"{stages[2] / per:.3f}, with t {stages[3] / per:.3f}), "
+          f"{sphs / per:.3f} sphere (at the discriminant "
+          f"{stages[4] / per:.3f}, with roots {stages[5] / per:.3f}), "
+          f"{planes / per:.3f} plane and {boxes / per:.3f} box tests a live "
+          f"slot; {flops / 1e9:.4f} GFLOP, {n_bytes / 1e6:.4f} MB; bound "
+          f"{ms:.5f} ms ({by})")
+    return flops, n_bytes, ms, by, live
 
 
 # ---------------------------------------------------------------------------
@@ -1016,7 +1050,7 @@ def bvh_work(query, tables, args):
 # The brute-force kernels against their plain version on the same rays,
 # per case: the readings of hit_agreement over the live slots, with
 # BVH_LIMITS' values, and "dead", the share of dead slots whose answer is
-# not exactly (BIG, -1), or occluded, which must be 0 (brute_agreement).
+# not exactly (BIG, -1), or occluded, which must be 0 (live_agreement).
 # The kernels are built without multiply-add contraction, so the sound
 # kernels read 0 on all four (chip_faults.py plants faults that they
 # reject).
@@ -1082,37 +1116,6 @@ def subset(prims, tri=True, sph=True):
     return dataclasses.replace(prims, n_tri=prims.n_tri if tri else 0,
                                n_sph=prims.n_sph if sph else 0, n_pl=0,
                                n_box=0)
-
-
-def frame_queries(scene, o, d, cfg):
-    """The brute-force queries of one frame of ``scene`` from the primary
-    rays (o, d), recorded as the sweep (models/whitted.trace_rays) hands
-    them to ops/intersect: ``closest``, one (o, d, dead) a level;
-    ``shadows``, one (o, d, max_t, dead) a level and light."""
-    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Rays
-    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import whitted
-    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
-
-    closest, shadows = [], []
-    fns = intersect.closest_hit_brute, intersect.any_hit_brute
-
-    def record_closest(prims, rays, tables=None, dead=None):
-        closest.append((rays.origin.contiguous(), rays.direction.contiguous(),
-                        dead))
-        return fns[0](prims, rays, tables, dead)
-
-    def record_any(prims, rays, max_t, dead=None, tables=None):
-        shadows.append((rays.origin.contiguous(), rays.direction.contiguous(),
-                        float(max_t), dead))
-        return fns[1](prims, rays, max_t, dead, tables)
-
-    intersect.closest_hit_brute = record_closest
-    intersect.any_hit_brute = record_any
-    try:
-        whitted.trace_rays(scene, Rays.make(o, d), cfg)
-    finally:
-        intersect.closest_hit_brute, intersect.any_hit_brute = fns
-    return closest, shadows
 
 
 def live_of(dead, n):
@@ -1255,21 +1258,26 @@ def brute_cases(dev):
            shuffled, "closest", (o[few].contiguous(), d[few].contiguous()))
 
 
+def poisoned_outputs(query, args):
+    """A kernel's outputs for a case, filled with values no slot should
+    keep (NaN and 0x5a5a5a5a; not occluded), so that a slot the kernel
+    leaves unwritten shows."""
+    R, dev = args[0].shape[0], args[0].device
+    if query == "closest":
+        return (torch.full((R,), float("nan"), device=dev),
+                torch.full((R,), 0x5A5A5A5A, dtype=torch.int32, device=dev))
+    return torch.zeros(args[1].shape[:-1], dtype=torch.bool, device=dev)
+
+
 def brute_run(query, tables, args, poison=False):
-    """One case's answer from the kernel. ``poison``: write into outputs
-    filled with values no slot should keep (NaN and 0x5a5a5a5a; not
-    occluded), so that a slot the kernel leaves unwritten shows."""
+    """One case's answer from the kernel. ``poison``: write into
+    poisoned_outputs."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
 
     fn = kernels.brute_closest if query == "closest" else kernels.brute_any
     if not poison:
         return fn(tables, *args)
-    R, dev = args[0].shape[0], args[0].device
-    out = ((torch.full((R,), float("nan"), device=dev),
-            torch.full((R,), 0x5A5A5A5A, dtype=torch.int32, device=dev))
-           if query == "closest"
-           else torch.zeros(R, dtype=torch.bool, device=dev))
-    return fn(tables, *args, out=out)
+    return fn(tables, *args, out=poisoned_outputs(query, args))
 
 
 def dead_of(query, args):
@@ -1299,10 +1307,11 @@ def brute_plain(query, prims, args, batch=PLAIN_BATCH):
     return torch.cat(parts)
 
 
-def brute_agreement(query, got, want, dead=None):
-    """Readings of the kernel's answer ``got`` against the plain version's
-    ``want``: hit_agreement's over the live slots, and "dead", the share of
-    dead slots whose answer is not exactly (BIG, -1), or occluded."""
+def live_agreement(query, got, want, dead=None):
+    """Readings of a kernel's answer ``got`` against the plain version's
+    ``want`` (BVH_LIMITS, BRUTE_LIMITS): hit_agreement's over the live
+    slots, and "dead", the share of dead slots whose answer is not exactly
+    (BIG, -1), or occluded."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
 
     if dead is None:
@@ -1682,10 +1691,10 @@ def main() -> int:
     t_bvh = time.perf_counter()
     bvh_err = {"closest": 0.0, "any": 0.0, "multi": 0.0}
     for label, tables, query, args in bvh_cases(dev):
-        got = bvh_run(query, tables, args)
+        got = bvh_run(query, tables, args, poison=True)
         want = bvh_run(query, tables, args, kernel=False)
         torch.cuda.synchronize()
-        reading = hit_agreement(query, got, want)
+        reading = live_agreement(query, got, want, dead_of(query, args))
         print(f"compare {label} ({query}): " + ", ".join(
             f"{k} {v:.3g}" for k, v in reading.items()))
         if rejects(reading, BVH_LIMITS):
@@ -1754,39 +1763,52 @@ def main() -> int:
             cwd=ROOT, check=True, capture_output=True, text=True).stdout
         print("  cli: " + out.strip().replace("\n", "\n  cli: "))
 
-    # 11. BVH timing: the walk alone on the main path's queries of drifting
-    # frames, its bound from the kernel's own work counters; whole frames
-    bvh_inputs = []
-    for i in range(7):
-        o, d = camera_rays(field, 0.37 * i)
-        R = o.shape[0]
-        q0, (r1, a1, ior1) = main_path_queries(
-            field, Rays.make(o, d), torch.ones(R, dtype=torch.bool,
-                                               device=dev),
-            torch.ones(R, device=dev), cfg_bvh)
-        q1, _ = main_path_queries(field, r1, a1, ior1, cfg_bvh)
-        bvh_inputs.append(((o, d), (r1.origin, r1.direction), q0, q1))
+    # 11. BVH timing: each of the frame's 12 walk launches alone on the
+    # sweep's own queries and dead masks (frame_queries) of drifting frames,
+    # and the fused multi-light launch on level 0's; its plain version; its
+    # bound from the kernel's own work counters; whole frames
+    bvh_inputs = [frame_queries(field, *camera_rays(field, 0.37 * i),
+                                cfg_bvh) for i in range(7)]
+    levels = len(bvh_inputs[0][0])
+    n_lights = len(bvh_inputs[0][1]) // levels
+
+    def fused(x):
+        q = x[1][:n_lights]
+        return (q[0][0], torch.stack([s[1] for s in q]), q[0][2],
+                torch.stack([s[3] for s in q]))
+
+    timed = ([(f"closest, level {lvl}", "closest",
+               lambda x, lvl=lvl: x[0][lvl]) for lvl in range(levels)]
+             + [(f"any, level {lvl}, light {li}", "any",
+                 lambda x, k=lvl * n_lights + li: x[1][k])
+                for lvl in range(levels) for li in range(n_lights)]
+             + [("multi, level 0, both lights", "multi", fused)])
     pk = field.packets
     bvh_times = {}
-    for label, query, pick in (
-            ("closest, primary", "closest", lambda x: x[0]),
-            ("closest, level 1", "closest", lambda x: x[1]),
-            ("any, primary hits, light 0", "any", lambda x: x[2][0]),
-            ("any, level-1 hits, light 0", "any", lambda x: x[3][0]),
-            ("multi, primary hits, both lights", "multi",
-             lambda x: (x[2][0][0], torch.stack([q[1] for q in x[2]]),
-                        x[2][0][2], torch.stack([q[3] for q in x[2]])))):
+    for label, query, pick in timed:
         args = [(pk, *pick(x)) for x in bvh_inputs]
         k_ms = queued_ms(lambda *a: bvh_run(query, a[0], a[1:]), args)
         call_ms = cuda_ms(lambda *a: bvh_run(query, a[0], a[1:]), args)
         p_ms = cuda_ms(lambda *a: bvh_run(query, a[0], a[1:], kernel=False),
-                       args[:3], warmup=1)
+                       args[:2], warmup=1)
         print(f"bvh {label}: kernel {k_ms:.4f} ms on the device ({call_ms:.4f} "
               f"ms a call from an idle device, host included), plain "
-              f"{p_ms:.4f} ms ({args[0][1].shape[0]} rays, field{FIELD_SIDE} "
+              f"{p_ms:.4f} ms ({args[0][1].shape[0]} slots, field{FIELD_SIDE} "
               f"{RES}x{RES}, {card})")
         bvh_times[label] = (k_ms, p_ms, bvh_work(query, pk, args[0][1:]))
     del bvh_inputs
+    walk_frame = {}
+    for query, n in (("closest", levels), ("any", levels * n_lights)):
+        rows = [v for k, v in bvh_times.items() if k.startswith(query)]
+        walk_frame[query] = {"launches": n, "ms": sum(v[0] for v in rows),
+                             "bound_ms": sum(v[2][2] for v in rows),
+                             "by_launch_ms": [v[0] for v in rows]}
+    walk_ms = sum(v["ms"] for v in walk_frame.values())
+    print(f"bvh the frame's {levels + levels * n_lights} walk launches: "
+          f"{walk_ms:.4f} ms on the device (closest "
+          f"{walk_frame['closest']['ms']:.4f}, any "
+          f"{walk_frame['any']['ms']:.4f}) against a bound of "
+          f"{sum(v['bound_ms'] for v in walk_frame.values()):.5f} ms ({card})")
     bvh_ms = frame_ms(field, cfg_bvh)
     print(f"frame BVH sweep: {bvh_ms:.4f} ms, {mrays_per_s(field, bvh_ms):.2f} "
           f"Mrays/s (primary+shadow), field{FIELD_SIDE} {RES}x{RES} depth "
@@ -1806,7 +1828,7 @@ def main() -> int:
         got = brute_run(query, tables, args, poison=True)
         want = brute_plain(query, prims, args)
         torch.cuda.synchronize()
-        reading = brute_agreement(query, got, want, dead)
+        reading = live_agreement(query, got, want, dead)
         print(f"compare {label} ({query}, {args[0].shape[0]} slots, "
               f"{live_of(dead, args[0].shape[0])} live): "
               + ", ".join(f"{k} {v:.3g}" for k, v in reading.items()))
@@ -2132,9 +2154,10 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s")
 
     def bvh_entry(name, query, label, replaces, launches, **extra):
-        k_ms, p_ms, (_, _, b_ms, b_by) = bvh_times[label]
+        k_ms, p_ms, (_, _, b_ms, b_by, live) = bvh_times[label]
         return {"name": name, "route": "cuda", "source": src + "bvh_walk.cu",
                 "replaces": pk_src + replaces, **extra,
+                "timed_on": label, "live": live,
                 "launches": launches, "max_abs_err": bvh_err[query],
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None}
@@ -2196,12 +2219,13 @@ def main() -> int:
         "bound_by": pt_bound_by,
         "library_ms": None,
     },
-        bvh_entry("bvh_walk closest", "closest", "closest, primary", ":770",
-                  bvh_launches[0], also_replaces=pk_src + ":843"),
-        bvh_entry("bvh_walk any", "any", "any, primary hits, light 0",
-                  ":813", bvh_launches[1]),
+        bvh_entry("bvh_walk closest", "closest", "closest, level 0", ":770",
+                  bvh_launches[0], also_replaces=pk_src + ":843",
+                  frame=walk_frame["closest"]),
+        bvh_entry("bvh_walk any", "any", "any, level 0, light 0",
+                  ":813", bvh_launches[1], frame=walk_frame["any"]),
         bvh_entry("bvh_walk any multi", "multi",
-                  "multi, primary hits, both lights", ":729", multi_launches),
+                  "multi, level 0, both lights", ":729", multi_launches),
         brute_entry("brute_intersect closest, spheres (K4a)", "closest",
                     "closest, level 0, field spheres (K4a)", ":186"),
         brute_entry("brute_intersect closest, triangles and spheres (K4b)",

@@ -1,9 +1,10 @@
-"""Dead slots in the brute-force closest hit and any hit, and the count of
-the kernels' work that their bound reads.
+"""Dead slots in the brute-force closest hit and any hit, and in the BVH
+walk's closest hit, and the count of the brute-force kernels' work that
+their bound reads.
 
-With a ``dead`` mask, ops/intersect's plain version and dispatch trace only
-the live slots: those read the unmasked answer bit for bit, the dead ones
-(BIG, -1), or occluded. ``intersect.brute_stages`` counts each test by
+With a ``dead`` mask, ops/intersect's plain version and dispatch, and the
+walk's (accel/packets.py), trace only the live slots: those read the
+unmasked answer bit for bit, the dead ones (BIG, -1), or occluded. ``intersect.brute_stages`` counts each test by
 where it ended, from the plain version's formulas, on scenes small enough
 to count by hand. All on the CPU; the kernels (csrc/brute_intersect.cu)
 are held to the same rules on the card (tests/test_torch_cuda.py,
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 import u_4a_2s_p3d_raytracer_template2_tpu_torch as pt
+from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import packets
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Rays
 from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
@@ -27,13 +29,13 @@ CPU = torch.device("cpu")
 N_RAYS = 512
 
 
-def _scene(n_sph, n_tri):
-    """A seeded soup under ACCEL_NONE with a plane under it and a box."""
+def _scene(n_sph, n_tri, accel=C.ACCEL_NONE):
+    """A seeded soup under ``accel`` with a plane under it and a box."""
     sd = soup(pt.SceneDef(), n_sph, n_tri)
     m = sd.add_material([0.5, 0.5, 0.5], 1.0, [1, 1, 1], 0.0, 10, 0, 1)
     sd.add_plane_points([0, -5, 0], [1, -5, 0], [0, -5, -1], m)
     sd.add_box([-5, -5, -5], [-4, -4, -4], m)
-    return pt.build_scene(sd, device=CPU, accel=C.ACCEL_NONE)
+    return pt.build_scene(sd, device=CPU, accel=accel)
 
 
 def _rays():
@@ -53,8 +55,12 @@ def _dead(kind):
 MASKS = ("none dead", "all dead", "a third dead")
 # the plain version; the dispatch above SMALL_UNROLL_MAX primitives (the
 # plain version on the CPU, planes and the box folded in); the dispatch's
-# one-test-per-primitive path at or below it
+# one-test-per-primitive path at or below it; the BVH walk's dispatch (its
+# plain version on the CPU) over the same soup's tree, the plane beside it
 PATHS = {
+    "walk": (lambda: _scene(60, 60, C.ACCEL_BVH),
+             lambda s, r, dead=None: packets.packet_closest_hit(
+                 s.packets, r, dead)),
     "plain": (lambda: _scene(60, 60),
               lambda s, r, dead=None: intersect.closest_hit_plain(
                   s.prims, r, dead)),
@@ -77,6 +83,12 @@ def test_dead_slots_read_no_hit_and_live_slots_the_unmasked_answer(path,
             <= intersect.SMALL_UNROLL_MAX) == (path == "small")
     want_t, want_id = closest(scene, rays)
     assert int((want_id >= 0).sum()) > N_RAYS // 8
+    if path == "walk":  # the dispatch is the plain walk on the CPU
+        o, d = rays.origin, rays.direction
+        for got, want in zip(packets.closest_hit_plain(scene.packets, o, d,
+                                                       dead),
+                             closest(scene, rays, dead)):
+            assert torch.equal(got, want)
     t, obj = closest(scene, rays, dead)
     live = ~dead
     assert torch.equal(t[live], want_t[live])

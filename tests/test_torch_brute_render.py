@@ -93,7 +93,8 @@ def test_the_sweep_hands_brute_force_its_dead_slots(monkeypatch,
                                                    no_kernels):
     """_level_step hands the brute-force closest hit ~active: every slot is
     live at level 0, some are dead below it, and those read (BIG, -1); the
-    BVH walk is handed no mask, and the images are equal, bit for bit."""
+    BVH walk is handed the same masks, and the images are equal, bit for
+    bit."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import packets
 
     sd = scenes.sphere_field_scene(n_side=8, res=16)
@@ -120,7 +121,9 @@ def test_the_sweep_hands_brute_force_its_dead_slots(monkeypatch,
     bvh = pt.build_scene(sd, device=CPU)
     assert torch.equal(img, pt.render_image(bvh, pt.RenderConfig(
         max_depth=3)))
-    assert len(walked) == 3 and all(len(a) == 2 and not k for a, k in walked)
+    assert len(walked) == 3 and not any(k for _, k in walked)
+    for (a, _), (dead, _) in zip(walked, seen):
+        assert len(a) == 3 and torch.equal(a[2], dead)
 
 
 def test_cli_renders_brute_scenes_on_cpu(tmp_path, capsys, monkeypatch,

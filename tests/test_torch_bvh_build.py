@@ -1,6 +1,7 @@
 """The port's BVH build (accel/bvh.py, accel/sah.py, accel/packets.py)
-against the JAX package's object bounds and SAH builder, and the invariants
-of the tables the walk reads."""
+against the JAX package's object bounds and SAH builder, the collapse of
+the binary SAH tree to four children a node, and the invariants of the
+tables the walk reads."""
 import numpy as np
 import pytest
 import torch
@@ -59,8 +60,37 @@ def test_bounds_and_sah_match_jax(name):
         np.testing.assert_array_equal(a, b, strict=True)
 
 
-def _meta(tables):
-    return tables.nodes[:, 6:8].contiguous().view(torch.int32).numpy()
+def _children(nodes, width):
+    """Each wide node's children: boxes [Nn, W, 6] (min, max), references
+    and counts [Nn, W]."""
+    n = nodes.shape[0]
+    box = nodes[:, :6 * width].reshape(n, 6, width).transpose(0, 2, 1)
+    meta = nodes[:, 6 * width:].view(np.int32)
+    return box, meta[:, :width], meta[:, width:]
+
+
+def _leaves(nodes, width):
+    """The wide tree's leaves as (first row, count, box), each reached once
+    from the root, and the most entries its walk can hold (the largest sum
+    over a root-to-node path of each node's children less one)."""
+    box, ref, count = _children(nodes, width)
+    leaves, most, stack = [], 0, [(0, 0, None)]
+    while stack:
+        n, held, parent = stack.pop()
+        used = count[n] >= 0
+        kids = int(used.sum())
+        assert 1 <= kids <= width and used[:kids].all()
+        most = max(most, held + kids - 1)
+        for c in range(kids):
+            if parent is not None:  # a child lies inside its parent
+                assert (box[n, c, :3] >= parent[:3]).all()
+                assert (box[n, c, 3:] <= parent[3:]).all()
+            if count[n, c] > 0:
+                leaves.append((int(ref[n, c]), int(count[n, c]), box[n, c]))
+            else:
+                assert n < ref[n, c] < len(nodes)
+                stack.append((int(ref[n, c]), held + kids - 1, box[n, c]))
+    return leaves, most
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -68,6 +98,7 @@ def test_tree_invariants(name):
     scene = pt.build_scene(SCENES[name](), device=CPU)
     params, ptype = _objects(scene)
     tables = scene.packets
+    assert tables.width == packets.WIDTH
     rows = tables.rows.numpy()
     row_type = rows.view(np.int32)[:, 12]
     row_id = rows.view(np.int32)[:, 13]
@@ -79,35 +110,64 @@ def test_tree_invariants(name):
     planes = tables.planes.numpy().view(np.int32)[:, 13]
     assert planes.tolist() == np.nonzero(ptype == C.PLANE)[0].tolist()
 
+    # a leaf's primitives' boxes lie inside its box; every row in one leaf
     bmin, bmax = object_bounds(params, ptype)
-    box = tables.nodes[:, :6].numpy()
-    meta = _meta(tables)
-    depth, stack = 0, [(0, 1)]
+    leaves, most = _leaves(tables.nodes.numpy(), tables.width)
     covered = np.zeros(len(rows), int)
-    while stack:
-        n, level = stack.pop()
-        a, count = meta[n]
-        if count > 0:  # a leaf: its primitives' boxes lie inside its box
-            assert count <= packets.LEAF_SIZE
-            ids = row_id[a:a + count]
-            assert (bmin[ids] >= box[n, :3]).all()
-            assert (bmax[ids] <= box[n, 3:]).all()
-            covered[a:a + count] += 1
-            depth = max(depth, level)
-            continue
-        for child in (a, a + 1):  # children lie inside their parent
-            assert n < child < len(box)
-            assert (box[child, :3] >= box[n, :3]).all()
-            assert (box[child, 3:] <= box[n, 3:]).all()
-            stack.append((child, level + 1))
+    for first, count, box in leaves:
+        assert count <= packets.LEAF_SIZE
+        ids = row_id[first:first + count]
+        assert (bmin[ids] >= box[:3]).all() and (bmax[ids] <= box[3:]).all()
+        covered[first:first + count] += 1
     assert (covered == 1).all()
-    assert depth == tables.depth <= packets.STACK_DEPTH
+    assert most == tables.stack <= packets.STACK_DEPTH
+    assert tables.depth == packets._binary_build(params, ptype)[3]
 
 
 def test_a_tree_deeper_than_the_stack_raises(monkeypatch):
+    """A tree whose walk could hold more entries than the kernel's stack
+    is refused."""
     monkeypatch.setattr(packets, "STACK_DEPTH", 3)
     with pytest.raises(ValueError, match="stack"):
         pt.build_scene(SCENES["field"](), device=CPU)
+
+
+COLLAPSED = {"mount": lambda: _bvh(scenes.mount_scene(res=16)),
+             "field": SCENES["field"], "mixed": SCENES["mixed"]}
+
+
+@pytest.mark.parametrize("name", sorted(COLLAPSED))
+def test_collapse_keeps_the_binary_boxes_and_reaches_every_primitive_once(
+        name):
+    """Collapsed to four children a node, the tree's child boxes are boxes
+    of the binary tree, bit for bit, its leaves are the binary tree's
+    leaves, each reached once, so every primitive is reached once; a node
+    has fewer than four children only where all are leaves; collapsed to
+    two, the tree is the binary tree, an inner node a node."""
+    params, ptype = _objects(pt.build_scene(COLLAPSED[name](), device=CPU))
+    binary, rows, _, _ = packets._binary_build(params, ptype)
+    meta = binary[:, 6:8].view(np.int32)
+    inner = meta[:, 1] == 0
+    binary_boxes = {binary[i, :6].tobytes() for i in range(len(binary))}
+    binary_leaves = sorted(tuple(m) for m in meta[~inner])
+    for width in (2, packets.WIDTH):
+        nodes, stack = packets._collapse(binary, width)
+        assert nodes.shape == (max(1, int(inner.sum())) if width == 2
+                               else nodes.shape[0], 8 * width)
+        leaves, most = _leaves(nodes, width)
+        assert most == stack
+        assert sorted((f, c) for f, c, _ in leaves) == binary_leaves
+        reached = np.zeros(len(rows), int)
+        for first, count, box in leaves:
+            reached[first:first + count] += 1
+        assert (reached == 1).all()
+        box, _, count = _children(nodes, width)
+        for n in range(len(nodes)):
+            used = count[n] >= 0
+            for c in np.nonzero(used)[0]:
+                assert box[n, c].astype(np.float32).tobytes() in binary_boxes
+            if used.sum() < width and len(nodes) > 1:
+                assert (count[n][used] > 0).all()
 
 
 def test_planes_only_scene_has_no_tree():
@@ -132,6 +192,7 @@ def test_grid_and_converted_scenes_carry_the_same_tables():
     grid = pt.build_scene(SCENES["mixed"](), device=CPU, accel=C.ACCEL_GRID)
     jscene = rt.build_scene(_bvh(mixed_scene(rt.SceneDef(), res=16)))
     for got in (grid.packets, jax_scene_to_port(jscene).packets):
-        for f in ("nodes", "rows", "planes"):
-            assert torch.equal(getattr(got, f), getattr(want, f)), f
-        assert got.depth == want.depth
+        for f in ("nodes", "rows", "planes"):  # bit for bit: int32 fields
+            assert torch.equal(getattr(got, f).view(torch.int32),
+                               getattr(want, f).view(torch.int32)), f
+        assert (got.depth, got.stack) == (want.depth, want.stack)

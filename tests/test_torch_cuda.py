@@ -266,6 +266,73 @@ def test_bvh_kernels_match_plain_on_a_mixed_soup():
 
 
 @pytest.mark.cuda
+def test_bvh_kernels_trace_only_live_slots():
+    """Masked walk queries on the card (csrc/bvh_walk.cu packs the live
+    slots inside its launch) on the mixed soup: with 0, 1, 31, 33, 4,097
+    and all 8,192 slots live, and the fused query with its own mask for
+    each set, the live slots read the unmasked launch's answer bit for bit
+    and the plain walk's under chip_smoke.BVH_LIMITS, and the dead slots
+    exactly (BIG, -1), or occluded, in outputs poisoned before the
+    launch."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+
+    dev = _cuda()
+    tables = _soup(dev).packets
+    g = torch.Generator(device=dev).manual_seed(1)
+    o = torch.rand(8192, 3, device=dev, generator=g) * 16 - 8
+    d = torch.nn.functional.normalize(
+        torch.randn(8192, 3, device=dev, generator=g), dim=-1)
+    segs = torch.rand(2, 8192, 3, device=dev, generator=g) * 16 - 8 - o
+    full = kernels.bvh_closest(tables, o, d)
+    full_occ = kernels.bvh_any_multi(tables, o, segs, 1.0)
+    for n_live in (0, 1, 31, 33, 4097, 8192):
+        dead = torch.ones(2, 8192, dtype=torch.bool, device=dev)
+        for i in range(2):
+            dead[i, torch.randperm(8192, device=dev, generator=g)[
+                :n_live]] = False
+        live = ~dead
+        for query, args, unmasked in (
+                ("closest", (o, d, dead[0]), full),
+                ("any", (o, segs[1], 1.0, dead[1]), full_occ[1]),
+                ("multi", (o, segs, 1.0, dead), full_occ)):
+            got = chip_smoke.bvh_run(query, tables, args, poison=True)
+            want = chip_smoke.bvh_run(query, tables, args, kernel=False)
+            mask = chip_smoke.dead_of(query, args)
+            reading = chip_smoke.live_agreement(query, got, want, mask)
+            assert not chip_smoke.rejects(reading, chip_smoke.BVH_LIMITS), (
+                n_live, query, reading)
+            if query == "closest":
+                assert torch.equal(got[0][live[0]], unmasked[0][live[0]])
+                assert torch.equal(got[1][live[0]], unmasked[1][live[0]])
+                assert bool((got[0][dead[0]] == C.BIG).all())
+                assert bool((got[1][dead[0]] == -1).all())
+            else:
+                assert torch.equal(got[~mask], unmasked[~mask])
+                assert bool(got[mask].all())
+
+
+@pytest.mark.cuda
+def test_bvh_kernels_refuse_tables_of_another_width():
+    """The launch refuses nodes of a width other than its kernel's: the
+    binary tables (8 floats a node) and a 2-wide collapse."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import packets
+
+    dev = _cuda()
+    scene = _soup(dev, n=64)
+    n = scene.n_objects
+    args = (scene.prims.params[:n].cpu().numpy(),
+            scene.prims.ptype[:n].cpu().numpy())
+    o = torch.zeros(4, 3, device=dev)
+    d = torch.ones(4, 3, device=dev)
+    for tables in (packets.binary_tables(*args, device=dev),
+                   packets.build_packets(*args, device=dev, width=2)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernels.bvh_closest(tables, o, d)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernels.bvh_any(tables, o, d, 1.0)
+
+
+@pytest.mark.cuda
 def test_bvh_render_matches_brute_force_on_the_card():
     dev = _cuda()
     scene = build_scene(sphere_field_scene(n_side=16, res=32), device=dev)
@@ -372,7 +439,7 @@ def test_brute_kernels_trace_only_live_slots():
                 ("any", (o, segs, 1.0, dead), full_occ)):
             got = chip_smoke.brute_run(query, tables, args, poison=True)
             want = chip_smoke.brute_plain(query, prims, args)
-            reading = chip_smoke.brute_agreement(query, got, want, dead)
+            reading = chip_smoke.live_agreement(query, got, want, dead)
             assert not chip_smoke.rejects(reading, chip_smoke.BRUTE_LIMITS), (
                 n_live, query, reading)
             if query == "closest":

@@ -113,6 +113,7 @@ _PLANTED = (
     + [("pt_megakernel", n, [(a, b)]) for n, a, b in chip_faults.PT_FAULTS]
     + [("pt_megakernel", n, list(e)) for n, e in chip_faults.PT_DESIGN]
     + [("bvh_walk", n, [(a, b)]) for n, a, b in chip_faults.BVH_FAULTS]
+    + [("bvh_walk", n, list(e)) for n, e in chip_faults.BVH_DESIGN]
     + [("brute_intersect", n, [(a, b)])
        for n, a, b in chip_faults.BRUTE_FAULTS]
     + [("brute_intersect", n, list(e))
@@ -223,3 +224,60 @@ def test_work_models_count_a_warps_deepest_ray():
     w = chip_smoke.pt_work(chip_smoke.tiny_pt_world(CPU), cfg, rays, uni)
     assert w["tests"] <= 32 * w["warp_bounces"] <= 3 * 64
     assert w["warp_bounces"] >= 64 // 32
+
+
+def test_walk_tool_reads_the_walks_source_and_symbols(tmp_path):
+    """tools/megakernels.py on the BVH walk: its block-size edits find
+    their text, ``walk_width`` reads the node width (0 for the binary walk
+    of PRs 3-8, whose source has no kWidth), and the walk's bool template
+    instantiations keep their names apart."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import packets
+
+    text = (kb.CSRC / f"{mt.WALK}.cu").read_text()
+    for threads in (64, 128, 256):
+        for old, _ in mt.thread_edits(text, threads):
+            assert text.count(old) == 1
+    assert mt.min_block_edits(text, 6) is None
+    assert mt.walk_width(kb.CSRC) == packets.WIDTH
+    (tmp_path / f"{mt.WALK}.cu").write_text(
+        text.replace("constexpr int kWidth = 4;", ""))
+    assert mt.walk_width(tmp_path) == 0
+    names = {mt.demangle(f"_ZN44_GLOBAL__N__553bf59a_11_bvh_walk_cu_4426ee18"
+                         f"{k}ILb{b}EEEvPKfS2_iPKhNS_6TablesEPfPiS7_")
+             for k in ("14closest_kernel", "10any_kernel") for b in (0, 1)}
+    assert names == {"closest_kernel<true>", "closest_kernel<false>",
+                     "any_kernel<true>", "any_kernel<false>"}
+    log = ("ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__5"
+           "_bvh_walk_cu_414closest_kernelILb0EEEvPKf' for 'sm_90a'\n"
+           "    512 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 69 registers, used 1 barriers, 512 "
+           "bytes cumulative stack size, 528 bytes smem\n")
+    assert mt.ptxas_resources(log) == {"closest_kernel<false>": {
+        "stack": 512, "spill_stores": 0, "spill_loads": 0, "registers": 69,
+        "smem": 528}}
+
+
+def test_frame_queries_record_the_sweeps_walk_and_brute_queries():
+    """frame_queries records each level's closest hit and each level's and
+    light's shadow query as the sweep hands them to the accelerator, with
+    their dead masks; the walk and brute force are handed the same ones."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.scenes import (
+        sphere_field_scene,
+    )
+
+    scene = build_scene(sphere_field_scene(n_side=8, res=16), device=CPU)
+    o, d = chip_smoke.camera_rays(scene)
+    walk = mt.frame_queries(scene, o, d, RenderConfig())
+    brute = mt.frame_queries(scene, o, d, RenderConfig(accel_impl="brute"))
+    closest, shadows = walk
+    assert len(closest) == 4 and len(shadows) == 4 * scene.n_lights
+    assert [q[0].shape[0] for q in closest] == [256, 512, 1024, 2048]
+    assert not bool(closest[0][2].any()) and bool(closest[3][2].any())
+    assert all(q[2] == 1.0 for q in shadows)
+    for got, want in zip(walk[0] + walk[1], brute[0] + brute[1]):
+        for a, b in zip(got, want):
+            assert a == b if isinstance(a, float) else torch.equal(a, b)
+    assert mt.warp_max_sum(torch.tensor([1] * 31 + [5, 2])) == 7

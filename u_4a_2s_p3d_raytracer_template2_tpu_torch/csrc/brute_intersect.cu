@@ -25,11 +25,11 @@
 // (12% at level 1, 0.08% at level 3); the rest are `dead`. So:
 //   * compaction: with a dead mask, brute_compact_count and
 //     brute_compact_scatter pack the live slots' indices densely, in slot
-//     order (a ballot and a prefix over the chunks before), and write the
-//     live count on the device; they also write each dead slot's answer
-//     ((kBig, -1), or occluded) and each live slot's starting state. The
-//     host never reads the count: the sweeps read it, and work past it
-//     exits at once.
+//     order (a ballot and a prefix over the chunks before, packing.cuh,
+//     shared with the BVH walk), and write the live count on the device;
+//     they also write each dead slot's answer ((kBig, -1), or occluded)
+//     and each live slot's starting state. The host never reads the
+//     count: the sweeps read it, and work past it exits at once.
 //   * work items: a sweep's grid is persistent (the blocks the card holds
 //     at once) and loops over (ray group, table slice) items. The number
 //     of slices is chosen on the device from the live count
@@ -84,6 +84,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packing.cuh"
 #include "prim_tests.cuh"
 
 namespace {
@@ -216,22 +217,13 @@ brute_compact_scatter(const uint8_t* __restrict__ dead, int n_slots,
   for (int c = threadIdx.x; c < blockIdx.x; c += kScanThreads)
     before += counts[c];
   int at0 = block_sum(before, s_warp);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int base = blockIdx.x * kChunk;
   for (int k = 0; k < kChunk; k += kScanThreads) {
     const int slot = base + k + threadIdx.x;
     const bool in = slot < n_slots;
     const bool live = in && !dead[slot];
-    const unsigned ballot = __ballot_sync(kAll, live);
-    __syncthreads();  // every thread has read the previous round's s_warp
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    int at = at0 + __popc(ballot & ((1u << lane) - 1)), round = 0;
-#pragma unroll
-    for (int w = 0; w < kScanWarps; ++w) {
-      at += w < warp ? s_warp[w] : 0;
-      round += s_warp[w];
-    }
+    int round;
+    const int at = at0 + block_prefix<kScanWarps>(live, s_warp, round);
     if (live) idx[at] = slot;
     if (in) init_slot(out, slot, at, live);
     at0 += round;

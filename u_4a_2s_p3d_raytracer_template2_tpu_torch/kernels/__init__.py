@@ -55,17 +55,20 @@ def _pt_entry():
 def _bvh_entry(name: str):
     fn = getattr(load("bvh_walk"), name)
     fn.restype = ctypes.c_int
+    tables = ([ctypes.c_void_p, ctypes.c_int]                  # nodes, width
+              + [ctypes.c_void_p] * 2 + [ctypes.c_int])  # rows, planes, Kp
     if name == "bvh_closest_launch":
         fn.argtypes = ([ctypes.c_void_p]                         # stream
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int]  # o, d, R
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int]  # tables
+                       + [ctypes.c_void_p]                       # dead
+                       + tables
                        + [ctypes.c_void_p] * 3)          # t, id, counts
     else:
         fn.argtypes = ([ctypes.c_void_p]                         # stream
                        + [ctypes.c_void_p] * 2                   # o, dirs
                        + [ctypes.c_int] * 2 + [ctypes.c_float]   # L, R, max_t
                        + [ctypes.c_void_p]                       # dead
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int]  # tables
+                       + tables
                        + [ctypes.c_void_p] * 2)          # out, counts
     return fn
 
@@ -207,7 +210,7 @@ def pt_megakernel(tables, o, d, time, uni, cfg) -> torch.Tensor:
 pt_megakernel.launches = 0
 
 
-# per-ray work counters of the BVH walk: node box tests; triangle tests
+# per-ray work counters of the BVH walk: child box tests; triangle tests
 # ended at the det, u and v gates and with their t; sphere tests ended at
 # the discriminant and with their roots (csrc/prim_tests.cuh's stages, in
 # ops/intersect.BRUTE_STAGES' order); plane and box tests
@@ -216,7 +219,8 @@ WORK_COUNTS = 9
 
 def _bvh_args(tables, o, d, counts):
     """Check the BVH walk's tables, rays and counter buffer; returns the
-    device, the ray count and the table arguments of the C entry points."""
+    device, the ray count and the table arguments of the C entry points
+    (the launch refuses nodes of another width than its kernel's)."""
     if o.device.type != "cuda":
         raise ValueError(f"the BVH walk runs on CUDA tensors, not {o.device}")
     dev = o.device
@@ -230,34 +234,46 @@ def _bvh_args(tables, o, d, counts):
     _check("rows", tables.rows, dev)
     _check("planes", tables.planes, dev)
     # the kernel reads nodes and rows as float4
-    for name, t in (("nodes", tables.nodes), ("rows", tables.rows),
-                    ("planes", tables.planes)):
-        if t.dim() != 2 or t.shape[1] not in (8, 16) or t.data_ptr() % 16:
-            raise ValueError(f"{name}: want 16-byte aligned rows of 8 or 16 "
+    for name, t, w in (("nodes", tables.nodes, 8 * tables.width),
+                       ("rows", tables.rows, 16),
+                       ("planes", tables.planes, 16)):
+        if t.dim() != 2 or t.shape[1] != w or t.data_ptr() % 16:
+            raise ValueError(f"{name}: want 16-byte aligned rows of {w} "
                              f"floats, got {tuple(t.shape)}")
     if counts is not None:
         _check("counts", counts, dev, WORK_COUNTS * R, torch.int32)
-    return dev, R, [tables.nodes.data_ptr(), tables.rows.data_ptr(),
-                    tables.planes.data_ptr(), tables.planes.shape[0]]
+    return dev, R, [tables.nodes.data_ptr(), tables.width,
+                    tables.rows.data_ptr(), tables.planes.data_ptr(),
+                    tables.planes.shape[0]]
 
 
-def bvh_closest(tables, o, d, counts=None):
+def bvh_closest(tables, o, d, dead=None, counts=None, out=None):
     """(t [R], obj_id [R] int32, -1 on a miss) of rays (o, d) [R,3] through
     the BVH walk on the card (csrc/bvh_walk.cu). ``tables`` is
-    ``accel.packets.PacketTables``; ``counts``, an optional int32
-    [R, WORK_COUNTS], receives each ray's node box tests, triangle and
-    sphere tests by where they ended, plane and box tests (the main path
-    passes None)."""
+    ``accel.packets.PacketTables``. ``dead`` [R] bool slots are not traced
+    and read (BIG, -1); the live ones are packed inside the launch, and the
+    host never waits for their count. ``counts``, an optional int32
+    [R, WORK_COUNTS] of zeros, receives each ray's child box tests,
+    triangle and sphere tests by where they ended, plane and box tests (the
+    main path passes None). ``out``: the (t, obj_id) tensors to write
+    into, else new ones; the card's checks pass them filled with other
+    values, so that a slot the kernel leaves unwritten shows."""
     dev, R, tbl = _bvh_args(tables, o, d, counts)
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    obj = torch.empty(R, dtype=torch.int32, device=dev)
+    if dead is not None:
+        _check("dead", dead, dev, R, torch.bool)
+    if out is None:
+        out = (torch.empty(R, dtype=torch.float32, device=dev),
+               torch.empty(R, dtype=torch.int32, device=dev))
+    t, obj = out
+    _check("t", t, dev, R)
+    _check("obj_id", obj, dev, R, torch.int32)
     if R == 0:
         return t, obj
     with torch.cuda.device(dev):
         rc = _bvh_entry("bvh_closest_launch")(
             torch.cuda.current_stream(dev).cuda_stream, o.data_ptr(),
-            d.data_ptr(), R, *tbl, t.data_ptr(), obj.data_ptr(),
-            None if counts is None else counts.data_ptr())
+            d.data_ptr(), R, _ptr(dead), *tbl, t.data_ptr(), obj.data_ptr(),
+            _ptr(counts))
     if rc != 0:
         raise RuntimeError(f"bvh_closest launch failed: CUDA error {rc}")
     bvh_closest.launches += 1
@@ -267,48 +283,53 @@ def bvh_closest(tables, o, d, counts=None):
 bvh_closest.launches = 0
 
 
-def _bvh_any(tables, o, dirs, max_t, dead, counts):
+def _bvh_any(tables, o, dirs, max_t, dead, counts, out):
     dev, R, tbl = _bvh_args(tables, o, dirs, counts)
     L = dirs.shape[0]
     if dead is not None:
         _check("dead", dead, dev, L * R, torch.bool)
-    out = torch.empty((L, R), dtype=torch.bool, device=dev)
+    if out is None:
+        out = torch.empty((L, R), dtype=torch.bool, device=dev)
+    _check("out", out, dev, L * R, torch.bool)
     if R == 0 or L == 0:
         return out, False
     with torch.cuda.device(dev):
         rc = _bvh_entry("bvh_any_launch")(
             torch.cuda.current_stream(dev).cuda_stream, o.data_ptr(),
-            dirs.data_ptr(), L, R, max_t,
-            None if dead is None else dead.data_ptr(), *tbl, out.data_ptr(),
-            None if counts is None else counts.data_ptr())
+            dirs.data_ptr(), L, R, max_t, _ptr(dead), *tbl, out.data_ptr(),
+            _ptr(counts))
     if rc != 0:
         raise RuntimeError(f"bvh_any launch failed: CUDA error {rc}")
     return out, True
 
 
-def bvh_any(tables, o, d, max_t: float, dead=None, counts=None):
+def bvh_any(tables, o, d, max_t: float, dead=None, counts=None, out=None):
     """Occlusion [R] bool of segments o + t·d, t < ``max_t``, through the
     BVH walk on the card; ``dead`` [R] bool lanes report occluded without a
-    walk. ``counts`` as for ``bvh_closest``."""
-    out, launched = _bvh_any(tables, o, d[None], max_t,
-                             None if dead is None else dead[None], counts)
+    walk, and the live ones are packed inside the launch. ``counts`` and
+    ``out`` (an [R] bool tensor) as for ``bvh_closest``."""
+    got, launched = _bvh_any(tables, o, d[None], max_t,
+                             None if dead is None else dead[None], counts,
+                             None if out is None else out.view(1, -1))
     bvh_any.launches += launched
-    return out[0]
+    return got[0]
 
 
 bvh_any.launches = 0
 
 
-def bvh_any_multi(tables, o, dirs, max_t: float, dead=None, counts=None):
+def bvh_any_multi(tables, o, dirs, max_t: float, dead=None, counts=None,
+                  out=None):
     """Occlusion [L, R] bool of L segment sets ``dirs`` [L, R, 3] that share
     the origins ``o`` [R, 3], in one launch: equal to L ``bvh_any`` calls.
-    ``dead`` None or [L, R] bool. ``counts`` sums each ray's work over the L
-    sets."""
+    ``dead`` None or [L, R] bool; the live (set, ray) pairs are packed
+    inside the launch. ``counts`` sums each ray's work over the L sets;
+    ``out`` an [L, R] bool tensor."""
     if dirs.dim() != 3:
         raise ValueError(f"dirs: want [L, R, 3], got {tuple(dirs.shape)}")
-    out, launched = _bvh_any(tables, o, dirs, max_t, dead, counts)
+    got, launched = _bvh_any(tables, o, dirs, max_t, dead, counts, out)
     bvh_any_multi.launches += launched
-    return out
+    return got
 
 
 bvh_any_multi.launches = 0

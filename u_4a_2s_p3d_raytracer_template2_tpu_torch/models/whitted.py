@@ -88,13 +88,12 @@ def _walks(scene: Scene, cfg: RenderConfig | None) -> bool:
 def trace_closest(scene: Scene, rays: Rays, cfg: RenderConfig | None = None,
                   dead=None):
     """Closest hit via the scene's accelerator; returns (t, obj_id).
-    ``dead`` [R] bool marks slots the caller masks downstream: brute force
-    traces only the others and gives them (BIG, -1); the walk traces every
-    slot."""
+    ``dead`` [R] bool marks slots the caller masks downstream: the walk and
+    brute force trace only the others and give them (BIG, -1)."""
     if _walks(scene, cfg):
         from ..accel.packets import packet_closest_hit
 
-        return packet_closest_hit(scene.packets, rays)
+        return packet_closest_hit(scene.packets, rays, dead)
     return intersect.closest_hit_brute(scene.prims, rays, scene.brute, dead)
 
 

@@ -1,9 +1,10 @@
-"""The two megakernels on the card: what ptxas gave them, how many blocks an
-SM holds, their SASS, and their time on the main paths' inputs by block
-size and against another checkout's build of them.
+"""The two megakernels and the BVH walk on the card: what ptxas gave them,
+how many blocks an SM holds, their SASS, and their time on the main paths'
+inputs by block size and against another checkout's build of them.
 
-The kernels are K1/K2 (``csrc/whitted_megakernel.cu``) and K3
-(``csrc/pt_megakernel.cu``). For each source this prints:
+The kernels are K1/K2 (``csrc/whitted_megakernel.cu``), K3
+(``csrc/pt_megakernel.cu``) and K5 (``csrc/bvh_walk.cu``). For each source
+this prints:
 
   * ptxas's registers, spills and stack frame for each kernel instantiation
     (the Whitted kernel's depths 1-8);
@@ -18,15 +19,26 @@ The kernels are K1/K2 (``csrc/whitted_megakernel.cu``) and K3
 
 The inputs are mount_low 512², depth 4 (one launch); a subpixel launch of
 the 512² distribution frame (spp 4, jittered soft shadows, fuzzy
-reflection, a 6x2048² u8 sky); and glsl_world 512², 10 bounces.
+reflection, a 6x2048² u8 sky); and glsl_world 512², 10 bounces. The walk's
+are the BVH frame's 12 queries (the 7,396-sphere field at 512², depth 4,
+sweep engine: a closest hit a level, a shadow query a level and light, with
+the dead masks the sweep hands them; ``frame_queries``) of seven drifting
+frames, each launch timed alone with its live slots printed; beside the
+times, the share of lanes busy on the primaries and the level-1 rays (each
+ray's node tests against its warp's largest, ``warp_max_sum``), over the
+slots as laid out and over the live slots packed in slot order.
 
 ``--baseline DIR`` names the ``csrc/`` of another checkout, such as an
-earlier commit unpacked with ``git archive``. Its two kernels are built
-the same way and timed in turns with this checkout's: baseline, this,
-this, baseline. Their tables are cut down to the rows they read.
+earlier commit unpacked with ``git archive``. Its kernels are built the
+same way and timed in turns with this checkout's: baseline, this, this,
+baseline. The megakernels' tables are cut down to the rows they read; a
+walk reads the tree of its source's node width (``walk_width``): the
+binary walk of PRs 3-8 the binary tables (``accel/packets
+.binary_tables``) through its own entry points, which take no dead mask
+for the closest hit; its answers are compared on the live slots.
 
     python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.megakernels \\
-        [--baseline DIR] [--threads 64 128 256]
+        [--baseline DIR] [--threads 64 128 256] [--kernels bvh_walk ...]
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ import torch
 from ..kernels import build as kb
 
 KERNELS = ("whitted_megakernel", "pt_megakernel")
+WALK = "bvh_walk"
 
 # compute capability 9.0 (CUDA C++ Programming Guide, "Technical
 # Specifications per Compute Capability"): registers an SM, the register
@@ -105,16 +118,24 @@ def ptxas_resources(log: str) -> dict[str, dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and name:
+            out[name]["smem"] = int(m.group(1))
     return {k: v for k, v in out.items() if "registers" in v}
 
 
 def demangle(symbol: str) -> str:
     """``whitted_kernel<4>`` from ``_ZN12_GLOBAL__N_114whitted_kernelILi4EE
-    Ev6Params``, ``pt_kernel`` from its symbol; other names as they are."""
-    m = re.search(r"([a-z]+_kernel)(?:ILi(\d+)E)?", symbol)
+    Ev6Params``, ``closest_kernel<true>`` from a symbol with ``ILb1E``,
+    ``pt_kernel`` from its symbol; other names as they are."""
+    m = re.search(r"([a-z]+_kernel)(?:IL([ib])(\d+)E)?", symbol)
     if not m:
         return symbol
-    return f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+    if not m.group(2):
+        return m.group(1)
+    arg = m.group(3) if m.group(2) == "i" else (
+        "true" if m.group(3) == "1" else "false")
+    return f"{m.group(1)}<{arg}>"
 
 
 def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
@@ -313,14 +334,17 @@ def timed_in_turns(inputs, builds, rounds: int = 2) -> dict:
 
 
 def report(lib: Path, tag: str, smem: int, threads: int) -> None:
-    """Print the library's ptxas resources, blocks an SM and SASS sizes."""
+    """Print the library's ptxas resources, blocks an SM (at ``smem``
+    bytes of dynamic shared memory and each kernel's static) and SASS
+    sizes."""
     log = lib.with_suffix(".log").read_text()
     for kern, r in ptxas_resources(log).items():
+        shared = smem + r.get("smem", 0)
         print(f"resources {tag} {kern}: {r['registers']} registers, "
               f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
               f"spill loads, {r['stack']} B stack; "
-              f"{blocks_per_sm(r['registers'], threads, smem)} blocks of "
-              f"{threads} an SM at {smem} B shared")
+              f"{blocks_per_sm(r['registers'], threads, shared)} blocks of "
+              f"{threads} an SM at {shared} B shared")
     try:
         sass = sass_loops(sass_text(lib))
     except (OSError, subprocess.CalledProcessError) as e:
@@ -331,6 +355,271 @@ def report(lib: Path, tag: str, smem: int, threads: int) -> None:
               f"of {s['loops']}")
 
 
+# ---------------------------------------------------------------------------
+# the BVH walk (csrc/bvh_walk.cu) on the BVH frame's queries
+
+WALK_SIDE, WALK_RES, WALK_FRAMES = 86, 512, 7
+
+
+def frame_queries(scene, o, d, cfg):
+    """The accelerator queries of one frame of ``scene`` from the primary
+    rays (o, d), recorded as the sweep (models/whitted.trace_rays) hands
+    them to the walk or to brute force (``whitted.trace_closest``,
+    ``trace_shadow``): ``closest``, one (o, d, dead) a level; ``shadows``,
+    one (o, d, max_t, dead) a level and light."""
+    from ..core.types import Rays
+    from ..models import whitted
+
+    closest, shadows = [], []
+    fns = whitted.trace_closest, whitted.trace_shadow
+
+    def record_closest(scene, rays, cfg=None, dead=None):
+        closest.append((rays.origin.contiguous(), rays.direction.contiguous(),
+                        dead))
+        return fns[0](scene, rays, cfg, dead)
+
+    def record_shadow(scene, rays, max_t, cfg=None, dead=None):
+        shadows.append((rays.origin.contiguous(), rays.direction.contiguous(),
+                        float(max_t), dead))
+        return fns[1](scene, rays, max_t, cfg, dead)
+
+    whitted.trace_closest, whitted.trace_shadow = record_closest, record_shadow
+    try:
+        whitted.trace_rays(scene, Rays.make(o, d), cfg)
+    finally:
+        whitted.trace_closest, whitted.trace_shadow = fns
+    return closest, shadows
+
+
+def warp_max_sum(per_ray):
+    """The sum over warps of 32 consecutive rays of each warp's largest
+    count: the steps a warp takes when its lanes step together."""
+    pad = (-per_ray.shape[0]) % 32
+    return int(torch.nn.functional.pad(per_ray, (0, pad)).view(-1, 32)
+               .amax(dim=1).sum())
+
+
+def walk_width(src_dir: Path) -> int:
+    """The node width of the source's walk (its ``kWidth``), or 0 for the
+    binary walk of PRs 3-8: nodes [Nn, 8], and a closest hit that takes no
+    dead mask."""
+    m = re.search(r"constexpr int kWidth = (\d+);",
+                  (src_dir / f"{WALK}.cu").read_text())
+    return int(m.group(1)) if m else 0
+
+
+def walk_inputs(dev):
+    """(scene, frames): the BVH frame's scene (the 7,396-sphere field at
+    512²) and the walk queries (``frame_queries``) of WALK_FRAMES frames,
+    the pixel grid drifting 0.37 px a frame. The sweep that makes them
+    runs under ``accel_impl="brute"``, whose answers are the walk's, so
+    the queries do not depend on the builds being timed."""
+    from ..core.build import build_scene
+    from ..core.types import RenderConfig
+    from ..models.scenes import sphere_field_scene
+    from ..models.whitted import pixel_grid
+    from ..ops.camera import pinhole_rays
+
+    scene = build_scene(sphere_field_scene(n_side=WALK_SIDE, res=WALK_RES),
+                        device=dev)
+    px, py = pixel_grid(WALK_RES, WALK_RES, dev)
+    frames = []
+    for i in range(WALK_FRAMES):
+        r = pinhole_rays(scene.camera, px + 0.5 + 0.37 * i, py + 0.5)
+        frames.append(frame_queries(scene, r.origin.contiguous(),
+                                    r.direction.contiguous(),
+                                    RenderConfig(accel_impl="brute")))
+    return scene, frames
+
+
+def walk_launches(frames):
+    """The frame's launches as (label, query, pick): a closest hit a level,
+    then a shadow query a level and light; ``pick(frame)`` is the query's
+    (o, d, dead) or (o, d, max_t, dead)."""
+    closest, shadows = frames[0]
+    n_lights = len(shadows) // len(closest)
+    return ([(f"closest, level {lvl}", "closest",
+              lambda f, lvl=lvl: f[0][lvl]) for lvl in range(len(closest))]
+            + [(f"any, level {lvl}, light {li}", "any",
+                lambda f, k=lvl * n_lights + li: f[1][k])
+               for lvl in range(len(closest)) for li in range(n_lights)])
+
+
+def walk_tables(scene, width: int):
+    """The scene's tree for a walk of ``width``-wide nodes (0: the binary
+    tables of PRs 3-8)."""
+    from ..accel import packets
+
+    if width == packets.WIDTH:
+        return scene.packets
+    n = scene.n_objects
+    args = (scene.prims.params[:n].cpu().numpy(),
+            scene.prims.ptype[:n].cpu().numpy())
+    if width == 0:
+        return packets.binary_tables(*args, device=scene.device)
+    return packets.build_packets(*args, device=scene.device, width=width)
+
+
+def _binary_calls(lib: Path):
+    """(closest, any) through the binary walk of PRs 3-8 in ``lib``: its
+    closest hit traces every slot (it takes no dead mask)."""
+    so = ctypes.CDLL(str(lib))
+    c, a = so.bvh_closest_launch, so.bvh_any_launch
+    c.restype = a.restype = ctypes.c_int
+    c.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 3)
+    a.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                  + [ctypes.c_float, ctypes.c_void_p]
+                  + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 2)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    def tables(pt):
+        return [pt.nodes.data_ptr(), pt.rows.data_ptr(),
+                pt.planes.data_ptr(), pt.planes.shape[0]]
+
+    def closest(pt, o, d, dead=None, counts=None):
+        R = o.shape[0]
+        t = torch.empty(R, device=o.device)
+        obj = torch.empty(R, dtype=torch.int32, device=o.device)
+        rc = c(torch.cuda.current_stream(o.device).cuda_stream, o.data_ptr(),
+               d.data_ptr(), R, *tables(pt), t.data_ptr(), obj.data_ptr(),
+               ptr(counts))
+        if rc:
+            raise RuntimeError(f"binary closest launch failed: CUDA error "
+                               f"{rc}")
+        return t, obj
+
+    def any_hit(pt, o, d, max_t, dead=None, counts=None):
+        out = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
+        rc = a(torch.cuda.current_stream(o.device).cuda_stream, o.data_ptr(),
+               d.data_ptr(), 1, o.shape[0], max_t, ptr(dead), *tables(pt),
+               out.data_ptr(), ptr(counts))
+        if rc:
+            raise RuntimeError(f"binary any launch failed: CUDA error {rc}")
+        return out
+
+    return closest, any_hit
+
+
+@contextlib.contextmanager
+def walk_calls(lib: Path | None, width: int):
+    """(closest(tables, o, d, dead, counts=None), any(tables, o, d, max_t,
+    dead, counts=None)) through the walk of ``lib`` (None: the sound
+    build) whose nodes are ``width`` wide (0: the binary walk of PRs
+    3-8); a library of this source's entry points is routed through the
+    wrappers of kernels/."""
+    from .. import kernels
+
+    if width == 0:
+        yield _binary_calls(lib)
+        return
+    sound = kernels._bvh_entry
+    if lib is not None:
+        so = ctypes.CDLL(str(lib))
+        fns = {}
+        for n in ("bvh_closest_launch", "bvh_any_launch"):
+            fns[n] = getattr(so, n)
+            fns[n].restype, fns[n].argtypes = (sound(n).restype,
+                                               sound(n).argtypes)
+        kernels._bvh_entry = lambda n: fns[n]
+    try:
+        yield kernels.bvh_closest, kernels.bvh_any
+    finally:
+        kernels._bvh_entry = sound
+
+
+def _walk_run(calls, query, tables, args, counts=None):
+    closest, any_hit = calls
+    fn = closest if query == "closest" else any_hit
+    return fn(tables, *args, counts=counts)
+
+
+def walk_answers(scene, frames, builds) -> dict:
+    """{(label, build tag): equal}: whether each build answers the first
+    frame's launches as the first build does, bit for bit: on every slot,
+    or on the live slots where a binary walk of PRs 3-8 (which traces dead
+    closest-hit slots) is among the builds; then each build's share of busy
+    lanes on the primaries and the level-1 rays, printed. ``builds``: (tag,
+    library or None, width)."""
+    out, first = {}, {}
+    every_slot = all(width for _, _, width in builds)
+    for tag, lib, width in builds:
+        tables = walk_tables(scene, width)
+        with walk_calls(lib, width) as calls:
+            for label, query, pick in walk_launches(frames):
+                args = pick(frames[0])
+                got = _walk_run(calls, query, tables, args)
+                got = got if isinstance(got, tuple) else (got,)
+                if args[-1] is not None and not every_slot:
+                    got = tuple(g[~args[-1]] for g in got)
+                want = first.setdefault(label, got)
+                out[label, tag] = all(torch.equal(g, w)
+                                      for g, w in zip(got, want))
+                print(f"answers {tag} | {label}: "
+                      + ("equal to " if out[label, tag] else "differ from ")
+                      + builds[0][0], flush=True)
+            for lvl in (0, 1):
+                o, d, dead = frames[0][0][lvl]
+                counts = torch.zeros((o.shape[0], 9), dtype=torch.int32,
+                                     device=o.device)
+                _walk_run(calls, "closest", tables, (o, d, dead), counts)
+                nodes = counts[:, 0].long()
+                live = (torch.ones_like(nodes, dtype=torch.bool)
+                        if dead is None else ~dead)
+                packed = nodes[live]
+                print(f"lanes {tag} | closest, level {lvl}: "
+                      f"{int(live.sum())} live of {o.shape[0]} slots, "
+                      f"{float(packed.float().mean()):.3f} node tests a live "
+                      f"ray; busy lanes {_lanes(nodes):.4f} over the slots "
+                      f"as laid out, {_lanes(packed):.4f} over the live "
+                      f"slots packed in slot order", flush=True)
+    return out
+
+
+def _lanes(per_ray) -> float:
+    steps = warp_max_sum(per_ray)
+    return float(per_ray.sum()) / (32 * steps) if steps else 1.0
+
+
+def walk_timed_in_turns(scene, frames, builds, rounds: int = 2) -> dict:
+    """{(label, build tag): [ms, ...]}: each build's launches of the
+    frame, each label over WALK_FRAMES frames with the launches queued
+    (utils/timing.queued_ms), builds in the order A, B, ..., B, A,
+    ``rounds`` times; each time, each build's frame sum and medians are
+    printed."""
+    from ..utils.timing import queued_ms
+
+    tables = {tag: walk_tables(scene, width) for tag, _, width in builds}
+    times = {}
+    for _ in range(rounds):
+        for tag, lib, width in list(builds) + list(builds)[::-1]:
+            total = 0.0
+            with walk_calls(lib, width) as calls:
+                for label, query, pick in walk_launches(frames):
+                    ms = queued_ms(
+                        lambda *a, q=query: _walk_run(calls, q, a[0], a[1:]),
+                        [(tables[tag], *pick(f)) for f in frames])
+                    times.setdefault((label, tag), []).append(ms)
+                    total += ms
+                    args = pick(frames[0])
+                    dead = args[-1]
+                    slots = args[0].shape[0]
+                    live = slots if dead is None else int((~dead).sum())
+                    print(f"time {tag} | {label}: {ms:.4f} ms a launch "
+                          f"({live} live of {slots} slots)", flush=True)
+            times.setdefault(("frame", tag), []).append(total)
+            print(f"time {tag} | the frame's {len(walk_launches(frames))} "
+                  f"launches: {total:.4f} ms", flush=True)
+    for (label, tag), ms in times.items():
+        print(f"median {tag} | {label}: {statistics.median(ms):.4f} ms "
+              f"({', '.join(f'{m:.4f}' for m in ms)})", flush=True)
+    return times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, default=None,
@@ -339,6 +628,8 @@ def main(argv=None) -> int:
     ap.add_argument("--min-blocks", type=int, nargs="*", default=[],
                     help="kMinBlocks values to build at 128 threads, for a "
                     "source that declares it")
+    ap.add_argument("--kernels", nargs="*", default=[*KERNELS, WALK],
+                    choices=[*KERNELS, WALK])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("megakernels: needs a CUDA card")
@@ -346,13 +637,14 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     print(f"card: {card_info()}")
-    inputs = main_inputs(dev)
+    mega = [k for k in KERNELS if k in args.kernels]
+    inputs = main_inputs(dev) if mega else {}
     sources = [("this", kb.CSRC)]
     if args.baseline is not None:
         sources.insert(0, ("baseline", args.baseline))
     jobs = []  # (build tag, source directory, kernel, block size, edits)
     for tag, src in sources:
-        for name in KERNELS:
+        for name in args.kernels:
             text = (src / f"{name}.cu").read_text()
             jobs += [(f"{tag}{n}", src, name, n, thread_edits(text, n))
                      for n in args.threads]
@@ -363,14 +655,22 @@ def main(argv=None) -> int:
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda j: kb.build_copy(
             j[2], j[0], j[4], src_dir=j[1]), jobs))
-    builds = {name: [] for name in KERNELS}
+    builds = {name: [] for name in args.kernels}
     for (btag, src, name, n, _), lib in zip(jobs, libs):
+        if name == WALK:
+            report(lib, btag, 0, n)
+            builds[name].append((btag, lib, walk_width(src)))
+            continue
         width = row_width(src, name)
         report(lib, btag, smem_of(name, inputs, width), n)
         builds[name].append((btag, name, lib, width))
-    for name in KERNELS:
+    for name in mega:
         answers(inputs, builds[name])
         timed_in_turns(inputs, builds[name])
+    if WALK in args.kernels:
+        scene, frames = walk_inputs(dev)
+        walk_answers(scene, frames, builds[WALK])
+        walk_timed_in_turns(scene, frames, builds[WALK])
     return 0
 
 
