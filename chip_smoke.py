@@ -117,13 +117,42 @@ Phases, each raising on failure:
      torch.profiler, and the bound from this plan's work (whitted_work on
      every subpixel: jittered feelers to their first occluder, fuzzy
      children, sky texels, and the stream rows the kernel reads).
+  Wavefront path (the compacted queue, models/whitted_wavefront.py; the
+  field 512x512, depth 4):
+  19. W1: render_image of the field on engine="wavefront" with every
+     launch counter reset just before and read just after (the walk, no
+     Whitted or brute-force kernel), the queue's live entries a round read
+     after the frame, the image against the sweep's of phase 10 (max abs
+     err WAVE_ATOL), frames beside the sweep's, and a profile (device ops,
+     busy time and idle share, the walk's share);
+  20. W2: the same under ACCEL_NONE through the brute-force kernels,
+     against phase 13's image;
+  21. W3: the field on engine="megakernel" (over the kernel's 256
+     primitives) runs the wavefront: no Whitted launch, W1's launches and
+     W1's image bit for bit; mount_low on the wavefront against the Whitted
+     kernel's image under WHITTED_LIMITS;
+  22. W4: phase 17's distribution plan, drawn once, through the sweep and
+     the wavefront (WAVE_ATOL): the queue reads the same draws;
+  23. W5: the BVH frame at wavefront_capacity 0.05: finite, a mean abs
+     difference under 0.1 against W1, primaries-only pixels unchanged.
+  Per-ray path (accel/traverse.py, batched PyTorch on the card):
+  24. P1: the field under accel_impl="perray" (the median BVH's walk)
+     against the walk's image under WHITTED_LIMITS; level-0 hit ids against
+     the walk kernel's (only ties may differ); frame time, iterations and
+     host syncs a query;
+  25. P2: the field under ACCEL_GRID with accel_impl="perray" (the DDA)
+     against the walk's image, and with reference_grid_shadow_initfail (the
+     share of shadow rays whose grid entry failed); frame times; the grid
+     section of tools/device_validate. A per-ray frame over PERRAY_CUT_S
+     seconds moves both phases to PERRAY_CUT_RES, with the reason printed.
 On a card, brute-force queries of more than 48 primitives go through the
 brute-force kernels, so the plain sweep that phase 3 holds the Whitted
 kernel against runs them on its 66-primitive field, and phase 10's 128x128
 brute force is them too; both comparisons stay sound, since phase 12 holds
 the brute-force kernels against their own plain version.
-The line before the last is a JSON object of the kernels; the last line is
-the JSON device record.
+The line before the last is a JSON object of the kernels (the walk's and
+brute force's entries each with the wavefront frame they served); the last
+line is the JSON device record.
 """
 import concurrent.futures
 import json
@@ -534,7 +563,8 @@ def profile_frames(label, frame, args_of, card, frames=20, share_of=()):
     the device's kernel and copy intervals), the device's idle share, device
     operations per frame and the busiest kernels; with ``share_of``, the
     device time of the kernels whose names hold one of those strings, and
-    its share of the busy time."""
+    its share of the busy time. Returns them as a dict (wall_ms, busy_ms,
+    idle, device_ops, kernels_ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     frame(*args_of(0))
@@ -551,7 +581,7 @@ def profile_frames(label, frame, args_of, card, frames=20, share_of=()):
     if not device:
         print(f"profile {label}: host wall {wall_ms:.4f} ms/frame; device "
               "time not measured (the profiler saw no device events)")
-        return
+        return {"wall_ms": wall_ms}
     busy_us, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end)
                               for e in device):
@@ -568,6 +598,8 @@ def profile_frames(label, frame, args_of, card, frames=20, share_of=()):
           f"{len(device) / frames:.1f} device ops/frame; busiest: "
           + "; ".join(f"{name[:90]} {us / 1e3 / frames:.4f} ms/frame"
                       for name, us in top))
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle": 1 - busy_ms / wall_ms, "device_ops": len(device) / frames}
     if share_of:
         parts = {s: sum(us for name, us in by_name.items() if s in name)
                  / 1e3 / frames for s in share_of}
@@ -575,6 +607,8 @@ def profile_frames(label, frame, args_of, card, frames=20, share_of=()):
         print(f"profile {label}: kernels named {'/'.join(share_of)} "
               f"{ms:.4f} ms/frame, {100 * ms / busy_ms:.1f}% of device busy ("
               + ", ".join(f"{s} {v:.4f}" for s, v in parts.items()) + ")")
+        out["kernels_ms"] = ms
+    return out
 
 
 def whitted_work(scene, o, d, cfg, rows=None, offsets=None):
@@ -660,8 +694,9 @@ def whitted_work(scene, o, d, cfg, rows=None, offsets=None):
         if layout.has_fuzzy(lvl):
             ks = scene.materials.ks[mat_id.long()]
             w["fuzzy"] += int((hit & (ks > 0.0)).sum())
-        _, (children, _) = whitted._level_step(scene, rays, active, ior, cfg,
-                                               True, lvl, layout, vals)
+        _, (children, _) = whitted._level_step(
+            scene, rays, active, ior, cfg, True,
+            samples.NodeDraws(layout, lvl, vals))
         kids = [children[k] for k, on in (("refl", scene.has_reflective),
                                           ("refr", scene.has_transmissive))
                 if on]
@@ -817,8 +852,8 @@ def main_path_queries(scene, rays, active, ior, cfg):
     intersect.any_hit_brute = record(brute)
     try:
         _, (children, _) = whitted._level_step(
-            scene, rays, active, ior, cfg, True, 0,
-            samples.scene_layout(scene, cfg), None)
+            scene, rays, active, ior, cfg, True,
+            samples.NodeDraws(samples.scene_layout(scene, cfg), 0, None))
     finally:
         packets.packet_any_hit = walk
         intersect.any_hit_brute = brute
@@ -1072,6 +1107,11 @@ BRUTE_STAGE_OPS = (16, 28, 46, 53, 21, 31)
 # brute-force kernel's own per-stage counters counted it on the card before
 # the count moved to the plain version: brute_work must give it again.
 PRIMARY_BOUND_MS = 0.6080
+BRUTE_KERNEL_NAMES = ("brute_compact", "brute_closest", "brute_any")
+
+WAVE_ATOL = 5e-4       # wavefront against sweep, tests/test_wavefront.py:39
+PERRAY_CUT_S = 30.0    # a per-ray frame slower than this runs at
+PERRAY_CUT_RES = 256   # this resolution instead
 # Live slots of the masked cases at the compaction's and the ray groups'
 # edges: none, one, a warp less one and more one, a group of 4,096 and one
 EDGE_LIVE = (0, 1, 31, 33, 4097)
@@ -1813,9 +1853,10 @@ def main() -> int:
     print(f"frame BVH sweep: {bvh_ms:.4f} ms, {mrays_per_s(field, bvh_ms):.2f} "
           f"Mrays/s (primary+shadow), field{FIELD_SIDE} {RES}x{RES} depth "
           f"{cfg_bvh.max_depth}, {card}")
-    profile_frames(f"BVH frame, sweep engine, field{FIELD_SIDE} {RES}x{RES}",
-                   render_tile, lambda i: (field, px + 0.37 * i, py, cfg_bvh),
-                   card, frames=5, share_of=("closest_kernel", "any_kernel"))
+    bvh_prof = profile_frames(
+        f"BVH frame, sweep engine, field{FIELD_SIDE} {RES}x{RES}",
+        render_tile, lambda i: (field, px + 0.37 * i, py, cfg_bvh), card,
+        frames=5, share_of=("closest_kernel", "any_kernel"))
     print(f"BVH phases {time.perf_counter() - t_bvh:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
@@ -1974,11 +2015,10 @@ def main() -> int:
     soup_ms = frame_ms(soup_nb, cfg_bvh)
     print(f"frame brute sweep: {soup_ms:.4f} ms, soup {RES}x{RES} depth "
           f"{cfg_bvh.max_depth}, {card}")
-    profile_frames(f"brute frame, sweep engine, field{FIELD_SIDE} "
-                   f"{RES}x{RES}", render_tile,
-                   lambda i: (field_nb, px + 0.37 * i, py, cfg_bvh), card,
-                   frames=5, share_of=("brute_compact", "brute_closest",
-                                       "brute_any"))
+    brute_prof = profile_frames(
+        f"brute frame, sweep engine, field{FIELD_SIDE} {RES}x{RES}",
+        render_tile, lambda i: (field_nb, px + 0.37 * i, py, cfg_bvh), card,
+        frames=5, share_of=BRUTE_KERNEL_NAMES)
     print(f"brute-force phases {time.perf_counter() - t_brute:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
@@ -2153,6 +2193,264 @@ def main() -> int:
     print(f"distribution phases {time.perf_counter() - t_dist:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    # 19. W1, the wavefront BVH frame: the field at 512x512, depth 4, on
+    # engine="wavefront" through the walk, with the launch counters reset
+    # just before and read just after, held against the sweep's image of
+    # phase 10; the queue's live entries a round, frames and a profile
+    t_wave = time.perf_counter()
+    from dataclasses import replace
+
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import traverse
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        whitted_wavefront as wf,
+    )
+
+    cfg_wf = RenderConfig(engine="wavefront")
+    counted = walk_kernels + brute_kernels + (kernels.whitted_megakernel,)
+
+    def wave_frame(label, scene, cfg):
+        """render_image with every launch counter reset just before and
+        read just after; the queue's live entries a round, read after the
+        frame."""
+        for k in counted:
+            k.launches = 0
+        wf.record_live = []
+        try:
+            image = render_image(scene, cfg)
+            torch.cuda.synchronize()
+            live = [int(n) for n in wf.record_live]
+        finally:
+            wf.record_live = None
+        counts = {k.__name__: k.launches for k in counted}
+        print(f"main path: render_image {label} {RES}x{RES} depth "
+              f"{cfg.max_depth} engine={cfg.engine}, launches {counts}; the "
+              f"queue's live entries a round {live}")
+        if image.shape != (RES, RES, 3) or not bool(
+                torch.isfinite(image).all()):
+            raise AssertionError(f"{label}: bad image {tuple(image.shape)}")
+        if float(image.min()) < 0.0 or float(image.max()) > 1.0:
+            raise AssertionError(f"{label}: image outside [0, 1]")
+        return image, counts, live
+
+    def within(label, got, want, limit=WAVE_ATOL):
+        err = float((got - want).abs().max())
+        print(f"{label}: max abs err {err:.3g} (limit {limit})")
+        if not err <= limit:
+            raise AssertionError(f"{label}: {err:.3g} is over {limit}")
+        return err
+
+    w1, w1_counts, w1_live = wave_frame(f"field{FIELD_SIDE}", field, cfg_wf)
+    if w1_counts["bvh_closest"] < 1 or w1_counts["bvh_any"] < 1:
+        raise AssertionError("the wavefront BVH frame did not launch the walk")
+    if w1_counts["whitted_megakernel"] or w1_counts["brute_closest"] or \
+            w1_counts["brute_any"]:
+        raise AssertionError("the wavefront BVH frame launched another "
+                             "kernel than the walk")
+    w1_err = within("W1 wavefront against the sweep (phase 10)", w1, img)
+    save_png(str(ROOT / "build" / "field_wavefront_smoke.png"), w1)
+    w1_ms = frame_ms(field, cfg_wf)
+    print(f"frame BVH wavefront: {w1_ms:.4f} ms (sweep {bvh_ms:.4f} ms), "
+          f"{mrays_per_s(field, w1_ms):.2f} Mrays/s (primary+shadow), "
+          f"field{FIELD_SIDE} {RES}x{RES} depth {cfg_wf.max_depth}, {card}")
+    w1_prof = profile_frames(
+        f"BVH frame, wavefront engine, field{FIELD_SIDE} {RES}x{RES}",
+        render_tile, lambda i: (field, px + 0.37 * i, py, cfg_wf), card,
+        frames=5, share_of=("closest_kernel", "any_kernel"))
+
+    # 20. W2, the wavefront brute field frame: the same field under
+    # ACCEL_NONE through the brute-force kernels, against phase 13's image
+    w2, w2_counts, w2_live = wave_frame(f"field{FIELD_SIDE} accel none",
+                                        field_nb, cfg_wf)
+    if w2_counts["brute_closest"] < 1 or w2_counts["brute_any"] < 1:
+        raise AssertionError("the wavefront brute frame did not launch the "
+                             "brute-force kernels")
+    if w2_counts["whitted_megakernel"] or w2_counts["bvh_closest"] or \
+            w2_counts["bvh_any"]:
+        raise AssertionError("the wavefront brute frame launched another "
+                             "kernel than brute force")
+    w2_err = within("W2 wavefront against the sweep (phase 13)", w2,
+                    brute_img)
+    w2_ms = frame_ms(field_nb, cfg_wf)
+    print(f"frame brute wavefront: {w2_ms:.4f} ms (sweep {brute_ms:.4f} "
+          f"ms), {mrays_per_s(field_nb, w2_ms):.2f} Mrays/s (primary+shadow)"
+          f", field{FIELD_SIDE} {RES}x{RES} depth {cfg_wf.max_depth}, {card}")
+    w2_prof = profile_frames(
+        f"brute frame, wavefront engine, field{FIELD_SIDE} {RES}x{RES}",
+        render_tile, lambda i: (field_nb, px + 0.37 * i, py, cfg_wf), card,
+        frames=5, share_of=BRUTE_KERNEL_NAMES)
+
+    # 21. W3, the megakernel's degrade: the field (7,398 objects, over its
+    # 256) on engine="megakernel" launches no Whitted kernel and W1's walk
+    # launches, with W1's image exactly; mount_low on the wavefront against
+    # the Whitted kernel's image
+    w3, w3_counts, _ = wave_frame(f"field{FIELD_SIDE}", field,
+                                  RenderConfig(engine="megakernel"))
+    if w3_counts != w1_counts:
+        raise AssertionError(f"the degraded megakernel frame launched "
+                             f"{w3_counts}, not W1's {w1_counts}")
+    if not torch.equal(w3, w1):
+        raise AssertionError("the degraded megakernel frame differs from W1")
+    print("W3: engine=megakernel on the field ran the wavefront: no Whitted "
+          "launch, W1's launches and W1's image bit for bit")
+    mount = build_scene(scenes.mount_scene(res=RES), device=dev)
+    mount_wf, _, mount_live = wave_frame("mount_low", mount, cfg_wf)
+    check_pt(f"W3 mount_low {RES}x{RES} wavefront against the Whitted "
+             "kernel", mount_wf, render_image(
+                 mount, RenderConfig(engine="megakernel")),
+             WHITTED_LIMITS["exact"])
+    del mount_wf
+
+    # 22. W4, the distribution frame on the wavefront: phase 17's plan
+    # (mount_low, spp 4, soft shadows, fuzzy reflection, the u8 sky) drawn
+    # once and handed to both engines
+    d_sweep = render_tile(dscene, px, py, replace(dcfg, engine="sweep"),
+                          draws=plan)
+    d_wave = render_tile(dscene, px, py, replace(dcfg, engine="wavefront"),
+                         draws=plan)
+    w4_err = within(f"W4 distribution frame {RES}x{RES}, spp {dcfg.spp}, "
+                    f"{dlayout.n_rows} stream rows: wavefront against the "
+                    "sweep on one plan", d_wave, d_sweep)
+    del d_sweep, d_wave
+
+    # 23. W5, capacity: the BVH frame with a queue of 5% of the primaries
+    cfg_cap = RenderConfig(engine="wavefront", wavefront_capacity=0.05)
+    w5, _, w5_live = wave_frame(f"field{FIELD_SIDE} capacity 0.05", field,
+                                cfg_cap)
+    w5_mean = float((w5 - w1).abs().mean())
+    primary = (render_image(field, RenderConfig(max_depth=1)) == w1).all(
+        dim=-1)
+    changed = float((w5 != w1).any(dim=-1).float().mean())
+    print(f"W5 capacity 0.05: mean abs diff against W1 {w5_mean:.4g} (limit "
+          f"0.1), {changed * 100:.3f}% of pixels changed; "
+          f"{int(primary.sum())} primaries-only pixels")
+    if not w5_mean < 0.1:
+        raise AssertionError("W5: the capacity frame is too far from W1")
+    if not torch.equal(w5[primary], w1[primary]):
+        raise AssertionError("W5: a primaries-only pixel changed")
+    del w5, primary
+    print(f"wavefront phases {time.perf_counter() - t_wave:.1f} s; all "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # 24. P1, the per-ray median BVH (accel_impl="perray", batched PyTorch)
+    t_perray = time.perf_counter()
+    cfg_pr = RenderConfig(accel_impl="perray")
+
+    def perray_frame(label, scene, cfg):
+        """One frame's image, host wall time, and the traversals' queries,
+        iterations and host syncs in it."""
+        before = dict(traverse.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image = render_image(scene, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = {k: traverse.stats[k] - before[k] for k in before}
+        print(f"{label}: one frame {wall:.3f} s (host wall), {st['queries']} "
+              f"queries, {st['iterations'] / max(st['queries'], 1):.1f} "
+              f"iterations and {st['syncs'] / max(st['queries'], 1):.1f} "
+              f"host syncs a query (one every {traverse.CHECK_EVERY} "
+              f"iterations), {card}")
+        return image, wall, st
+
+    p_res, p_field, p_walk = RES, field, img
+    p1, p1_wall, p1_stats = perray_frame(
+        f"P1 perray field{FIELD_SIDE} {RES}x{RES}", field, cfg_pr)
+    if p1_wall > PERRAY_CUT_S:
+        p_res = PERRAY_CUT_RES
+        print(f"P1/P2: a {RES}x{RES} frame took {p1_wall:.1f} s, over "
+              f"{PERRAY_CUT_S} s: the per-ray phases run at {p_res}x{p_res}")
+        p_field = build_scene(scenes.sphere_field_scene(
+            n_side=FIELD_SIDE, res=p_res), device=dev)
+        p_walk = render_image(p_field, cfg_bvh)
+        p1, p1_wall, p1_stats = perray_frame(
+            f"P1 perray field{FIELD_SIDE} {p_res}x{p_res}", p_field, cfg_pr)
+    p1_bad, _, p1_err = check_pt(f"P1 perray field{FIELD_SIDE} {p_res}x{p_res}"
+                                 " against the walk", p1, p_walk,
+                                 WHITTED_LIMITS["exact"])
+    o0, d0 = camera_rays(p_field)
+    t_w0, id_w0 = kernels.bvh_closest(p_field.packets, o0, d0)
+    t_p0, id_p0 = traverse.bvh_closest_hit(p_field.bvh, p_field.prims,
+                                           Rays.make(o0, d0))
+    differ = id_w0 != id_p0
+    tie = (t_w0 - t_p0).abs() <= 1e-6 * t_w0.abs().clamp(min=1.0)
+    print(f"P1 level 0: {int(differ.sum())} of {o0.shape[0]} hit ids differ "
+          f"from the walk's, {int((differ & tie).sum())} of them at equal t")
+    if bool((differ & ~tie).any()):
+        raise AssertionError("P1: a level-0 hit id differs from the walk's "
+                             "at another t")
+    p_px, p_py = pixel_grid(p_res, p_res, dev)
+    p1_ms = cuda_ms(render_tile, [(p_field, p_px + 0.37 * i, p_py, cfg_pr)
+                                  for i in range(3)], warmup=1)
+    print(f"frame perray BVH: {p1_ms:.2f} ms (walk sweep {bvh_ms:.4f} ms at "
+          f"{RES}x{RES}), field{FIELD_SIDE} {p_res}x{p_res} depth 4, {card}")
+
+    # 25. P2, the grid DDA: the field under ACCEL_GRID with
+    # accel_impl="perray", and with reference_grid_shadow_initfail
+    g_field = build_scene(scenes.sphere_field_scene(
+        n_side=FIELD_SIDE, res=p_res, accel=C.ACCEL_GRID), device=dev)
+    g = g_field.grid
+    print(f"grid: {g.nx}x{g.ny}x{g.nz} cells, {g.max_per_cell} items a cell")
+    p2, p2_wall, p2_stats = perray_frame(
+        f"P2 grid DDA field{FIELD_SIDE} {p_res}x{p_res}", g_field, cfg_pr)
+    p2_bad, _, p2_err = check_pt(f"P2 grid DDA field{FIELD_SIDE} "
+                                 f"{p_res}x{p_res} against the walk", p2,
+                                 p_walk, WHITTED_LIMITS["exact"])
+    entry = [0, 0]
+    grid_any_hit = traverse.grid_any_hit
+
+    def counting(grid, prims, rays, max_t, dead=None,
+                 init_fail_occludes=False):
+        fails = traverse._grid_setup(grid, rays.origin, rays.direction)[0]
+        live = ~dead if dead is not None else torch.ones_like(fails)
+        entry[0] += int((fails & live).sum())
+        entry[1] += int(live.sum())
+        return grid_any_hit(grid, prims, rays, max_t, dead,
+                            init_fail_occludes)
+
+    cfg_if = RenderConfig(accel_impl="perray",
+                          reference_grid_shadow_initfail=True)
+    traverse.grid_any_hit = counting
+    try:
+        p2q, p2q_wall, _ = perray_frame(
+            f"P2 grid DDA with reference_grid_shadow_initfail "
+            f"field{FIELD_SIDE} {p_res}x{p_res}", g_field, cfg_if)
+    finally:
+        traverse.grid_any_hit = grid_any_hit
+    print(f"P2 reference_grid_shadow_initfail: {entry[0]} of {entry[1]} "
+          f"shadow rays ({100 * entry[0] / max(entry[1], 1):.3f}%) failed "
+          f"their grid entry and read occluded; image mean "
+          f"{float(p2q.mean()):.5f} (physical {float(p2.mean()):.5f})")
+    if not bool(torch.isfinite(p2q).all()):
+        raise AssertionError("P2: the initfail image is not finite")
+    p2_ms = cuda_ms(render_tile, [(g_field, p_px + 0.37 * i, p_py, cfg_pr)
+                                  for i in range(3)], warmup=1)
+    p2q_ms = cuda_ms(render_tile, [(g_field, p_px + 0.37 * i, p_py, cfg_if)
+                                   for i in range(3)], warmup=1)
+    print(f"frame grid DDA: {p2_ms:.2f} ms, with the initfail quirk "
+          f"{p2q_ms:.2f} ms, field{FIELD_SIDE} {p_res}x{p_res} depth 4, "
+          f"{card}")
+    dv_grid = dv.grid(dev)
+    del p1, p2, p2q, g_field
+    print(f"per-ray phases {time.perf_counter() - t_perray:.1f} s; all "
+          f"{time.perf_counter() - t_start:.1f} s")
+    wave_bvh = {
+        "scene": f"field{FIELD_SIDE} {RES}x{RES} depth 4, engine=wavefront",
+        "launches": {"closest": w1_counts["bvh_closest"],
+                     "any": w1_counts["bvh_any"],
+                     "multi": w1_counts["bvh_any_multi"]},
+        "live_per_round": w1_live, "max_abs_err_vs_sweep": w1_err,
+        "frame_ms": w1_ms, "sweep_frame_ms": bvh_ms, "profile": w1_prof,
+        "sweep_profile": bvh_prof}
+    wave_brute = {
+        "scene": f"field{FIELD_SIDE} {RES}x{RES} depth 4 accel none, "
+                 "engine=wavefront",
+        "launches": {"closest": w2_counts["brute_closest"],
+                     "any": w2_counts["brute_any"]},
+        "live_per_round": w2_live, "max_abs_err_vs_sweep": w2_err,
+        "frame_ms": w2_ms, "sweep_frame_ms": brute_ms, "profile": w2_prof,
+        "sweep_profile": brute_prof}
+
+
     def bvh_entry(name, query, label, replaces, launches, **extra):
         k_ms, p_ms, (_, _, b_ms, b_by, live) = bvh_times[label]
         return {"name": name, "route": "cuda", "source": src + "bvh_walk.cu",
@@ -2160,7 +2458,8 @@ def main() -> int:
                 "timed_on": label, "live": live,
                 "launches": launches, "max_abs_err": bvh_err[query],
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None}
+                "bound_by": b_by, "library_ms": None,
+                "wavefront_frame": wave_bvh}
 
     def brute_entry(name, query, label, replaces, **extra):
         (k_ms, p_ms, slots, plain_slots, plain_live,
@@ -2174,7 +2473,7 @@ def main() -> int:
                 "slots": slots, "live": live, "plain_ms": p_ms,
                 "plain_slots": plain_slots, "plain_live": plain_live,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                **extra}
+                "wavefront_frame": wave_brute, **extra}
 
     src = "u_4a_2s_p3d_raytracer_template2_tpu_torch/csrc/"
     pk_src = "u_4a_2s_p3d_raytracer_template2_tpu/accel/packets.py"

@@ -121,16 +121,28 @@ def test_grid_scene_routes_to_the_walk(monkeypatch):
         max_depth=2)))
 
 
-def test_perray_and_grid_initfail_raise():
+def test_perray_and_grid_initfail_render():
+    """accel_impl="perray" renders the BVH scene through the median-tree
+    walk and the grid scene through the DDA, each with the walk's image;
+    reference_grid_shadow_initfail renders under every accel_impl, its
+    shadow queries on the DDA, with one image."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import traverse
+
     bvh = pt.build_scene(_two_light_mixed(C.ACCEL_BVH), device=CPU)
     grid = pt.build_scene(_two_light_mixed(C.ACCEL_GRID), device=CPU)
+    cfg = pt.RenderConfig(max_depth=2)
     for scene in (bvh, grid):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-            pt.render_image(scene, pt.RenderConfig(accel_impl="perray"))
-    for impl in ("auto", "multi", "brute"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-            pt.render_image(grid, pt.RenderConfig(
-                accel_impl=impl, reference_grid_shadow_initfail=True))
+        before = traverse.stats["queries"]
+        img = pt.render_image(scene, pt.RenderConfig(max_depth=2,
+                                                     accel_impl="perray"))
+        assert traverse.stats["queries"] > before
+        np.testing.assert_allclose(img.numpy(), pt.render_image(
+            scene, cfg).numpy(), atol=1e-5)
+    quirk = [pt.render_image(grid, pt.RenderConfig(
+        max_depth=2, accel_impl=impl, reference_grid_shadow_initfail=True))
+        for impl in ("auto", "multi", "brute", "perray")]
+    for img in quirk[1:]:
+        np.testing.assert_allclose(img.numpy(), quirk[0].numpy(), atol=1e-5)
     with pytest.raises(ValueError, match="accel_impl"):
         pt.render_image(bvh, pt.RenderConfig(accel_impl="fast"))
 

@@ -539,3 +539,55 @@ def test_probe_kernels_reject_grad_and_cpu_tensors():
         kernels.stack_walk(nbox, nmeta.cpu(), table, rays)
     with pytest.raises(NotImplementedError):
         kernels.stack_walk(nbox, nmeta, table, rays.requires_grad_())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accel", [0, 2])
+def test_wavefront_matches_sweep_on_the_card(accel):
+    """The wavefront's queries on the card (the walk, or brute force over
+    258 spheres) with the queue's dead suffix: its image is the sweep's to
+    f32 reassociation (tests/test_wavefront.py:39), and engine="megakernel"
+    on the field degrades to it without a Whitted launch."""
+    dev = _cuda()
+    scene = build_scene(sphere_field_scene(n_side=16, res=48, accel=accel),
+                        device=dev)
+    want = render_image(scene, RenderConfig())
+    launched = (kernels.bvh_closest if accel else kernels.brute_closest)
+    before = launched.launches
+    got = render_image(scene, RenderConfig(engine="wavefront"))
+    assert launched.launches == before + 4
+    assert float((got - want).abs().max()) <= 5e-4
+    whitted = kernels.whitted_megakernel.launches
+    assert torch.equal(render_image(scene, RenderConfig(engine="megakernel")),
+                       got)
+    assert kernels.whitted_megakernel.launches == whitted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accel", [1, 2])
+def test_perray_traversal_on_the_card_equals_the_cpu(accel):
+    """accel/traverse.py on CUDA tensors gives the CPU's ids and t."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import traverse
+
+    dev = _cuda()
+    sd = sphere_field_scene(n_side=16, res=32, accel=accel)
+    scenes = [build_scene(sd, device=d) for d in (torch.device("cpu"), dev)]
+    o, d = chip_smoke.camera_rays(scenes[0])
+    d = d + 0.05 * torch.sin(torch.arange(d.numel()).reshape(d.shape) * 1.7)
+    dead = torch.arange(o.shape[0]) % 5 == 0
+    out = []
+    for s in scenes:
+        rays = Rays.make(o.to(s.device), d.to(s.device))
+        if accel == 2:
+            t, i = traverse.bvh_closest_hit(s.bvh, s.prims, rays,
+                                            dead.to(s.device))
+            occ = traverse.bvh_any_hit(s.bvh, s.prims, rays, 1.0)
+        else:
+            t, i = traverse.grid_closest_hit(s.grid, s.prims, rays,
+                                             dead.to(s.device))
+            occ = traverse.grid_any_hit(s.grid, s.prims, rays, 1.0,
+                                        init_fail_occludes=True)
+        out.append((t.cpu(), i.cpu(), occ.cpu()))
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][2], out[1][2])
+    assert torch.allclose(out[0][0], out[1][0], rtol=1e-6)

@@ -110,14 +110,14 @@ def test_primary_rays_match_jax():
 
 
 def test_every_config_is_served():
-    """check_config opens for every distribution flag; only the wavefront
-    engine still raises."""
+    """check_config opens for every distribution flag on all three
+    engines; only an engine the port does not have raises."""
     for field in ("anti_aliasing", "depth_of_field", "motion_blur",
                   "fuzzy_reflection", "soft_shadow", "use_skybox"):
-        for engine in ("sweep", "megakernel"):
+        for engine in ("sweep", "wavefront", "megakernel"):
             pw.check_config(pt.RenderConfig(engine=engine, **{field: True}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pw.check_config(pt.RenderConfig(engine="wavefront"))
+    with pytest.raises(ValueError, match="engine"):
+        pw.check_config(pt.RenderConfig(engine="packets"))
 
 
 @pytest.mark.parametrize("field", ["anti_aliasing", "depth_of_field",

@@ -29,6 +29,10 @@ def test_port_imports_no_jax():
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.accel.packets\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.accel.sah\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.accel.bvh\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.accel.grid\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.accel.traverse\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.native\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted_wavefront\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.scenes\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.intersect\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.kernels.build\n"

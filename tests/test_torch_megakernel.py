@@ -97,19 +97,28 @@ def test_reconstruct_scene_round_trips_tables():
 
 
 def test_envelope_raises():
+    """check_supported stays the strict check and raises outside the
+    envelope; render_image on engine="megakernel" takes a scene over 256 primitives or a depth over 8
+    to the wavefront engine, decided by supports() alone."""
     big = pt.build_scene(sphere_field_scene(n_side=16, res=4,
                                             accel=C.ACCEL_NONE), device=CPU)
     assert big.n_objects > mk.MAX_PRIMS
     cfg = pt.RenderConfig(engine="megakernel")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert not mk.supports(big, cfg)
+    with pytest.raises(NotImplementedError, match="wavefront"):
         mk.check_supported(big, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.render_image(big, cfg)
+    assert torch.equal(pt.render_image(big, cfg), pt.render_image(
+        big, pt.RenderConfig(engine="wavefront")))
     small = pt.build_scene(mount_scene(res=4), device=CPU)
+    assert mk.supports(small, cfg)
     mk.check_supported(small, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.render_image(small, pt.RenderConfig(engine="megakernel",
-                                               max_depth=mk.MAX_DEPTH + 1))
+    deep = pt.RenderConfig(engine="megakernel", max_depth=mk.MAX_DEPTH + 1)
+    assert not mk.supports(small, deep)
+    with pytest.raises(NotImplementedError, match="wavefront"):
+        mk.check_supported(small, deep)
+    assert torch.equal(pt.render_image(small, deep), pt.render_image(
+        small, pt.RenderConfig(engine="wavefront",
+                               max_depth=mk.MAX_DEPTH + 1)))
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

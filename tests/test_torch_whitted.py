@@ -81,26 +81,33 @@ def test_sweep_matches_oracle(soft_shadow):
 
 @pytest.mark.parametrize("field", ["anti_aliasing", "depth_of_field",
                                    "motion_blur", "fuzzy_reflection"])
-def test_unported_configs_raise(field):
-    """With a distribution flag on, what is not ported yet still raises:
-    the wavefront engine, and the per-ray BVH walk on a BVH scene. The
-    flags themselves render on both engines
-    (tests/test_torch_distribution.py)."""
-    sd = mixed_scene(pt.SceneDef(), res=4)
+def test_distribution_configs_on_wavefront_and_perray(field):
+    """With a distribution flag on, the wavefront engine draws the same
+    plan as the sweep from one generator seed and gives its image, and the
+    per-ray BVH walk on a BVH scene gives the CUDA walk's plain version's
+    image."""
+    sd = mixed_scene(pt.SceneDef(), res=6)
     scene = pt.build_scene(sd, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.render_image(scene, pt.RenderConfig(engine="wavefront",
-                                               **{field: True}),
-                        torch.Generator().manual_seed(1))
+    want = pt.render_image(scene, pt.RenderConfig(**{field: True}),
+                           torch.Generator().manual_seed(1))
+    got = pt.render_image(scene, pt.RenderConfig(engine="wavefront",
+                                                 **{field: True}),
+                          torch.Generator().manual_seed(1))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=5e-4)
     bvh = pt.build_scene(sd, device=torch.device("cpu"), accel=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.render_image(bvh, pt.RenderConfig(accel_impl="perray",
-                                             **{field: True}),
-                        torch.Generator().manual_seed(1))
+    walk = pt.render_image(bvh, pt.RenderConfig(**{field: True}),
+                           torch.Generator().manual_seed(1))
+    perray = pt.render_image(bvh, pt.RenderConfig(accel_impl="perray",
+                                                  **{field: True}),
+                             torch.Generator().manual_seed(1))
+    np.testing.assert_allclose(perray.numpy(), walk.numpy(), atol=1e-5)
 
 
-def test_wavefront_engine_raises():
+def test_wavefront_engine_renders():
     scene = pt.build_scene(mixed_scene(pt.SceneDef(), res=4),
                            device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.render_image(scene, pt.RenderConfig(engine="wavefront"))
+    got = pt.render_image(scene, pt.RenderConfig(engine="wavefront"))
+    want = pt.render_image(scene, pt.RenderConfig())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=5e-4)
+    with pytest.raises(ValueError, match="engine"):
+        pt.render_image(scene, pt.RenderConfig(engine="fast"))

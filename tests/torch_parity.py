@@ -22,12 +22,15 @@ _META = ("accel_type", "spp", "n_objects", "n_lights", "has_reflective",
 
 
 def jax_scene_to_port(jscene, device="cpu"):
-    """A JAX Scene as the port's Scene, through NumPy."""
+    """A JAX Scene as the port's Scene, through NumPy, with its reference
+    BVH or grid tables carried across."""
     arrays = {"bg_color": np.asarray(jscene.bg_color),
               "skybox": np.asarray(jscene.skybox)}
     meta = {k: getattr(jscene, k) for k in _META}
-    for group in ("prims", "materials", "lights", "camera"):
+    for group in ("prims", "materials", "lights", "camera", "bvh", "grid"):
         obj = getattr(jscene, group)
+        if obj is None:
+            continue
         for f in dataclasses.fields(obj):
             v = getattr(obj, f.name)
             if isinstance(v, int):

@@ -19,7 +19,9 @@ they exit with an error rather than fall back to the CPU.
 ``render`` renders a ``.p3f`` file or a built-in scene (mount_low, mount_low
 in distribution mode with spp 4 and an 8-pixel lens, the sphere field or
 the random scene, with the scene's accelerator unless ``--accel`` says
-otherwise), writes the PNG, and prints the frame time and
+otherwise) on the engine its summary line names (``--engine megakernel``
+renders a scene over the kernel's envelope on the wavefront), writes the
+PNG, and prints the frame time and
 the rate in Mrays/s (primary + shadow rays of every AA sample). A scene's
 ``spp`` turns on anti-aliasing and depth of field
 (``RenderConfig.with_scene_flags``), as ``--spp`` does; the stochastic
@@ -78,7 +80,9 @@ def _config(args, scene):
                        motion_blur=args.motion_blur, use_skybox=args.skybox,
                        fresnel_mode=args.fresnel,
                        refraction_mode=args.refraction,
-                       accel_impl=args.accel_impl).with_scene_flags(scene)
+                       accel_impl=args.accel_impl,
+                       wavefront_capacity=args.capacity
+                       ).with_scene_flags(scene)
     if args.spp is not None:
         cfg = dataclasses.replace(cfg, spp=args.spp,
                                   anti_aliasing=args.spp > 0,
@@ -90,7 +94,7 @@ def cmd_render(args) -> None:
     from .core import constants as C
     from .core.build import build_scene
     from .io.image import save_png
-    from .models.whitted import render_image
+    from .models.whitted import engine_of, render_image
     from .utils.timing import frame_ms, mrays_per_s
 
     dev = torch.device(args.device)
@@ -102,9 +106,16 @@ def cmd_render(args) -> None:
     samples = max(cfg.spp, 1) ** 2 if cfg.anti_aliasing else 1
     sky = (f"skybox {tuple(scene.skybox.shape)} {scene.skybox.dtype}"
            if scene.has_skybox else "no skybox")
+    engine = engine_of(scene, cfg)
+    if engine != cfg.engine:
+        engine += (f" (engine {cfg.engine} asked for: {scene.n_objects} "
+                   f"objects at depth {cfg.max_depth} are outside its "
+                   "envelope)")
+    if engine.startswith("wavefront"):
+        engine += f", capacity {cfg.wavefront_capacity:g}"
     print(f"Resolution {cam.res_x}x{cam.res_y}, {scene.n_objects} objects, "
           f"{scene.n_lights} lights, depth {cfg.max_depth}, engine "
-          f"{cfg.engine}, accel {accel} ({cfg.accel_impl}), {samples} "
+          f"{engine}, accel {accel} ({cfg.accel_impl}), {samples} "
           f"samples a pixel (AA {cfg.anti_aliasing}, DoF "
           f"{cfg.depth_of_field}, soft shadow {cfg.soft_shadow}, fuzzy "
           f"{cfg.fuzzy_reflection}, motion blur {cfg.motion_blur}, use "
@@ -180,7 +191,8 @@ def main(argv=None) -> int:
                              "brute"],
                     help="BVH- and grid-mode traversal: auto, packets and "
                     "clusters walk the BVH (the CUDA walk on a CUDA device), "
-                    "brute tests every primitive; perray is not ported yet")
+                    "brute tests every primitive, perray walks the "
+                    "reference's median BVH or grid DDA (batched PyTorch)")
     pr.add_argument("--res", type=int, default=None,
                     help="square resolution (default: scene's)")
     pr.add_argument("--spp", type=int, default=None,
@@ -197,10 +209,15 @@ def main(argv=None) -> int:
                     help="skybox directory of six faces (right, left, top, "
                     "bottom, front, back .png/.jpg), over the scene's env")
     pr.add_argument("--depth", type=int, default=4)
-    pr.add_argument("--engine", choices=["sweep", "megakernel"],
+    pr.add_argument("--engine", choices=["sweep", "wavefront", "megakernel"],
                     default="sweep",
-                    help="megakernel = the CUDA kernel on a CUDA device, "
-                    "its plain version on the CPU")
+                    help="wavefront = the compacted queue; megakernel = the "
+                    "CUDA kernel on a CUDA device, its plain version on the "
+                    "CPU, and the wavefront on scenes over 256 objects or "
+                    "depth 8")
+    pr.add_argument("--capacity", type=float, default=1.0,
+                    help="the wavefront's queue, as a share of the primary "
+                    "rays (children beyond it are dropped)")
     pr.add_argument("--fresnel", default="schlick",
                     choices=["schlick", "reference_schlick",
                              "reference_exact"])

@@ -5,7 +5,10 @@ The counterpart of ``u_4a_2s_p3d_raytracer_template2_tpu/core/build.py``
 NumPy operations, so they equal the JAX build exactly. A BVH or grid scene
 also gets the port's BVH tables (``accel/packets.build_packets``), built once
 on the host and uploaded; a grid scene routes to the same walk, as the JAX
-package does on the TPU. An ``env`` directory's cubemap is loaded as raw u8
+package does on the TPU. Beside them a BVH scene gets the reference's
+spatial-median tree (``accel/bvh.build_bvh``) and a grid scene its uniform
+grid (``accel/grid.build_grid``), which ``accel_impl="perray"`` traverses
+(JAX ``core/build.py:122-150``). An ``env`` directory's cubemap is loaded as raw u8
 (io/skybox.py). Every scene gets the brute-force kernels' tables
 (``ops/intersect.brute_tables``), packed once on its device.
 """
@@ -54,6 +57,28 @@ def build_camera(cam: dict, *, device) -> Camera:
         time0=f32(0.0), time1=f32(0.0),
         res_x=int(cam["res_x"]), res_y=int(cam["res_y"]),
     )
+
+
+def accel_tables(params: np.ndarray, ptype: np.ndarray, accel_type: int,
+                 device):
+    """(packets, bvh, grid) of the primitives ``params`` [N, 12] / ``ptype``
+    [N] (no padding) in a scene of ``accel_type``: the walk's tables for a
+    BVH or grid scene, with the reference's median BVH or uniform grid
+    beside them; None where the scene has none."""
+    packets = bvh = grid = None
+    if accel_type in (C.ACCEL_BVH, C.ACCEL_GRID) and len(params) > 0:
+        from ..accel.packets import build_packets
+
+        packets = build_packets(params, ptype, device=device)
+        if accel_type == C.ACCEL_BVH:
+            from ..accel.bvh import build_bvh
+
+            bvh = build_bvh(params, ptype, device=device)
+        else:
+            from ..accel.grid import build_grid
+
+            grid = build_grid(params, ptype, device=device)
+    return packets, bvh, grid
 
 
 def build_scene(sd, *, device, accel: Optional[int] = None) -> Scene:
@@ -113,11 +138,8 @@ def build_scene(sd, *, device, accel: Optional[int] = None) -> Scene:
         lt[i] = light
     lights = Lights(position=t(lt[:, 0:3]), color=t(lt[:, 3:6]))
 
-    packets = None
-    if accel_type in (C.ACCEL_BVH, C.ACCEL_GRID) and n_obj > 0:
-        from ..accel.packets import build_packets
-
-        packets = build_packets(params[:n_obj], ptype[:n_obj], device=device)
+    packets, bvh, grid = accel_tables(params[:n_obj], ptype[:n_obj],
+                                      int(accel_type), device)
 
     from ..ops.intersect import brute_tables
 
@@ -149,5 +171,7 @@ def build_scene(sd, *, device, accel: Optional[int] = None) -> Scene:
         has_reflective=bool((mats[:, 7] > 0).any()),
         has_transmissive=bool((mats[:, 9] != 0).any()),
         packets=packets,
+        bvh=bvh,
+        grid=grid,
         brute=brute_tables(prims),
     )

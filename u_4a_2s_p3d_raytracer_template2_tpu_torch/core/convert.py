@@ -9,10 +9,15 @@ jax: the caller does the ``np.asarray``.
 and ``"skybox"``, the ``[6, H, W, 3]`` cubemap, when ``has_skybox``);
 ``meta`` holds the static fields (``n_tri`` ... ``n_box``, ``res_x``,
 ``res_y``, ``accel_type``, ``spp``, ``n_objects``, ``n_lights``,
-``has_reflective``, ``has_transmissive``, ``has_skybox``). Keys the port has
-no field for (the accelerator tables, ``tri_mo``, ``sph_k``) are ignored: a
-BVH or grid scene gets the port's own BVH tables, rebuilt from its
-primitives, and every scene the brute-force kernels' tables.
+``has_reflective``, ``has_transmissive``, ``has_skybox``). A BVH scene's
+``"bvh.<field>"`` arrays (with ``n_nodes`` and ``n_bounded`` in ``meta``)
+and a grid scene's ``"grid.<field>"`` arrays (with ``nx``, ``ny``, ``nz``
+and ``max_per_cell``) are carried into ``Scene.bvh`` and ``Scene.grid``,
+so both packages' per-ray traversals run on one set of tables; without
+them the port builds its own (core/build.accel_tables). Keys the port has
+no field for (the cluster and packet tables, ``tri_mo``, ``sph_k``) are
+ignored: a BVH or grid scene gets the port's own walk tables, rebuilt from
+its primitives, and every scene the brute-force kernels' tables.
 
 ``pt_scene_from_arrays`` does the same for the path tracer's ``PTScene``:
 its leaves keyed by field name (``"sp_center0"``, ``"tri_mat"``,
@@ -26,10 +31,18 @@ import numpy as np
 import torch
 
 from . import constants as C
-from ..accel.packets import build_packets
 from ..models.pathtracer import PTMaterials, PTScene
 from ..ops.intersect import brute_tables
-from .types import Camera, Lights, Materials, Primitives, Scene
+from .build import accel_tables
+from .types import (
+    BvhArrays,
+    Camera,
+    GridArrays,
+    Lights,
+    Materials,
+    Primitives,
+    Scene,
+)
 
 
 def _fields(cls) -> list[str]:
@@ -51,11 +64,14 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
         return cls(**kw)
 
     n_obj = int(meta["n_objects"])
-    packets = None
-    if int(meta["accel_type"]) in (C.ACCEL_BVH, C.ACCEL_GRID) and n_obj > 0:
-        packets = build_packets(np.asarray(arrays["prims.params"])[:n_obj],
-                                np.asarray(arrays["prims.ptype"])[:n_obj],
-                                device=device)
+    accel_type = int(meta["accel_type"])
+    packets, bvh, grid = accel_tables(
+        np.asarray(arrays["prims.params"])[:n_obj],
+        np.asarray(arrays["prims.ptype"])[:n_obj], accel_type, device)
+    if accel_type == C.ACCEL_BVH and "bvh.order" in arrays:
+        bvh = group("bvh", BvhArrays, ("n_nodes", "n_bounded"))
+    if accel_type == C.ACCEL_GRID and "grid.cell_items" in arrays:
+        grid = group("grid", GridArrays, ("nx", "ny", "nz", "max_per_cell"))
     prims = group("prims", Primitives, ("n_tri", "n_sph", "n_pl", "n_box"))
     # the cubemap keeps its dtype: u8 as loaded, f32 as a test gives it
     skybox = (torch.from_numpy(np.array(arrays["skybox"])).to(device)
@@ -75,6 +91,8 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
         has_reflective=bool(meta["has_reflective"]),
         has_transmissive=bool(meta["has_transmissive"]),
         packets=packets,
+        bvh=bvh,
+        grid=grid,
         brute=brute_tables(prims),
     )
 

@@ -12,8 +12,11 @@ Parameter block layout by type (``ptype``):
   AABOX    : min(3), max(3)                   — scene.cpp:188-283
 
 A BVH or grid scene carries the port's BVH tables in ``Scene.packets``
-(``accel/packets.py``); the JAX scene's reference BVH, grid and cluster tables
-have no counterpart yet (ROADMAP.md, queue 1, item 9).
+(``accel/packets.py``), and the reference's accelerator beside them: a BVH
+scene the spatial-median tree (``Scene.bvh``, ``accel/bvh.build_bvh``), a
+grid scene the uniform grid (``Scene.grid``, ``accel/grid.build_grid``),
+which ``accel_impl="perray"`` traverses (``accel/traverse.py``). The JAX
+scene's cluster tables are a TPU workaround and have no counterpart.
 """
 from __future__ import annotations
 
@@ -90,6 +93,44 @@ class Camera:
 
 
 @dataclasses.dataclass(frozen=True)
+class BvhArrays:
+    """Flat linearized BVH (reference layout: rayAccelerator.h:52-69,
+    bvh.cpp:149-153), as JAX ``core/types.py:128-146``.
+
+    ``index`` points at the left child of a pair for internal nodes and at
+    the first object (in ``order``) for leaves; children are contiguous
+    pairs. Unbounded primitives (planes, scene.h:75) cannot live in the
+    tree and are tested beside it via ``unbounded_ids``.
+    """
+
+    bbox_min: torch.Tensor       # [K, 3]
+    bbox_max: torch.Tensor       # [K, 3]
+    leaf: torch.Tensor           # [K] bool
+    index: torch.Tensor          # [K] i32
+    n_objs: torch.Tensor         # [K] i32
+    order: torch.Tensor          # [Npad] i32, sorted object ids (bvh.cpp:55)
+    unbounded_ids: torch.Tensor  # [Ppad] i32, -1 padded
+    n_nodes: int = 0
+    n_bounded: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class GridArrays:
+    """Uniform grid (reference: grid.cpp:30-98) in a dense padded layout,
+    as JAX ``core/types.py:149-160``."""
+
+    bbox_min: torch.Tensor       # [3]
+    bbox_max: torch.Tensor       # [3]
+    cell_items: torch.Tensor     # [ncells, max_per_cell] i32, -1 padded
+    cell_count: torch.Tensor     # [ncells] i32
+    unbounded_ids: torch.Tensor  # [Ppad] i32, -1 padded (planes)
+    nx: int = 1
+    ny: int = 1
+    nz: int = 1
+    max_per_cell: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene:
     """A whole scene on one device."""
 
@@ -115,6 +156,10 @@ class Scene:
     # the BVH walk's tables (accel.packets.PacketTables) of a BVH or grid
     # scene with at least one bounded primitive; None otherwise
     packets: Optional[Any] = None
+    # the reference's spatial-median BVH of a BVH scene and uniform grid of
+    # a grid scene (the per-ray traversals' tables); None otherwise
+    bvh: Optional[BvhArrays] = None
+    grid: Optional[GridArrays] = None
     # the brute-force kernels' tables (ops.intersect.BruteTables) of the
     # triangles and spheres, packed once per scene
     brute: Optional[Any] = None
@@ -150,8 +195,7 @@ class RenderConfig:
     """Feature flags mirroring the reference's compile-time bools
     (main.cpp:40-48) plus explicit switches for the reference's quirks.
     Copied field for field, defaults included, from the JAX package's
-    ``RenderConfig``; fields the port does not serve yet (the wavefront
-    engine) raise where they are used.
+    ``RenderConfig``.
 
     Modes marked ``reference_*`` replicate shipped reference behavior including
     its bugs; the defaults are the physically-correct variants.
@@ -194,9 +238,13 @@ class RenderConfig:
     shutter: tuple[float, float] = (0.0, 1.0)  # main.cpp:47-48
 
     # Secondary-ray engine: "sweep" = full 2^l level sweep in PyTorch;
-    # "megakernel" = the hand-written CUDA kernel on CUDA tensors, its plain
-    # version on CPU tensors (models/whitted_megakernel.py); "wavefront" is
-    # not ported yet.
+    # "wavefront" = the compacted queue (models/whitted_wavefront.py) of
+    # ceil(R * wavefront_capacity) entries a round; "megakernel" = the
+    # hand-written CUDA kernel on CUDA tensors, its plain version on CPU
+    # tensors (models/whitted_megakernel.py), and the wavefront on a scene
+    # or config outside its envelope. wavefront_defer_sky is accepted and
+    # gives the same image (the JAX package's deferred sky is a scheduling
+    # workaround for XLA).
     engine: str = "sweep"
     wavefront_capacity: float = 1.0
     wavefront_defer_sky: bool = False
@@ -205,8 +253,8 @@ class RenderConfig:
     # BVH- and grid-mode traversal (models/whitted._bvh_impl): "auto",
     # "packets", "clusters" and "multi" walk the scene's BVH tables
     # ("multi" also fuses a hit's hard-shadow queries over its lights into
-    # one launch); "brute" tests every primitive; "perray" (the reference
-    # BVH walk and grid DDA) is not ported yet and raises.
+    # one launch); "brute" tests every primitive; "perray" walks the
+    # reference's median BVH or grid DDA (accel/traverse.py).
     accel_impl: str = "auto"
 
     def with_scene_flags(self, scene: Scene) -> "RenderConfig":

@@ -27,7 +27,11 @@ the tests derive the raw draws from the JAX key chain.
 
 Node (lvl, path) follows the sweep's interleave: slot = ray·W_l + path, the
 reflection child of path p is 2p and the refraction child 2p+1 when both
-spawn, p when one does.
+spawn, p when one does. ``NodeDraws`` hands one level's values to
+``models/whitted._level_step``: in the sweep's slot order
+(``StreamLayout.level_values``), or for the wavefront engine's queue
+entries by their (pixel, path) (``StreamLayout.node_values``), so both
+engines read the same plan draw for draw.
 """
 from __future__ import annotations
 
@@ -83,6 +87,14 @@ class StreamLayout:
         step = self.node_rows[lvl]
         return rows[start:start + W * step:step].t().reshape(-1)
 
+    def node_values(self, rows: torch.Tensor, lvl: int, offset: int,
+                    pixel: torch.Tensor, path: torch.Tensor) -> torch.Tensor:
+        """[n] values of row ``offset`` of the nodes (lvl, ``path``) [n] of
+        the rays ``pixel`` [n]: row ``level_base[lvl] + path·node_rows[lvl]
+        + offset``, column ``pixel``."""
+        row = path * self.node_rows[lvl] + (self.level_base[lvl] + offset)
+        return rows[row, pixel]
+
     def fuzzy_offset(self) -> int:
         """A fuzzy node's first row after its own first: past the node's
         two shadow rows a light."""
@@ -104,6 +116,41 @@ class StreamLayout:
                 for k in range(3):
                     out[2 + k].append(rs[k])
         return out
+
+
+class NodeDraws(NamedTuple):
+    """The trace values of one level's rays: ``rows`` [n_rows, R] (after
+    ``stream_rows``; None when the layout has none) read in the sweep's
+    slot order, or, with ``pixel`` and ``path`` [n] int64, for queue
+    entries at those nodes."""
+
+    layout: StreamLayout
+    lvl: int
+    rows: Optional[torch.Tensor]
+    pixel: Optional[torch.Tensor] = None
+    path: Optional[torch.Tensor] = None
+
+    def values(self, offset: int) -> torch.Tensor:
+        if self.pixel is None:
+            return self.layout.level_values(self.rows, self.lvl, offset)
+        return self.layout.node_values(self.rows, self.lvl, offset,
+                                       self.pixel, self.path)
+
+    def jitter(self):
+        """Per light, the (jx, jy) light offsets of jittered soft shadows;
+        None without them."""
+        if not self.layout.soft_jit:
+            return None
+        return [(self.values(2 * li), self.values(2 * li + 1))
+                for li in range(self.layout.n_lights)]
+
+    def sphere(self):
+        """[n, 3] unit-sphere points of fuzzy reflection at a spawning
+        level; None without them."""
+        if not self.layout.has_fuzzy(self.lvl):
+            return None
+        off = self.layout.fuzzy_offset()
+        return torch.stack([self.values(off + k) for k in range(3)], dim=-1)
 
 
 def stream_layout(has_refl: bool, has_refr: bool, n_lights: int,

@@ -14,20 +14,23 @@ primitive for them, is told which slots are inactive and traces only the
 others.
 
 ``engine="megakernel"`` hands the whole tree to one CUDA kernel on CUDA
-tensors (models/whitted_megakernel.py). In a BVH or grid scene the sweep's
+tensors (models/whitted_megakernel.py); a scene or config outside its
+envelope (``whitted_megakernel.supports``) renders through
+``engine="wavefront"``, the compacted queue of models/whitted_wavefront.py,
+which shares ``_level_step`` with the sweep. In a BVH or grid scene the
 closest-hit and shadow queries walk the scene's BVH tables
 (accel/packets.py: the CUDA walk on CUDA tensors, its plain version on CPU
-tensors); in a brute-force scene (or under ``accel_impl="brute"``) they
-test every primitive (ops/intersect.py: above 48 primitives the CUDA
-brute-force kernels on CUDA tensors, their plain version on CPU
-tensors).
+tensors), or under ``accel_impl="perray"`` the reference's median BVH or
+grid DDA (accel/traverse.py, batched PyTorch on either device); in a
+brute-force scene (or under ``accel_impl="brute"``) they test every
+primitive (ops/intersect.py: above 48 primitives the CUDA brute-force
+kernels on CUDA tensors, their plain version on CPU tensors).
 
 Distribution mode (main.cpp:757-798: the spp×spp anti-aliasing scan, thin-lens
 depth of field, motion-blur shutter times, jittered soft shadows, fuzzy
 reflection) takes its random values from a sample plan drawn before the
 trace (models/samples.py); misses read the skybox when ``use_skybox`` is set
-and the scene has one. The wavefront engine and the reference BVH walk and
-grid DDA (``accel_impl="perray"``) are not ported yet and raise.
+and the scene has one.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from ..ops import intersect, shade
 from ..ops.camera import primary_rays
 from .samples import (
     Draws,
+    NodeDraws,
     draw_subpixel,
     scene_layout,
     stream_rows,
@@ -48,72 +52,94 @@ from .samples import (
 _EPS = C.EPSILON
 
 
+ENGINES = ("sweep", "wavefront", "megakernel")
+
+
 def check_config(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for a config outside the ported envelope."""
-    if cfg.engine == "wavefront":
-        raise NotImplementedError(
-            "the wavefront engine is not ported yet (ROADMAP.md, queue 1, "
-            "item 8 'Wavefront engine')")
-    if cfg.engine not in ("sweep", "megakernel"):
+    """Raise ValueError for an engine the port does not have."""
+    if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}")
 
 
 # ---------------------------------------------------------------------------
 # closest-hit and shadow dispatch (JAX models/whitted.py:45-199)
 
-_PERRAY = ("accel_impl='perray' (the reference BVH walk and the grid DDA of "
-           "accel/traverse.py) is not ported yet (ROADMAP.md, queue 1, item 9 "
-           "'Accelerators')")
-
 
 def _bvh_impl(cfg: RenderConfig | None) -> str:
     """Resolve ``cfg.accel_impl`` for a BVH or grid scene: "walk" (the
     BVH walk of accel/packets.py, for "auto", "packets", "clusters" and
-    "multi") or "brute"."""
+    "multi"), "perray" (accel/traverse.py) or "brute"."""
     impl = cfg.accel_impl if cfg is not None else "auto"
     if impl in ("auto", "packets", "clusters", "multi"):
         return "walk"
-    if impl == "brute":
-        return "brute"
-    if impl == "perray":
-        raise NotImplementedError(_PERRAY)
+    if impl in ("perray", "brute"):
+        return impl
     raise ValueError(f"unknown accel_impl {impl!r}")
 
 
-def _walks(scene: Scene, cfg: RenderConfig | None) -> bool:
-    return (scene.accel_type in (C.ACCEL_BVH, C.ACCEL_GRID)
-            and _bvh_impl(cfg) == "walk" and scene.packets is not None)
+def _accel(scene: Scene, cfg: RenderConfig | None) -> str:
+    """The accelerator a BVH or grid scene's queries take: "walk", "bvh"
+    or "grid" (the per-ray traversals), else "brute"."""
+    if scene.accel_type not in (C.ACCEL_BVH, C.ACCEL_GRID):
+        return "brute"
+    impl = _bvh_impl(cfg)
+    if impl == "walk" and scene.packets is not None:
+        return "walk"
+    if impl == "perray":
+        if scene.accel_type == C.ACCEL_BVH and scene.bvh is not None:
+            return "bvh"
+        if scene.accel_type == C.ACCEL_GRID and scene.grid is not None:
+            return "grid"
+    return "brute"
 
 
 def trace_closest(scene: Scene, rays: Rays, cfg: RenderConfig | None = None,
                   dead=None):
     """Closest hit via the scene's accelerator; returns (t, obj_id).
-    ``dead`` [R] bool marks slots the caller masks downstream: the walk and
-    brute force trace only the others and give them (BIG, -1)."""
-    if _walks(scene, cfg):
+    ``dead`` [R] bool marks slots the caller masks downstream: they are not
+    traced and read (BIG, -1)."""
+    accel = _accel(scene, cfg)
+    if accel == "walk":
         from ..accel.packets import packet_closest_hit
 
         return packet_closest_hit(scene.packets, rays, dead)
+    if accel == "bvh":
+        from ..accel.traverse import bvh_closest_hit
+
+        return bvh_closest_hit(scene.bvh, scene.prims, rays, dead)
+    if accel == "grid":
+        from ..accel.traverse import grid_closest_hit
+
+        return grid_closest_hit(scene.grid, scene.prims, rays, dead)
     return intersect.closest_hit_brute(scene.prims, rays, scene.brute, dead)
 
 
 def _grid_initfail(scene: Scene, cfg: RenderConfig | None) -> bool:
-    return (scene.accel_type == C.ACCEL_GRID and cfg is not None
-            and cfg.reference_grid_shadow_initfail)
+    return (scene.accel_type == C.ACCEL_GRID and scene.grid is not None
+            and cfg is not None and cfg.reference_grid_shadow_initfail)
 
 
 def trace_shadow(scene: Scene, rays: Rays, max_t,
                  cfg: RenderConfig | None = None, dead=None):
     """Any-hit occlusion via the scene's accelerator. ``dead`` [R] bool
-    marks lanes the caller masks downstream: the walk and brute force report
-    them occluded without a test."""
-    if _grid_initfail(scene, cfg):
-        raise NotImplementedError(
-            "reference_grid_shadow_initfail needs the grid DDA: " + _PERRAY)
-    if _walks(scene, cfg):
+    marks lanes the caller masks downstream: they report occluded without a
+    test. A grid scene under ``reference_grid_shadow_initfail`` takes the
+    grid DDA, whose failed grid entry occludes (grid.cpp:326-328), whatever
+    ``accel_impl`` says, as in the JAX package."""
+    accel = _accel(scene, cfg)
+    if _grid_initfail(scene, cfg) or accel == "grid":
+        from ..accel.traverse import grid_any_hit
+
+        return grid_any_hit(scene.grid, scene.prims, rays, max_t, dead,
+                            init_fail_occludes=_grid_initfail(scene, cfg))
+    if accel == "walk":
         from ..accel.packets import packet_any_hit
 
         return packet_any_hit(scene.packets, rays, max_t, dead)
+    if accel == "bvh":
+        from ..accel.traverse import bvh_any_hit
+
+        return bvh_any_hit(scene.bvh, scene.prims, rays, max_t, dead)
     return intersect.any_hit_brute(scene.prims, rays, max_t, dead,
                                    scene.brute)
 
@@ -124,7 +150,7 @@ def _shadow_multi_rows(scene: Scene, cfg: RenderConfig, hit_point, precise,
     (accel/packets.packet_any_hit_multi) under ``accel_impl="multi"`` with
     two or more lights; None where the per-light queries apply."""
     if (cfg.accel_impl != "multi" or scene.n_lights < 2
-            or not _walks(scene, cfg) or _grid_initfail(scene, cfg)):
+            or _accel(scene, cfg) != "walk" or _grid_initfail(scene, cfg)):
         return None
     from ..accel.packets import packet_any_hit_multi
 
@@ -198,10 +224,10 @@ def direct_lighting(scene: Scene, rays: Rays, hit_point, precise, normal,
 
 
 def _level_step(scene: Scene, rays: Rays, active, ior_in, cfg: RenderConfig,
-                spawn: bool, lvl: int, layout, rows):
-    """Trace + locally shade level ``lvl``; optionally emit children.
-    ``layout``/``rows``: the stream layout and the trace's sample values
-    (models/samples.py; ``rows`` None when the layout has none)."""
+                spawn: bool, node: NodeDraws):
+    """Trace + locally shade one level's rays; optionally emit children.
+    ``node``: the rays' sample values (models/samples.NodeDraws), read in
+    the sweep's slot order or by the wavefront queue's (pixel, path)."""
     t_disc, obj_id = trace_closest(scene, rays, cfg, dead=~active)
     hit = active & (obj_id >= 0)
 
@@ -222,12 +248,8 @@ def _level_step(scene: Scene, rays: Rays, active, ior_in, cfg: RenderConfig,
     precise = hit_point + normal * _EPS
 
     mat = shade.gather_materials(scene.materials, mat_id)
-    jitter = None
-    if layout.soft_jit:
-        jitter = [tuple(layout.level_values(rows, lvl, 2 * li + k)
-                        for k in range(2)) for li in range(layout.n_lights)]
     local = direct_lighting(scene, rays, hit_point, precise, normal, mat,
-                            hit, cfg, jitter)
+                            hit, cfg, node.jitter())
 
     # miss color: the flat background, or the skybox (scene.cpp:383-461)
     miss = active & (obj_id < 0)
@@ -247,10 +269,8 @@ def _level_step(scene: Scene, rays: Rays, active, ior_in, cfg: RenderConfig,
 
     # reflection child (main.cpp:646-667)
     refl_dir = normalize(shade.reflect_dir(rays.direction, nf))
-    if layout.has_fuzzy(lvl):
-        off = layout.fuzzy_offset()
-        sphere = torch.stack([layout.level_values(rows, lvl, off + k)
-                              for k in range(3)], dim=-1)
+    sphere = node.sphere()
+    if sphere is not None:
         refl_dir = shade.fuzzy_reflect_dir(refl_dir, nf, cfg.roughness,
                                            sphere)
     refl_active = hit & (mat.ks > 0.0)
@@ -281,6 +301,21 @@ def _level_step(scene: Scene, rays: Rays, active, ior_in, cfg: RenderConfig,
     return local_color, (children, fold)
 
 
+def trace_values(scene: Scene, cfg: RenderConfig, R: int, rows, offsets):
+    """(layout, values) of a trace of R primary rays: the stream layout and
+    ``stream_rows`` of the raw draws ``rows`` [n_rows, R] (None when the
+    layout has none); raises if ``rows`` does not fit the layout."""
+    layout = scene_layout(scene, cfg)
+    if layout.n_rows and (rows is None
+                          or tuple(rows.shape) != (layout.n_rows, R)):
+        raise ValueError(
+            f"this config reads {layout.n_rows} sample rows of {R} rays; got "
+            f"{None if rows is None else tuple(rows.shape)}")
+    if layout.n_rows:
+        rows = stream_rows(rows, layout, offsets, cfg.spp)
+    return layout, rows
+
+
 def _interleave(a, b):
     """[R,...],[R,...] -> [2R,...] with a at even, b at odd slots."""
     return torch.stack([a, b], dim=1).reshape((-1,) + tuple(a.shape[1:]))
@@ -301,14 +336,7 @@ def trace_rays(scene: Scene, rays: Rays, cfg: RenderConfig,
     """
     check_config(cfg)
     R = rays.origin.shape[0]
-    layout = scene_layout(scene, cfg)
-    if layout.n_rows and (rows is None
-                          or tuple(rows.shape) != (layout.n_rows, R)):
-        raise ValueError(
-            f"this config reads {layout.n_rows} sample rows of {R} rays; got "
-            f"{None if rows is None else tuple(rows.shape)}")
-    if layout.n_rows:
-        rows = stream_rows(rows, layout, offsets, cfg.spp)
+    layout, rows = trace_values(scene, cfg, R, rows, offsets)
     dev = rays.origin.device
     spawn_refl = scene.has_reflective
     spawn_refr = scene.has_transmissive
@@ -318,7 +346,7 @@ def trace_rays(scene: Scene, rays: Rays, cfg: RenderConfig,
     if not (spawn_refl or spawn_refr):
         # no secondary rays possible: single unclamped local+bg level
         local_color, _ = _level_step(scene, rays, ones_b, ones_f, cfg, True,
-                                     0, layout, rows)
+                                     NodeDraws(layout, 0, rows))
         return local_color
 
     levels = []
@@ -326,7 +354,7 @@ def trace_rays(scene: Scene, rays: Rays, cfg: RenderConfig,
     for lvl in range(cfg.max_depth):
         spawn = lvl < cfg.max_depth - 1
         color, nxt = _level_step(scene, cur_rays, cur_active, cur_ior, cfg,
-                                 spawn, lvl, layout, rows)
+                                 spawn, NodeDraws(layout, lvl, rows))
         if not spawn:
             break
         children, fold = nxt
@@ -426,22 +454,43 @@ def _sweep_trace(scene, rays, cfg, rows, offsets):
     return clamp01(trace_rays(scene, rays, cfg, rows, offsets))
 
 
+def _wavefront_trace(scene, rays, cfg, rows, offsets):
+    from .whitted_wavefront import trace_rays_wavefront
+
+    return clamp01(trace_rays_wavefront(scene, rays, cfg, rows, offsets))
+
+
+def engine_of(scene: Scene, cfg: RenderConfig) -> str:
+    """The engine that renders ``cfg`` on ``scene`` (JAX
+    models/whitted.py:465-497 and 564-575): ``cfg.engine``, except that
+    ``"megakernel"`` on a scene or config outside the Whitted kernel's
+    envelope (``whitted_megakernel.supports``) is ``"wavefront"``."""
+    check_config(cfg)
+    if cfg.engine == "megakernel":
+        from .whitted_megakernel import supports
+
+        return "megakernel" if supports(scene, cfg) else "wavefront"
+    return cfg.engine
+
+
 def render_tile(scene: Scene, px: torch.Tensor, py: torch.Tensor,
                 cfg: RenderConfig, generator=None,
                 draws=None) -> torch.Tensor:
     """Render a flat batch of pixel indices px, py -> [R,3] colors in [0,1]
-    (``render_samples``'s loop).
+    (``render_samples``'s loop) on ``engine_of(scene, cfg)``.
 
     On CUDA tensors ``engine="megakernel"`` launches the CUDA kernel (once
     a subpixel) or raises; on CPU tensors it runs the kernel's plain
-    version.
+    version. The choice between it and the wavefront is made from the
+    scene and the config alone.
     """
-    check_config(cfg)
-    if cfg.engine == "megakernel":
+    engine = engine_of(scene, cfg)
+    if engine == "megakernel":
         from .whitted_megakernel import render_tile as mk_render_tile
 
         return mk_render_tile(scene, px, py, cfg, generator, draws)
-    return render_samples(scene, px, py, cfg, _sweep_trace, generator, draws)
+    trace = _wavefront_trace if engine == "wavefront" else _sweep_trace
+    return render_samples(scene, px, py, cfg, trace, generator, draws)
 
 
 def pixel_grid(res_x: int, res_y: int, device) -> tuple[torch.Tensor,

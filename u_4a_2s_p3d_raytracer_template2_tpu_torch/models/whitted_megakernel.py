@@ -33,7 +33,10 @@ occupancy, and each launch reads only its own subpixel's rows.
 
 ``trace_rays_megakernel`` dispatches on the device of its tensors: CPU
 tensors take the plain version, CUDA tensors launch the kernel or raise.
-There is no fallback from one to the other. Forward only: the
+There is no fallback from one to the other. A scene or config outside the
+kernel's envelope (``supports``) never reaches it: models/whitted
+.render_tile renders it through the wavefront engine, as the JAX package
+does (``whitted.py:564-575`` there). Forward only: the
 ``torch.autograd.Function`` whose backward is autograd through the plain
 version comes with the training slice (ROADMAP.md, queue 1).
 """
@@ -89,17 +92,26 @@ def shape_of(scene: Scene) -> StaticShape:
                        has_refr=bool(scene.has_transmissive))
 
 
+def supports(scene: Scene, cfg: RenderConfig) -> bool:
+    """Whether the kernel serves the scene and config: one to MAX_PRIMS
+    primitives (JAX ``whitted_streamed.supports``) and depth MAX_DEPTH.
+    ``engine="megakernel"`` renders anything else through the wavefront
+    engine (models/whitted.engine_of)."""
+    return 0 < scene.n_objects <= MAX_PRIMS and cfg.max_depth <= MAX_DEPTH
+
+
 def check_supported(scene: Scene, cfg: RenderConfig) -> None:
+    """Raise for a scene or config the kernel does not serve."""
     if scene.n_objects < 1 or cfg.max_depth < 1:
         raise ValueError(
             f"the megakernel needs a primitive and max_depth >= 1; got "
             f"{scene.n_objects} primitives, max_depth {cfg.max_depth}")
-    if scene.n_objects > MAX_PRIMS or cfg.max_depth > MAX_DEPTH:
+    if not supports(scene, cfg):
         raise NotImplementedError(
             f"{scene.n_objects} primitives at max_depth {cfg.max_depth}: the "
             f"megakernel serves at most {MAX_PRIMS} primitives and depth "
-            f"{MAX_DEPTH}; the rest waits for the wavefront engine "
-            "(ROADMAP.md, queue 1, item 8 'Wavefront engine')")
+            f"{MAX_DEPTH}; render_tile takes such a scene or config to the "
+            "wavefront engine")
 
 
 def scene_tables(scene: Scene):

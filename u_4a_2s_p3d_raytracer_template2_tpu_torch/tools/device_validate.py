@@ -5,18 +5,25 @@ and the roofline convention of tools/device_validate.py. Its
 there): a distribution-mode frame (spp 4, so 16 AA+DoF samples a pixel)
 with a 6x2048x2048 u8 skybox on the megakernel engine.
 
+Its "grid" section is the JAX tool's (tools/device_validate.py:554-600
+there): the per-ray grid DDA (accel/traverse.py, batched PyTorch) against
+the BVH walk's kernel on a grid scene's primary rays, with both times, the
+hit ids' agreement and the two images' agreement. mount_high.p3f is not in
+the repo, so the scene is the 7,396-sphere field
+(``sphere_field_scene(n_side=86)``) built with ``ACCEL_GRID``; mount_high
+waits for its file.
+
 The JAX tool's other sections are not repeated here: chip_smoke.py's phases
 3-14 hold every ported kernel (spheres K4, the Whitted megakernel K1/K2,
 the path tracer K3, the packet walk K5) to its plain version beside its
-bound. Its grid section waits for ROADMAP.md queue 1 item 9; its dragon,
-mount_high and balls_low rows wait for their .p3f files.
+bound. Its dragon, mount_high and balls_low rows wait for their .p3f files.
 
 Bounds keep the datasheet peaks (chip_smoke.PEAK_F32_FLOPS, 67 TFLOP/s at
 700 W); what T2 measures stands beside them as what a plain FMA stream
 reaches at the clock the card holds.
 
     python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.device_validate \\
-        [peak|sass|distribution|all] [--p3f scene.p3f] [--device cpu]
+        [peak|sass|distribution|grid|all] [--p3f scene.p3f] [--device cpu]
 """
 from __future__ import annotations
 
@@ -251,10 +258,73 @@ def distribution(device="cuda", p3f=None, env_dir=None, sub: int = 64
     return out
 
 
+def grid(device="cuda", res: int = 256, n_side: int = 86) -> dict:
+    """The grid section: the field of ``n_side``² spheres built with
+    ACCEL_GRID at ``res``²; the closest hits of its primary rays through
+    the grid DDA and through the walk (ms each, CUDA events, median of 3
+    drifting frames; not measured off the card), the DDA's iterations and
+    host syncs on one frame's rays, the share of equal hit ids, and the
+    depth-4 images
+    under ``accel_impl="perray"`` and the walk (pixels beyond 2e-3, max
+    abs difference)."""
+    from ..accel import traverse
+    from ..accel.packets import packet_closest_hit
+    from ..core import constants as C
+    from ..core.build import build_scene
+    from ..core.types import RenderConfig
+    from ..models.scenes import sphere_field_scene
+    from ..models.whitted import pixel_grid, render_image
+    from ..ops.camera import pinhole_rays
+    from ..utils.timing import cuda_ms
+
+    scene = build_scene(sphere_field_scene(n_side=n_side, res=res),
+                        device=device, accel=C.ACCEL_GRID)
+    g = scene.grid
+    px, py = pixel_grid(res, res, scene.device)
+    rays = [pinhole_rays(scene.camera, px + 0.5 + 0.37 * i, py + 0.5)
+            for i in range(3)]
+
+    def dda(r):
+        return traverse.grid_closest_hit(g, scene.prims, r)
+
+    def walk(r):
+        return packet_closest_hit(scene.packets, r)
+
+    timed = scene.device.type == "cuda"  # else times are not measured
+    before = dict(traverse.stats)
+    t_g, id_g = dda(rays[0])
+    iters = traverse.stats["iterations"] - before["iterations"]
+    syncs = traverse.stats["syncs"] - before["syncs"]
+    t_w, id_w = walk(rays[0])
+    dda_ms = cuda_ms(dda, [(r,) for r in rays], warmup=1) if timed else None
+    walk_ms = (cuda_ms(walk, [(r,) for r in rays], warmup=1) if timed
+               else None)
+    img_dda = render_image(scene, RenderConfig(accel_impl="perray"))
+    img_walk = render_image(scene, RenderConfig())
+    diff = (img_dda - img_walk).abs()
+    out = dict(
+        scene=f"field{n_side} ({scene.n_objects} objects) {res}x{res}, "
+              f"grid {g.nx}x{g.ny}x{g.nz}, {g.max_per_cell} items a cell",
+        grid_dda_ms=dda_ms, walk_ms=walk_ms,
+        ratio=dda_ms / walk_ms if timed else None,
+        dda_iterations=iters, dda_syncs=syncs,
+        id_agree_frac=float((id_g == id_w).float().mean()),
+        t_max_rel=float(((t_g - t_w).abs() / t_w.abs().clamp(min=1.0))
+                        [id_g >= 0].max()),
+        image_beyond_2e3=float((diff.amax(dim=-1) > 2e-3).float().mean()),
+        image_max_abs=float(diff.max()))
+    if timed:
+        info = card_info()
+        out.update(card=info["name"], power_limit=info["power_limit"])
+    print(f"grid: {out}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("part", nargs="?", default="all",
-                    choices=("peak", "sass", "distribution", "all"))
+                    choices=("peak", "sass", "distribution", "grid",
+                             "all"))
     ap.add_argument("--p3f", default=None,
                     help="the distribution section's scene (default: "
                     "mount_low in distribution mode with a seeded skybox)")
@@ -278,6 +348,8 @@ def main(argv=None) -> int:
                 f"{op} {n}" for op, n in counts.most_common()))
     if args.part in ("distribution", "all"):
         distribution(device, args.p3f)
+    if args.part in ("grid", "all"):
+        grid(device)
     return 0
 
 
