@@ -45,6 +45,15 @@ versions on the same inputs:
     tools/probe_features.walk_cases against the oracle, exactly, in both
     stack placements, and T1's cheap class against its plain version
     (tools/roofline_mount.RTOL) and under 1.05 x its class ceiling;
+  * the Whitted kernel's autograd.Function (phase 26 of chip_smoke.py):
+    the sound WhittedTrace must pass chip_smoke.function_cases under
+    chip_smoke.GRAD_LIMIT, and a backward planted to drop o's and d's
+    gradient must be rejected in every case (function_verdicts);
+  * the train step's gathers (gather_control): the control reads the
+    primitives' and materials' rows by indexing, whose CUDA backward adds
+    each row's duplicates in one serial loop, in place of index_select;
+    it must compute the sound step's loss and update, and both are timed
+    in turns on mount_low 512x512, depth 4, on both engines;
   * the megakernels' design controls, each of which puts back one element
     of the kernel's design before its redesign for the card (the rows
     without pads, one primitive a step, the refraction stack in registers,
@@ -735,6 +744,121 @@ def probe_verdicts(dev, kernels, sound, faulty):
     return failed
 
 
+def function_verdicts(dev):
+    """Names of the Whitted kernel's autograd.Function variants that phase
+    26's limits (chip_smoke.function_rejects) judge wrongly: the sound
+    WhittedTrace must pass every case of chip_smoke.function_cases, and a
+    planted backward that drops o's and d's gradient (the rays' link to
+    the camera, the lights' shadow rays and the geometry's children) must
+    be rejected in every case."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        whitted_megakernel as mk,
+    )
+
+    class DropRayGrad(mk.WhittedTrace):
+        @staticmethod
+        def backward(ctx, grad):
+            grads = list(mk.WhittedTrace.backward(ctx, grad))
+            grads[3] = grads[4] = None
+            return tuple(grads)
+
+    failed = []
+    for name, apply in (("sound", mk.WhittedTrace.apply),
+                        ("backward without o, d", DropRayGrad.apply)):
+        rejected = []
+        for label, scene, cfg, s in chip_smoke.function_cases(dev):
+            why = chip_smoke.function_rejects(
+                chip_smoke.function_readings(apply, scene, cfg, s))
+            print(f"{name} | Function {label}: "
+                  f"{'; '.join(why) or 'passed'}")
+            rejected.append(bool(why))
+        wrong = any(rejected) if name == "sound" else not all(rejected)
+        if wrong:
+            failed.append(f"Function: {name}")
+    return failed
+
+
+def gather_control(dev):
+    """The train step's gathers against the indexing they replaced: the
+    primitives' and materials' rows read by ``table[idx]`` (whose CUDA
+    backward sorts the indices and adds each row's duplicates in a serial
+    loop) in place of ``index_select`` (atomic adds), in
+    ops/intersect.gather_prims and ops/shade.gather_materials. On mount_low
+    512x512, depth 4 (chip_smoke.py phase 27's step, bench.py's gradient
+    line) on the megakernel and the wavefront engines: the control's loss
+    must equal the sound step's and its updated parameters agree within
+    chip_smoke.GRAD_LIMIT; both are timed in turns (sound, control,
+    control, sound). Returns the names of wrong verdicts."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.scenes import (
+        mount_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+        render_image,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import shade
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.timing import (
+        cuda_ms,
+    )
+
+    sound = (intersect.gather_prims, shade.gather_materials)
+
+    def indexed_prims(prims, obj_id):
+        safe = obj_id.clamp(min=0).long()
+        ptype = torch.where(obj_id < 0, C.INVALID, prims.ptype[safe])
+        return prims.params[safe], ptype, prims.mat_id[safe]
+
+    def indexed_materials(materials, mat_id):
+        i = mat_id.long()
+        return shade.MatView(*(getattr(materials, f)[i]
+                               for f in shade.MatView._fields))
+
+    def use(pair):
+        intersect.gather_prims, shade.gather_materials = pair
+
+    scene = build_scene(mount_scene(res=chip_smoke.RES), device=dev)
+    scales = dist.lr_scales(materials=1.0, light_pos=1.0, camera=1.0,
+                            geometry=0.0)
+    failed = []
+    for engine in ("megakernel", "wavefront"):
+        cfg = RenderConfig(engine=engine)
+        target = render_image(scene, cfg)
+        args = [(scene, target + 1e-7 * i, cfg, chip_smoke.BENCH_LR, None,
+                 scales) for i in range(5)]
+        out, times = {}, {"sound": [], "control": []}
+        try:
+            for name in ("sound", "control", "control", "sound"):
+                use(sound if name == "sound" else (indexed_prims,
+                                                   indexed_materials))
+                out[name] = dist.train_step_full(*args[0])
+                times[name].append(cuda_ms(dist.train_step_full, args,
+                                           warmup=1))
+        finally:
+            use(sound)
+        (s_a, l_a), (s_b, l_b) = out["sound"], out["control"]
+        err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                  for a, b in zip(dist.tree_leaves(dist.params_of(s_a)),
+                                  dist.tree_leaves(dist.params_of(s_b))))
+        same = float(l_a) == float(l_b) and err <= chip_smoke.GRAD_LIMIT[0]
+        print(f"gather control, train step {engine} mount_low "
+              f"{chip_smoke.RES}x{chip_smoke.RES}: index_select "
+              f"{times['sound']} ms, table[idx] {times['control']} ms "
+              "(median of 5 steps each, in turns); losses equal "
+              f"{float(l_a) == float(l_b)}, updated parameters' largest "
+              f"relative difference {err:.3g}")
+        if not same:
+            failed.append(f"gather control {engine}")
+    return failed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_faults: torch.cuda.is_available() is false",
@@ -815,6 +939,8 @@ def main() -> int:
                                 in zip(BRUTE_CONTROLS, brute_control_libs)])
               + probe_verdicts(dev, kernels, probe_sound.result(),
                                faulty["probes"])
+              + function_verdicts(dev)
+              + gather_control(dev)
               + design_controls(dev, [(c[0], src, lib.result()) for
                                       (src, _, c), lib in zip(design_jobs,
                                                               design_libs)]))

@@ -145,14 +145,39 @@ Phases, each raising on failure:
      share of shadow rays whose grid entry failed); frame times; the grid
      section of tools/device_validate. A per-ray frame over PERRAY_CUT_S
      seconds moves both phases to PERRAY_CUT_RES, with the reason printed.
+  Gradients (models/whitted_megakernel.WhittedTrace, parallel/dist.py):
+  26. the Whitted kernel's autograd.Function against autograd straight
+     through its plain version on the same CUDA tensors (function_cases:
+     mount_low, the four-type scene with two lights and the distribution
+     plan at 64x64): the gradients of tbl, lt, bg, o and d under GRAD_LIMIT,
+     the forward bit for bit the kernel's output, one launch in the forward
+     and none in the backward (chip_faults.py plants a backward that drops
+     o's and d's gradient);
+  27. the main path: train_step_full on mount_low 512x512, depth 4, on the
+     megakernel engine, three steps of cli fit's light recovery (the loss
+     and light 0's offset fall), then three steps of fit --fit all on the
+     wavefront; the launch counters around each step (one Whitted launch a
+     step on the megakernel engine: the forward's); a step timed as
+     bench.py's gradient line times it (targets drifting 1e-7 a step,
+     median of TIMED_STEPS, CUDA events) beside a forward frame, its
+     peak memory and its breakdown under torch.profiler;
+  28. one backward of the camera, light and geometry groups on the field at
+     512x512, depth 4, on the wavefront, through the walk and under
+     ACCEL_NONE through brute force: finite, the traversals' kernels
+     launched; at 64x64 the two gradients agree (GRAD_LIMIT where the two
+     images are bit-equal, JAX's 5e-3 otherwise);
+  29. cli fit as a subprocess on the card: --fit lights at 512x512 (lr
+     LIGHT_LR) and --fit geometry at 128x128 (lr GEOMETRY_LR), on the
+     megakernel engine, each printing falling offsets.
 On a card, brute-force queries of more than 48 primitives go through the
 brute-force kernels, so the plain sweep that phase 3 holds the Whitted
 kernel against runs them on its 66-primitive field, and phase 10's 128x128
 brute force is them too; both comparisons stay sound, since phase 12 holds
 the brute-force kernels against their own plain version.
 The line before the last is a JSON object of the kernels (the walk's and
-brute force's entries each with the wavefront frame they served); the last
-line is the JSON device record.
+brute force's entries each with the wavefront frame and the gradient frame
+they served, the Whitted kernel's with the Function's readings and the
+train steps); the last line is the JSON device record.
 """
 import concurrent.futures
 import json
@@ -1407,6 +1432,129 @@ def brute_work(query, prims, tables, args, batch=PLAIN_BATCH):
     return flops, n_bytes, ms, by, live
 
 
+# ---------------------------------------------------------------------------
+# Gradients (phases 26-29): models/whitted_megakernel.WhittedTrace, the
+# Whitted kernel's autograd.Function, and parallel/dist.py's train steps
+
+# WhittedTrace against autograd straight through trace_rays_plain on the
+# same CUDA inputs, per input: max |a - b| <= GRAD_LIMIT[0] * max |b| +
+# GRAD_LIMIT[1]. The Function's backward is that plain version's own
+# autograd, so the two differ only where a CUDA backward adds in another
+# order (atomic adds into the table's rows); chip_faults.py's planted
+# backward, which drops o's and d's gradient, reads 1.0 on both.
+GRAD_LIMIT = (1e-4, 1e-7)
+GRAD_INPUTS = ("tbl", "lt", "bg", "o", "d")
+GRAD_RES = 64
+TRAIN_STEPS = 3
+# mount_low's light sits 173 units away, so moving it by (1, -0.7, 0.5)
+# changes the image little: at lr 1e4 the offset falls about 2% a step
+LIGHT_LR = 1e4
+# mount_low's largest glass sphere moved by 0.4 r: at 128x128 an lr of 0.3
+# brings the printed centre offsets down (cli fit --fit geometry)
+GEOMETRY_LR = 0.3
+BENCH_LR = 0.01       # bench.py:233-286's gradient line
+TIMED_STEPS = 11
+
+
+def function_cases(dev):
+    """Phase 26's cases at GRAD_RES, as (label, scene, cfg, one subpixel's
+    draws): mount_low; the four-type scene (two lights, a plane and a box);
+    the distribution plan (AA spp 2, DoF, motion blur, soft shadows, fuzzy
+    reflection and the u8 sky: whitted_cases' all-flags case)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.samples import (
+        Draws,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.scenes import (
+        mount_scene,
+    )
+
+    cfg = RenderConfig(engine="megakernel")
+    none = Draws(None, None, None, None, None)
+    yield ("mount_low", build_scene(mount_scene(GRAD_RES), device=dev), cfg,
+           none)
+    yield ("four-type, 2 lights",
+           build_scene(four_type_scene(GRAD_RES), device=dev), cfg, none)
+    [(_, _, scene, dcfg, draws)] = whitted_cases(
+        dev, only="four-type all flags, sky u8")
+    yield "distribution plan, sky u8", scene, dcfg, draws[1]
+
+
+def function_readings(apply, scene, cfg, s, seed=0):
+    """The five inputs' gradients through ``apply`` (WhittedTrace.apply or
+    a planted copy) and straight through trace_rays_plain, on the same
+    CUDA leaves with a seeded cotangent: a dict of each input's relative
+    error (max |a - b| over max |b|), whether the forward equals the
+    kernel's own output bit for bit, and the Whitted kernel's launches in
+    the forward and in the backward."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        whitted_megakernel as mk,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+        pixel_grid,
+        subpixel_rays,
+    )
+
+    cam = scene.camera
+    px, py = pixel_grid(cam.res_x, cam.res_y, scene.device)
+    rays = subpixel_rays(scene, px, py, cfg, s)
+    shape, sky = mk.shape_of(scene), mk.sky_of(scene, cfg)
+    leaves = [t.detach().clone().requires_grad_() for t in
+              (*mk._pack_tables(scene), rays.origin, rays.direction)]
+    gen = torch.Generator(device=scene.device).manual_seed(seed)
+    ct = torch.rand(px.shape[0], 3, device=scene.device, generator=gen)
+    k = kernels.whitted_megakernel
+    n0 = k.launches
+    out = apply(*leaves, shape, cfg, s.rows, sky, s.ij)
+    n1 = k.launches
+    got = torch.autograd.grad(out, leaves, ct, allow_unused=True)
+    n2 = k.launches
+    direct = k(*[t.detach() for t in leaves], shape, cfg, s.rows, sky, s.ij)
+    plain = mk.trace_rays_plain(shape, *leaves, cfg, s.rows, sky, s.ij)
+    want = torch.autograd.grad(plain, leaves, ct, allow_unused=True)
+    err, scale = {}, {}
+    for name, a, b, x in zip(GRAD_INPUTS, got, want, leaves):
+        a = torch.zeros_like(x) if a is None else a
+        b = torch.zeros_like(x) if b is None else b
+        scale[name] = float(b.abs().max())
+        err[name] = float((a - b).abs().max())
+    bad, fwd_err = bad_fraction(out.detach(), plain.detach())
+    return {"err": err, "scale": scale,
+            "forward_equal": bool(torch.equal(out.detach(), direct)),
+            "forward_vs_plain": (bad, fwd_err),
+            "launches": (n1 - n0, n2 - n1)}
+
+
+def function_rejects(r):
+    """Why phase 26's limits reject readings ``r`` (empty: they pass)."""
+    why = [f"{n} gradient off by {r['err'][n]:.3g} (scale {r['scale'][n]:.3g})"
+           for n in GRAD_INPUTS
+           if not r["err"][n] <= GRAD_LIMIT[0] * r["scale"][n] + GRAD_LIMIT[1]]
+    if not r["forward_equal"]:
+        why.append("forward differs from the kernel's output")
+    if r["launches"] != (1, 0):
+        why.append(f"launches (forward, backward) {r['launches']}, not (1, 0)")
+    return why
+
+
+def falling(values):
+    """Whether a sequence falls from its first value to its last."""
+    return len(values) > 1 and values[-1] < values[0]
+
+
+def offsets_printed(stdout, what):
+    """The offsets ``cli fit`` printed after ``what`` ("light offset" or
+    "center offset"), one a step."""
+    return [float(line.split(what)[1]) for line in stdout.splitlines()
+            if what in line]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2433,6 +2581,172 @@ def main() -> int:
     del p1, p2, p2q, g_field
     print(f"per-ray phases {time.perf_counter() - t_perray:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
+
+    # 26. the Whitted kernel's autograd.Function against autograd straight
+    # through its plain version, on CUDA tensors, case by case
+    t_grad = time.perf_counter()
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+
+    fn_readings = {}
+    for label, fscene, fcfg, fdraws in function_cases(dev):
+        r = fn_readings[label] = function_readings(mk.WhittedTrace.apply,
+                                                   fscene, fcfg, fdraws)
+        why = function_rejects(r)
+        print(f"26 Function {label} {GRAD_RES}x{GRAD_RES}: forward equal to "
+              f"the kernel's {r['forward_equal']}, launches (forward, "
+              f"backward) {r['launches']}; gradient max abs err against "
+              "plain autograd " + ", ".join(
+                  f"{n} {r['err'][n]:.3g} of {r['scale'][n]:.3g}"
+                  for n in GRAD_INPUTS) + f" (limit {GRAD_LIMIT[0]:g} x max "
+              f"+ {GRAD_LIMIT[1]:g}); {'; '.join(why) or 'passed'}")
+        if why:
+            raise AssertionError(f"26 Function {label}: {'; '.join(why)}")
+    fn_err = max(r["err"][n] / max(r["scale"][n], 1e-30)
+                 for r in fn_readings.values() for n in GRAD_INPUTS)
+    del fscene
+
+    # 27. the main path: train_step_full on mount_low 512x512, depth 4, on
+    # the megakernel engine (the Function), three steps of cli fit's light
+    # recovery; then three steps of fit --fit all on the wavefront; the
+    # launch counters around each step; a step timed over varied targets
+    # (bench.py:263-269) and its peak memory
+    m512 = build_scene(scenes.mount_scene(res=RES), device=dev)
+    grad_counted = walk_kernels + brute_kernels + (kernels.whitted_megakernel,)
+    sc_light = dist.lr_scales(materials=0.0, light_pos=1.0, light_color=0.0,
+                              camera=0.0)
+    sc_bench = dist.lr_scales(materials=1.0, light_pos=1.0, camera=1.0,
+                              geometry=0.0)
+    train = {}
+    for engine, fit, lr in (("megakernel", "lights", LIGHT_LR),
+                            ("wavefront", "all", BENCH_LR)):
+        tcfg = RenderConfig(engine=engine)
+        target = render_image(m512, tcfg)
+        true_pos = m512.lights.position
+        moved = true_pos.clone()
+        moved[0] += torch.tensor([1.0, -0.7, 0.5], device=dev)
+        s = replace(m512, lights=replace(m512.lights, position=moved))
+        sc = sc_light if fit == "lights" else dist.lr_scales(
+            materials=0.0, light_pos=1.0, light_color=0.0, camera=1.0)
+        losses, offsets, step_launches = [], [], []
+        for i in range(TRAIN_STEPS):
+            for k in grad_counted:
+                k.launches = 0
+            s, loss = dist.train_step_full(s, target, tcfg, lr, None, sc)
+            losses.append(float(loss))
+            offsets.append(float(torch.linalg.vector_norm(
+                s.lights.position - true_pos)))
+            step_launches.append({k.__name__: k.launches
+                                  for k in grad_counted if k.launches})
+        print(f"27 train_step_full mount_low {RES}x{RES} depth 4 engine="
+              f"{engine}, fit {fit}, lr {lr:g}: losses {losses}, light 0 "
+              f"offsets {offsets} (from 1.3191), launches a step "
+              f"{step_launches}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"27 {engine}: a loss is not finite")
+        if fit == "lights" and not (falling(losses) and falling(offsets)):
+            raise AssertionError(f"27 {engine}: the loss or the light's "
+                                 "offset did not fall")
+        want = {"whitted_megakernel": 1} if engine == "megakernel" else {}
+        if any(n != want for n in step_launches):
+            raise AssertionError(f"27 {engine}: launches a step "
+                                 f"{step_launches}, not {want}")
+        args = [(m512, target + 1e-7 * i, tcfg, BENCH_LR, None, sc_bench)
+                for i in range(TIMED_STEPS)]
+        step_ms = cuda_ms(dist.train_step_full, args, warmup=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_mb = torch.cuda.memory_allocated(dev) / 2**20
+        dist.train_step_full(*args[0])
+        torch.cuda.synchronize()
+        peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+        fwd_ms = frame_ms(m512, tcfg)
+        prof = profile_frames(
+            f"train step {engine}, mount_low {RES}x{RES} depth 4",
+            dist.train_step_full, lambda i: args[i], card, frames=3)
+        train[engine] = {"fit": fit, "lr": lr, "losses": losses,
+                         "offsets": offsets, "launches": step_launches,
+                         "step_ms": step_ms, "forward_frame_ms": fwd_ms,
+                         "peak_mb": peak_mb, "base_mb": base_mb,
+                         "profile": prof}
+        print(f"27 train step {engine} (bench.py's gradient line: lr "
+              f"{BENCH_LR}, materials, lights and camera, targets drifting "
+              f"1e-7 a step): {step_ms:.4f} ms a step, median of "
+              f"{TIMED_STEPS} (CUDA events), against a {fwd_ms:.4f} ms "
+              f"forward frame; peak memory {peak_mb:.1f} MiB over "
+              f"{base_mb:.1f} MiB resident; mount_low {RES}x{RES} depth 4, "
+              f"{card}")
+    del s, target, args
+
+    # 28. gradients through the walk and brute force: one backward of the
+    # camera, light and geometry groups on the field at 512x512, depth 4,
+    # on the wavefront, with the launch counters; at 64x64 the walk's
+    # gradient against brute force's
+    grey = torch.full((RES, RES, 3), 0.5, device=dev)
+    frozen = ("materials",)
+    field_grads = {}
+    for label, fscene in (("walk", field), ("brute force", field_nb)):
+        for k in grad_counted:
+            k.launches = 0
+        floss, g = dist.value_and_grad(fscene, grey, cfg_wf, None, frozen)
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in grad_counted}
+        norms = {f: float(torch.linalg.vector_norm(getattr(g, f)))
+                 for f in ("cam_eye", "light_pos", "prim_params")}
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in dist.tree_leaves(g))
+        field_grads[label] = {"launches": counts, "grad_norms": norms}
+        print(f"28 gradient through the {label}: field{FIELD_SIDE} {RES}x"
+              f"{RES} depth 4 wavefront, loss {float(floss):.6f}, gradient "
+              f"norms {norms}, finite {finite}, launches {counts}")
+        used = (("bvh_closest", "bvh_any") if label == "walk"
+                else ("brute_closest", "brute_any"))
+        if not finite or any(counts[u] < 1 for u in used):
+            raise AssertionError(f"28 {label}: a gradient is not finite or "
+                                 "the traversal's kernels did not launch")
+    f64 = {a: build_scene(scenes.sphere_field_scene(
+        n_side=FIELD_SIDE, res=GRAD_RES, accel=a), device=dev)
+        for a in (C.ACCEL_BVH, C.ACCEL_NONE)}
+    g64 = {a: dist.value_and_grad(f64[a], grey[:GRAD_RES, :GRAD_RES],
+                                  cfg_wf, None, frozen)[1] for a in f64}
+    img64 = {a: render_image(f64[a], cfg_wf) for a in f64}
+    same = bool(torch.equal(img64[C.ACCEL_BVH], img64[C.ACCEL_NONE]))
+    g_err = {f: float((getattr(g64[C.ACCEL_BVH], f)
+                       - getattr(g64[C.ACCEL_NONE], f)).abs().max()
+                      / getattr(g64[C.ACCEL_NONE], f).abs().max().clamp(
+                          min=1e-30))
+             for f in ("cam_eye", "light_pos", "prim_params")}
+    print(f"28 at {GRAD_RES}x{GRAD_RES}: the walk's and brute force's "
+          f"images equal bit for bit {same}; gradient relative max abs err "
+          f"{g_err}")
+    if same and not all(v <= GRAD_LIMIT[0] for v in g_err.values()):
+        raise AssertionError("28: the walk's gradient differs from brute "
+                             "force's where every id agrees")
+    if not same and not all(v <= 5e-3 for v in g_err.values()):
+        raise AssertionError("28: the walk's gradient differs from brute "
+                             "force's beyond JAX's engine tolerance")
+    del f64, g64, img64
+
+    # 29. the CLI: cli fit as a subprocess on the card, the light recovery
+    # at 512x512 and the geometry fit at 128x128, each printing falling
+    # offsets
+    cli_fit = {}
+    for fit, res, lr, what in (("lights", RES, LIGHT_LR, "light offset"),
+                               ("geometry", 128, GEOMETRY_LR,
+                                "center offset")):
+        out = subprocess.run(
+            [sys.executable, "-m",
+             "u_4a_2s_p3d_raytracer_template2_tpu_torch.cli", "fit",
+             "--builtin", "mount", "--res", str(res), "--steps",
+             str(TRAIN_STEPS), "--fit", fit, "--lr", str(lr), "--engine",
+             "megakernel"], cwd=ROOT, check=True, capture_output=True,
+            text=True).stdout
+        print(out, end="")
+        cli_fit[fit] = offsets_printed(out, what)
+        if len(cli_fit[fit]) != TRAIN_STEPS or not falling(cli_fit[fit]):
+            raise AssertionError(f"29 cli fit --fit {fit}: offsets "
+                                 f"{cli_fit[fit]} do not fall")
+    print(f"gradient phases {time.perf_counter() - t_grad:.1f} s; all "
+          f"{time.perf_counter() - t_start:.1f} s")
     wave_bvh = {
         "scene": f"field{FIELD_SIDE} {RES}x{RES} depth 4, engine=wavefront",
         "launches": {"closest": w1_counts["bvh_closest"],
@@ -2459,7 +2773,8 @@ def main() -> int:
                 "launches": launches, "max_abs_err": bvh_err[query],
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None,
-                "wavefront_frame": wave_bvh}
+                "wavefront_frame": wave_bvh,
+                "gradient_frame": field_grads["walk"]}
 
     def brute_entry(name, query, label, replaces, **extra):
         (k_ms, p_ms, slots, plain_slots, plain_live,
@@ -2473,7 +2788,8 @@ def main() -> int:
                 "slots": slots, "live": live, "plain_ms": p_ms,
                 "plain_slots": plain_slots, "plain_live": plain_live,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "wavefront_frame": wave_brute, **extra}
+                "wavefront_frame": wave_brute,
+                "gradient_frame": field_grads["brute force"], **extra}
 
     src = "u_4a_2s_p3d_raytracer_template2_tpu_torch/csrc/"
     pk_src = "u_4a_2s_p3d_raytracer_template2_tpu/accel/packets.py"
@@ -2504,6 +2820,12 @@ def main() -> int:
             "draws_ms": draws_ms, "draws_bytes": draws_bytes,
             "bound_ms": dist_bound_ms / n_sub, "bound_by": dist_bound_by,
             "frame_bound_ms": dist_bound_ms, "library_ms": None},
+        "function": {
+            "cases": {label: {"err": r["err"], "scale": r["scale"],
+                              "launches": r["launches"]}
+                      for label, r in fn_readings.items()},
+            "max_rel_err": fn_err, "limit": GRAD_LIMIT},
+        "train_step": train,
     }, {
         "name": "pt_megakernel",
         "route": "cuda",

@@ -591,3 +591,134 @@ def test_perray_traversal_on_the_card_equals_the_cpu(accel):
     assert torch.equal(out[0][1], out[1][1])
     assert torch.equal(out[0][2], out[1][2])
     assert torch.allclose(out[0][0], out[1][0], rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# gradients: the Whitted kernel's autograd.Function and grad-carrying rays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["mount_low", "four-type, 2 lights",
+                                   "distribution plan, sky u8"])
+def test_function_gradients_equal_the_plain_versions(label):
+    """chip_smoke.py phase 26: WhittedTrace's gradients of tbl, lt, bg, o
+    and d against autograd straight through trace_rays_plain on the same
+    CUDA tensors, under chip_smoke.GRAD_LIMIT; its forward is the kernel's
+    output, one launch forward and none backward."""
+    dev = _cuda()
+    [(_, scene, cfg, s)] = [c for c in chip_smoke.function_cases(dev)
+                            if c[0] == label]
+    r = chip_smoke.function_readings(mk.WhittedTrace.apply, scene, cfg, s)
+    assert not chip_smoke.function_rejects(r), r
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_megakernel_launches_only_forward():
+    """A train step on the megakernel engine routes through WhittedTrace:
+    one Whitted launch (the forward), and the light's gradient moves it."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+
+    dev = _cuda()
+    scene = build_scene(mount_scene(res=32), device=dev)
+    cfg = RenderConfig(engine="megakernel")
+    target = render_image(scene, cfg)
+    moved = scene.lights.position.clone()
+    moved[0] += torch.tensor([1.0, -0.7, 0.5], device=dev)
+    import dataclasses
+
+    s = dataclasses.replace(scene, lights=dataclasses.replace(
+        scene.lights, position=moved))
+    before = kernels.whitted_megakernel.launches
+    s2, loss = dist.train_step_full(s, target, cfg, 1e4, None,
+                                    dist.lr_scales(materials=0.0,
+                                                   light_color=0.0,
+                                                   camera=0.0))
+    assert kernels.whitted_megakernel.launches == before + 1
+    assert bool(torch.isfinite(loss)) and not torch.equal(
+        s2.lights.position, s.lights.position)
+    assert "megakernel_tables" not in s.cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accel, impl, used", [
+    (2, "auto", ("bvh_closest", "bvh_any")),
+    (0, "auto", ("brute_closest", "brute_any")),
+    (2, "perray", ()), (1, "perray", ())],
+    ids=["walk", "brute", "median_bvh", "grid"])
+def test_grad_carrying_rays_through_every_traversal_on_the_card(accel, impl,
+                                                                used):
+    """The eye and the lights require grad, so every ray does: the walk,
+    brute force and the per-ray traversals take the rays detached, without
+    raising; the render's gradient is finite."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+
+    dev = _cuda()
+    scene = build_scene(sphere_field_scene(n_side=8, res=32, accel=accel),
+                        device=dev)
+    counted = [getattr(kernels, n) for n in used]
+    before = [k.launches for k in counted]
+    loss, g = dist.value_and_grad(
+        scene, torch.full((32, 32, 3), 0.5, device=dev),
+        RenderConfig(engine="wavefront", accel_impl=impl), None,
+        ("materials",))
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(x).all()) for x in dist.tree_leaves(g))
+    assert float(g.cam_eye.abs().max()) > 0.0
+    assert all(k.launches > b for k, b in zip(counted, before))
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_grad_where_the_dispatchers_detach():
+    """A grad tensor handed to a kernel wrapper is refused; the same rays
+    through the dispatchers are detached and traced."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import packets
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
+
+    dev = _cuda()
+    soup = _soup(dev, n=40)
+    o = torch.zeros(64, 3, device=dev, requires_grad=True)
+    d = torch.nn.functional.normalize(torch.randn(
+        64, 3, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            2)), dim=-1).requires_grad_()
+    for call in (lambda: kernels.bvh_closest(soup.packets, o, d),
+                 lambda: kernels.bvh_any_multi(soup.packets, o, d[None], 1.0),
+                 lambda: kernels.brute_closest(soup.brute, o, d),
+                 lambda: kernels.brute_any(soup.brute, o, d, 1.0)):
+        with pytest.raises(NotImplementedError, match="dispatchers"):
+            call()
+    rays = Rays.make(o, d)
+    t1, i1 = packets.packet_closest_hit(soup.packets, rays)
+    t2, i2 = intersect.closest_hit_brute(soup.prims, rays, soup.brute)
+    occ = packets.packet_any_hit_multi(soup.packets, o, [d], 1.0)
+    assert not (t1.requires_grad or t2.requires_grad or occ.requires_grad)
+    assert torch.equal(i1, i2)
+
+
+@pytest.mark.cuda
+def test_with_prim_params_repacks_the_brute_force_tables():
+    """A sphere moved by with_prim_params is where the brute-force kernel
+    finds it: rays aimed at its new centre hit it, at its old one miss."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        with_prim_params,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops import intersect
+
+    dev = _cuda()
+    scene = _soup(dev, n=40)
+    row = int(torch.nonzero(scene.prims.ptype == C.SPHERE)[0, 0])
+    params = scene.prims.params.clone()
+    old = params[row, 0:3].clone()
+    params[row, 0:3] = torch.tensor([40.0, 40.0, 40.0], device=dev)
+    moved = with_prim_params(scene, params)
+    o = torch.tensor([[40.0, 40.0, 30.0]], device=dev)
+    d = torch.tensor([[0.0, 0.0, 1.0]], device=dev)
+    before = kernels.brute_closest.launches
+    _, ids = intersect.closest_hit_brute(moved.prims, Rays.make(o, d),
+                                         moved.brute)
+    assert kernels.brute_closest.launches == before + 1
+    assert int(ids[0]) == row
+    o2 = (old + torch.tensor([0.0, 0.0, -30.0], device=dev))[None]
+    _, ids2 = intersect.closest_hit_brute(moved.prims, Rays.make(o2, d),
+                                          moved.brute)
+    assert int(ids2[0]) != row

@@ -41,6 +41,9 @@ def test_port_imports_no_jax():
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.device_validate\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.roofline_mount\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.megakernels\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel.dist\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.camera\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build\n"
         "import chip_smoke, chip_faults\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'u_4a_2s_p3d_raytracer_template2_tpu'\n"

@@ -380,15 +380,18 @@ def any_hit_plain(pt: PacketTables, o, d, max_t: float, dead=None):
 
 
 # ---------------------------------------------------------------------------
-# dispatch: the plain version on CPU tensors, the kernel on CUDA tensors
+# dispatch: the plain version on CPU tensors, the kernel on CUDA tensors.
+# The walk is discrete: it reads the rays detached (JAX stop_gradients them,
+# accel/packets.py:959-960 there), and its answers carry no gradient; the
+# shading re-derives t differentiably from the winner (intersect.per_ray_t).
 
 
 def packet_closest_hit(pt: PacketTables, rays: Rays, dead=None):
     """Closest hit of ``rays`` through the tree and the planes: (t [R],
     obj_id [R] int32), obj_id -1 on a miss. ``dead`` [R] bool marks slots
     the caller masks downstream: they are not traced and read (BIG, -1)."""
-    o = rays.origin.contiguous()
-    d = rays.direction.contiguous()
+    o = rays.origin.detach().contiguous()
+    d = rays.direction.detach().contiguous()
     if o.device.type == "cpu":
         return closest_hit_plain(pt, o, d, dead)
     from ..kernels import bvh_closest
@@ -400,8 +403,8 @@ def packet_any_hit(pt: PacketTables, rays: Rays, max_t: float, dead=None):
     """Occlusion [R] bool of segments ``rays`` (origin + t·direction, t <
     max_t). ``dead`` [R] bool marks lanes the caller masks downstream: they
     report occluded without a walk."""
-    o = rays.origin.contiguous()
-    d = rays.direction.contiguous()
+    o = rays.origin.detach().contiguous()
+    d = rays.direction.detach().contiguous()
     if o.device.type == "cpu":
         return any_hit_plain(pt, o, d, float(max_t), dead)
     from ..kernels import bvh_any
@@ -415,7 +418,8 @@ def packet_any_hit_multi(pt: PacketTables, origin, dirs, max_t: float,
     a sequence of L [R, 3] segment vectors, ``dead`` None or L [R] bool
     masks. [L, R] bool, equal to L ``packet_any_hit`` calls; one kernel
     launch on CUDA tensors."""
-    o = origin.contiguous()
+    o = origin.detach().contiguous()
+    dirs = [dv.detach() for dv in dirs]
     if o.device.type == "cpu":
         return torch.stack([
             any_hit_plain(pt, o, dv.contiguous(), float(max_t),
@@ -423,6 +427,6 @@ def packet_any_hit_multi(pt: PacketTables, origin, dirs, max_t: float,
             for i, dv in enumerate(dirs)])
     from ..kernels import bvh_any_multi
 
-    return bvh_any_multi(pt, o, torch.stack(list(dirs)),
+    return bvh_any_multi(pt, o, torch.stack(dirs),
                          float(max_t),
                          None if dead is None else torch.stack(list(dead)))

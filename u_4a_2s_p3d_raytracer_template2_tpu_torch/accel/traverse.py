@@ -27,7 +27,9 @@ sync), stops when none is, and otherwise carries on with those rays only,
 so rays that finished early cost nothing more. ``stats`` counts queries,
 iterations and those syncs. ``dead`` [R] bool marks rays the caller masks
 downstream: they are not traced and read (BIG, -1), or occluded, as in
-the port's other traversals.
+the port's other traversals. The traversals are discrete: the entry points
+read the rays detached and run without autograd, so their answers carry no
+gradient (the shading re-derives t from the winner, ``per_ray_t``).
 """
 from __future__ import annotations
 
@@ -104,8 +106,8 @@ def _run(state: dict, step, outputs: dict) -> None:
 
 
 def _rays_state(rays: Rays, dead):
-    o = rays.origin.contiguous()
-    d = rays.direction.contiguous()
+    o = rays.origin.detach().contiguous()
+    d = rays.direction.detach().contiguous()
     R = o.shape[0]
     idx = torch.arange(R, device=o.device)
     alive = (torch.ones(R, dtype=torch.bool, device=o.device) if dead is None
@@ -221,6 +223,7 @@ def _bvh_walk(bvh: BvhArrays, prims: Primitives, rays: Rays, dead,
     return out["tb"], out["ib"]
 
 
+@torch.no_grad()
 def bvh_closest_hit(bvh: BvhArrays, prims: Primitives, rays: Rays,
                     dead=None):
     """Closest hit through the median BVH and the planes beside it: (t [R],
@@ -231,6 +234,7 @@ def bvh_closest_hit(bvh: BvhArrays, prims: Primitives, rays: Rays,
     return _merge(t_tree, id_tree, t_unb, id_unb, dead)
 
 
+@torch.no_grad()
 def bvh_any_hit(bvh: BvhArrays, prims: Primitives, rays: Rays, max_t,
                 dead=None):
     """Occlusion [R] bool of segments ``rays`` (t < max_t): the walk stops
@@ -340,6 +344,7 @@ def _grid_walk(grid: GridArrays, prims: Primitives, rays: Rays, dead,
     return out["tb"], out["ib"]
 
 
+@torch.no_grad()
 def grid_closest_hit(grid: GridArrays, prims: Primitives, rays: Rays,
                      dead=None):
     """Closest hit through the grid DDA and the planes beside it: (t [R],
@@ -350,6 +355,7 @@ def grid_closest_hit(grid: GridArrays, prims: Primitives, rays: Rays,
     return _merge(t_g, id_g, t_unb, id_unb, dead)
 
 
+@torch.no_grad()
 def grid_any_hit(grid: GridArrays, prims: Primitives, rays: Rays, max_t,
                  dead=None, init_fail_occludes: bool = False):
     """Occlusion [R] bool through the shadow DDA and the planes.

@@ -1,5 +1,5 @@
-"""Command-line entry point of the port: the ``render`` and ``pathtrace``
-subcommands of ``u_4a_2s_p3d_raytracer_template2_tpu/cli.py``.
+"""Command-line entry point of the port: the ``render``, ``fit`` and
+``pathtrace`` subcommands of ``u_4a_2s_p3d_raytracer_template2_tpu/cli.py``.
 
 Usage::
 
@@ -10,10 +10,12 @@ Usage::
         --skybox --env skybox_dir --engine megakernel -o mount_dist.png
     python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.cli render \\
         scene.p3f --engine megakernel -o scene.png
+    python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.cli fit \\
+        --builtin mount --res 512 --steps 3 --fit lights --lr 1e4
     python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.cli pathtrace \\
         --res 512 --frames 16 --checkpoint pt.npz -o pt.png
 
-Both run on the CUDA card unless ``--device cpu`` is given; without a card
+All run on the CUDA card unless ``--device cpu`` is given; without a card
 they exit with an error rather than fall back to the CPU.
 
 ``render`` renders a ``.p3f`` file or a built-in scene (mount_low, mount_low
@@ -28,6 +30,10 @@ the rate in Mrays/s (primary + shadow rays of every AA sample). A scene's
 features draw from a ``torch.Generator`` seeded by ``--seed``. On a CUDA
 device the time is the median of CUDA-event frame times; on the CPU it is
 one host wall-clock render, labelled as such.
+
+``fit`` perturbs the scene and recovers it by gradient descent
+(parallel/dist.py, ``cmd_fit``), printing the loss and the offset from
+the truth a step.
 
 ``pathtrace`` accumulates progressive 1-spp frames of the GLSL world,
 optionally resuming from and saving a checkpoint, and writes the
@@ -138,6 +144,94 @@ def cmd_render(args) -> None:
     print(f"Image file created: {args.output}")
 
 
+def cmd_fit(args) -> None:
+    """Inverse rendering (JAX cli.py:120-222 there): the target is the
+    scene's own render; the fit starts from a perturbed scene and runs
+    ``--steps`` steps of parallel/dist.py's train steps, printing the loss
+    and the distance to the truth a step. ``--fit materials``: the diffuse
+    colours +0.3 (``train_step``); ``lights`` / ``all``: light 0 moved by
+    (1, -0.7, 0.5), fitting its position (and with ``all`` the camera);
+    ``geometry``: the largest sphere's centre moved by 0.4 r along (0.8,
+    -0.5, 0.6), fitting that row of the primitive table, on brute force
+    (an accelerator's tables keep the built geometry)."""
+    import dataclasses
+
+    from .core import constants as C
+    from .core.build import build_scene, with_prim_params
+    from .models.whitted import engine_of, render_image
+    from .parallel.dist import lr_scales, train_step, train_step_full
+
+    dev = torch.device(args.device)
+    scene = build_scene(_scene_def(args), device=dev, accel=args.accel)
+    cfg = _config(args, scene)
+    if args.fit == "geometry" and scene.accel_type != C.ACCEL_NONE:
+        print("note: scene declares an accelerator; geometry fit forces "
+              "accel_impl='brute' (accel tables hold the built geometry "
+              "during a fit)")
+        cfg = dataclasses.replace(cfg, accel_impl="brute")
+    cam = scene.camera
+    print(f"fit {args.fit}: {cam.res_x}x{cam.res_y}, {scene.n_objects} "
+          f"objects, depth {cfg.max_depth}, engine {engine_of(scene, cfg)}, "
+          f"lr {args.lr:g}, {args.steps} steps, device {scene.device}")
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    target = render_image(scene, cfg, gen(args.seed))
+    t0 = time.perf_counter()
+    if args.fit == "materials":
+        mats = dataclasses.replace(
+            scene.materials,
+            diff_color=(scene.materials.diff_color + 0.3).clamp(0.0, 1.0))
+        s = dataclasses.replace(scene, materials=mats)
+        for i in range(args.steps):
+            s, loss = train_step(s, target, cfg, args.lr, gen(i))
+            print(f"step {i}: loss {float(loss):.6f}")
+    elif args.fit == "geometry":
+        true_params = scene.prims.params
+        sph = torch.nonzero(scene.prims.ptype == C.SPHERE)[:, 0]
+        # the largest sphere: the most screen coverage, the strongest
+        # smooth gradient
+        row = (int(sph[torch.argmax(true_params[sph, 3])]) if len(sph)
+               else 0)
+        r = max(float(true_params[row, 3]), 1e-3)
+        delta = torch.zeros_like(true_params)
+        # ~40% of the radius, so that the sphere still overlaps its true
+        # silhouette (the smooth gradient has no silhouette term)
+        delta[row, 0:3] = torch.tensor([0.8, -0.5, 0.6], device=dev) * (
+            0.4 * r)
+        s = with_prim_params(scene, true_params + delta)
+        mask = torch.zeros((true_params.shape[0], 1), device=dev)
+        mask[row] = 1.0
+        sc = dataclasses.replace(
+            lr_scales(materials=0.0, light_pos=0.0, light_color=0.0,
+                      camera=0.0, geometry=0.0), prim_params=mask)
+        for i in range(args.steps):
+            s, loss = train_step_full(s, target, cfg, args.lr, gen(i), sc)
+            d = float(torch.linalg.vector_norm(
+                s.prims.params[row, 0:3] - true_params[row, 0:3]))
+            print(f"step {i}: loss {float(loss):.6f}  center offset {d:.4f}")
+            if i == 0 and float(loss) < 1e-7:
+                print("note: displaced sphere does not affect the image at "
+                      "this resolution — try a higher --res")
+    else:
+        true_pos = scene.lights.position
+        delta = torch.zeros_like(true_pos)
+        delta[0] = torch.tensor([1.0, -0.7, 0.5], device=dev)
+        s = dataclasses.replace(scene, lights=dataclasses.replace(
+            scene.lights, position=true_pos + delta))
+        sc = lr_scales(materials=0.0, light_pos=1.0, light_color=0.0,
+                       camera=1.0 if args.fit == "all" else 0.0)
+        for i in range(args.steps):
+            s, loss = train_step_full(s, target, cfg, args.lr, gen(i), sc)
+            d = float(torch.linalg.vector_norm(s.lights.position - true_pos))
+            print(f"step {i}: loss {float(loss):.6f}  light offset {d:.3f}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    print(f"{args.steps} steps in {time.perf_counter() - t0:.3f} s (host "
+          f"wall clock, {dev.type})")
+
+
 def cmd_pathtrace(args) -> None:
     """Progressive Monte Carlo path tracing of the GLSL showcase world
     (models/pathtracer.py, models/glsl_scene.py)."""
@@ -175,57 +269,75 @@ def cmd_pathtrace(args) -> None:
     print(f"Image file created: {args.output}")
 
 
+def _scene_args(p) -> None:
+    """The arguments of a Whitted scene and config, shared by render and
+    fit (the JAX CLI's ``common``, cli.py:532-566 there)."""
+    p.add_argument("scene", nargs="?", help=".p3f scene file")
+    p.add_argument("--builtin",
+                   choices=["mount", "mount_dist", "spheres", "random"],
+                   help="a built-in scene (default mount when no file is "
+                   "given); mount_dist is mount_low in distribution mode")
+    p.add_argument("--accel", type=int, default=None,
+                   help="0 none, 1 grid, 2 bvh (default: scene's)")
+    p.add_argument("--accel-impl", dest="accel_impl", default="auto",
+                   choices=["auto", "packets", "clusters", "perray",
+                            "brute"],
+                   help="BVH- and grid-mode traversal: auto, packets and "
+                   "clusters walk the BVH (the CUDA walk on a CUDA device), "
+                   "brute tests every primitive, perray walks the "
+                   "reference's median BVH or grid DDA (batched PyTorch)")
+    p.add_argument("--res", type=int, default=None,
+                   help="square resolution (default: scene's)")
+    p.add_argument("--spp", type=int, default=None,
+                   help="AA grid side: spp*spp jittered samples a pixel, "
+                   "with depth of field (default: the scene's spp)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the torch.Generator the samples come from")
+    p.add_argument("--soft-shadow", action="store_true")
+    p.add_argument("--fuzzy-reflection", action="store_true")
+    p.add_argument("--motion-blur", action="store_true")
+    p.add_argument("--skybox", action="store_true",
+                   help="sample the env cubemap on miss")
+    p.add_argument("--env", default=None,
+                   help="skybox directory of six faces (right, left, top, "
+                   "bottom, front, back .png/.jpg), over the scene's env")
+    p.add_argument("--depth", type=int, default=4)
+    p.add_argument("--engine", choices=["sweep", "wavefront", "megakernel"],
+                   default="sweep",
+                   help="wavefront = the compacted queue; megakernel = the "
+                   "CUDA kernel on a CUDA device, its plain version on the "
+                   "CPU, and the wavefront on scenes over 256 objects or "
+                   "depth 8")
+    p.add_argument("--capacity", type=float, default=1.0,
+                   help="the wavefront's queue, as a share of the primary "
+                   "rays (children beyond it are dropped)")
+    p.add_argument("--fresnel", default="schlick",
+                   choices=["schlick", "reference_schlick",
+                            "reference_exact"])
+    p.add_argument("--refraction", default="reference",
+                   choices=["reference", "physical"])
+    p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="u_4a_2s_p3d_raytracer_template2_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     pr = sub.add_parser("render", help="render a scene to PNG")
-    pr.add_argument("scene", nargs="?", help=".p3f scene file")
-    pr.add_argument("--builtin",
-                    choices=["mount", "mount_dist", "spheres", "random"],
-                    help="a built-in scene (default mount when no file is "
-                    "given); mount_dist is mount_low in distribution mode")
-    pr.add_argument("--accel", type=int, default=None,
-                    help="0 none, 1 grid, 2 bvh (default: scene's)")
-    pr.add_argument("--accel-impl", dest="accel_impl", default="auto",
-                    choices=["auto", "packets", "clusters", "perray",
-                             "brute"],
-                    help="BVH- and grid-mode traversal: auto, packets and "
-                    "clusters walk the BVH (the CUDA walk on a CUDA device), "
-                    "brute tests every primitive, perray walks the "
-                    "reference's median BVH or grid DDA (batched PyTorch)")
-    pr.add_argument("--res", type=int, default=None,
-                    help="square resolution (default: scene's)")
-    pr.add_argument("--spp", type=int, default=None,
-                    help="AA grid side: spp*spp jittered samples a pixel, "
-                    "with depth of field (default: the scene's spp)")
-    pr.add_argument("--seed", type=int, default=0,
-                    help="seed of the torch.Generator the samples come from")
-    pr.add_argument("--soft-shadow", action="store_true")
-    pr.add_argument("--fuzzy-reflection", action="store_true")
-    pr.add_argument("--motion-blur", action="store_true")
-    pr.add_argument("--skybox", action="store_true",
-                    help="sample the env cubemap on miss")
-    pr.add_argument("--env", default=None,
-                    help="skybox directory of six faces (right, left, top, "
-                    "bottom, front, back .png/.jpg), over the scene's env")
-    pr.add_argument("--depth", type=int, default=4)
-    pr.add_argument("--engine", choices=["sweep", "wavefront", "megakernel"],
-                    default="sweep",
-                    help="wavefront = the compacted queue; megakernel = the "
-                    "CUDA kernel on a CUDA device, its plain version on the "
-                    "CPU, and the wavefront on scenes over 256 objects or "
-                    "depth 8")
-    pr.add_argument("--capacity", type=float, default=1.0,
-                    help="the wavefront's queue, as a share of the primary "
-                    "rays (children beyond it are dropped)")
-    pr.add_argument("--fresnel", default="schlick",
-                    choices=["schlick", "reference_schlick",
-                             "reference_exact"])
-    pr.add_argument("--refraction", default="reference",
-                    choices=["reference", "physical"])
-    pr.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    _scene_args(pr)
     pr.add_argument("-o", "--output", default="RT_Output.png")
     pr.set_defaults(fn=cmd_render)
+
+    pf = sub.add_parser("fit", help="inverse-rendering demo")
+    _scene_args(pf)
+    pf.add_argument("--steps", type=int, default=10)
+    pf.add_argument("--lr", type=float, default=1.0)
+    pf.add_argument("--fit", default="materials",
+                    choices=["materials", "lights", "geometry", "all"],
+                    help="parameter groups to optimize (lights, geometry "
+                    "and all use train_step_full; mount_low's far light "
+                    "wants an lr near 1e4, its glass sphere's centre 0.3 "
+                    "at 128x128)")
+    pf.set_defaults(fn=cmd_fit)
 
     pp = sub.add_parser("pathtrace",
                         help="progressive Monte Carlo path tracing")

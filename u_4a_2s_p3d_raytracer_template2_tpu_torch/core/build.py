@@ -11,9 +11,12 @@ grid (``accel/grid.build_grid``), which ``accel_impl="perray"`` traverses
 (JAX ``core/build.py:122-150``). An ``env`` directory's cubemap is loaded as raw u8
 (io/skybox.py). Every scene gets the brute-force kernels' tables
 (``ops/intersect.brute_tables``), packed once on its device.
+``with_prim_params`` swaps a scene's primitive table differentiably
+(inverse rendering, parallel/dist.py).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -175,3 +178,49 @@ def build_scene(sd, *, device, accel: Optional[int] = None) -> Scene:
         grid=grid,
         brute=brute_tables(prims),
     )
+
+
+def with_prim_params(scene: Scene, params: torch.Tensor) -> Scene:
+    """``scene`` with the unified primitive table ``params`` [N, 12] and
+    every view derived from it rebuilt with torch ops, so that a gradient
+    on the table reaches the render: the geometry half of inverse rendering
+    (JAX ``core/build.py:199-242``).
+
+    * A triangle's normal (columns 9:12) is re-derived from its edges,
+      normalize(e1 × e2), as the reference's constructor does
+      (scene.cpp:10-40): a moved vertex keeps its flat normal, and the
+      normal's gradient reaches the vertices.
+    * The type views ``tri_p``, ``sph_p``, ``pl_p`` and ``box_p`` are
+      gathered from the new table.
+    * ``Scene.brute``, the brute-force kernels' tables, is repacked from
+      the new table, detached (ops/intersect.brute_tables): the kernels
+      read the moved geometry, as JAX's brute force reads its refreshed
+      per-type tables.
+    * ``Scene.packets``, ``Scene.bvh`` and ``Scene.grid`` stay as built:
+      a tree's topology and boxes are a host build product, kept by the
+      JAX package too, so an accelerator scene's hit ids are decided on the
+      built geometry in both packages (``cli fit --fit geometry`` takes
+      such a scene to brute force).
+
+    ``dataclasses.replace`` gives the new scene an empty ``Scene.cache``.
+    """
+    from ..ops.intersect import brute_tables
+    from .types import normalize
+
+    prims = scene.prims
+    params = params.to(torch.float32)
+    is_tri = (prims.ptype == C.TRIANGLE)[:, None]
+    tri_n = normalize(torch.linalg.cross(params[:, 3:6], params[:, 6:9]))
+    params = torch.where(is_tri, torch.cat([params[:, 0:9], tri_n], dim=-1),
+                         params)
+
+    def view(ids, width):
+        rows = params[ids.clamp(min=0).long(), :width]
+        return torch.where((ids >= 0)[:, None], rows, 0.0)
+
+    new_prims = dataclasses.replace(
+        prims, params=params, tri_p=view(prims.tri_ids, 12),
+        sph_p=view(prims.sph_ids, 4), pl_p=view(prims.pl_ids, 4),
+        box_p=view(prims.box_ids, 6))
+    return dataclasses.replace(scene, prims=new_prims,
+                               brute=brute_tables(new_prims))

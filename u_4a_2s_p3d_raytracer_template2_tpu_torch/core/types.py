@@ -189,6 +189,13 @@ class Rays:
             time = origin.new_zeros(origin.shape[:-1])
         return Rays(origin, direction, time)
 
+    def detach(self) -> "Rays":
+        """The same rays cut from the autograd graph: what a traversal
+        reads, whose answers (t, ids, occlusion) are discrete and carry no
+        gradient (JAX ``accel/packets.py:959-960``)."""
+        return Rays(self.origin.detach(), self.direction.detach(),
+                    self.time.detach())
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:

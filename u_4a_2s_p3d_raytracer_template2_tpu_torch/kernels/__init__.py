@@ -82,9 +82,12 @@ def _check(name: str, t: torch.Tensor, device: torch.device, numel=None,
         raise ValueError(f"{name}: want {numel} elements, got {t.numel()}")
     if t.requires_grad:
         raise NotImplementedError(
-            f"{name} requires grad: the kernels are forward only (the "
-            "Whitted kernel's autograd.Function is ROADMAP.md queue 1, "
-            "item 11)")
+            f"{name} requires grad: the kernels are forward only. Call "
+            "them through their dispatchers, which detach what a discrete "
+            "query reads (accel/packets.py, ops/intersect.py), or the "
+            "Whitted kernel through models/whitted_megakernel."
+            "trace_rays_megakernel, whose autograd.Function takes the "
+            "gradient through the plain version")
 
 
 def _check_aligned(name: str, t: torch.Tensor):

@@ -36,12 +36,19 @@ tensors take the plain version, CUDA tensors launch the kernel or raise.
 There is no fallback from one to the other. A scene or config outside the
 kernel's envelope (``supports``) never reaches it: models/whitted
 .render_tile renders it through the wavefront engine, as the JAX package
-does (``whitted.py:564-575`` there). Forward only: the
-``torch.autograd.Function`` whose backward is autograd through the plain
-version comes with the training slice (ROADMAP.md, queue 1).
+does (``whitted.py:564-575`` there).
+
+Gradients: ``WhittedTrace`` is the counterpart of the JAX kernel's
+``custom_vjp`` (``whitted_streamed.py:399-427``): its forward launches the
+kernel on detached copies of the tables and rays, and its backward runs
+autograd through the plain version on the saved inputs, with the same
+stream rows and sky. ``trace_rays_megakernel`` routes through it when a
+CUDA input requires grad, so a train step on the megakernel engine launches
+the kernel once a subpixel forward and never in the backward.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -118,11 +125,26 @@ def scene_tables(scene: Scene):
     """``[N*24]`` / ``[L*6]`` / ``[3]`` f32 views of the scene
     (``whitted_streamed.py:124-158``), in the type-grouped order so
     cross-type closest-hit ties break as in the sweep. Packed on the first
-    call and kept in ``scene.cache``: a frame only launches."""
+    call and kept in ``scene.cache``: a frame only launches. A scene whose
+    tensors require grad (a train step's) is packed anew on every call,
+    with torch ops, so the tables carry the step's graph: cached, a second
+    render would backward through a freed graph or keep stale leaves."""
     tables = scene.cache.get("megakernel_tables")
     if tables is None:
-        tables = scene.cache["megakernel_tables"] = _pack_tables(scene)
+        tables = _pack_tables(scene)
+        if not _requires_grad(scene):
+            scene.cache["megakernel_tables"] = tables
     return tables
+
+
+def _requires_grad(scene: Scene) -> bool:
+    """Whether a tensor the tables are packed from requires grad."""
+    p = scene.prims
+    sources = ((p.tri_p, p.sph_p, p.pl_p, p.box_p, scene.bg_color,
+                scene.lights.position, scene.lights.color)
+               + tuple(getattr(scene.materials, f.name)
+                       for f in dataclasses.fields(scene.materials)))
+    return any(t.requires_grad for t in sources)
 
 
 def _pack_tables(scene: Scene):
@@ -242,14 +264,55 @@ def sky_of(scene: Scene, cfg: RenderConfig):
     return scene.skybox if (cfg.use_skybox and scene.has_skybox) else None
 
 
+class WhittedTrace(torch.autograd.Function):
+    """The Whitted kernel with a gradient: ``apply(tbl, lt, bg, o, d,
+    shape, cfg, rows, sky, offsets)`` is the clamped [R,3] color of
+    ``trace_rays_plain``, differentiable in ``tbl``, ``lt``, ``bg``, ``o``
+    and ``d``; the stream rows, the sky and the offsets get no gradient
+    (JAX gives them zero or float0 cotangents).
+
+    Forward: the CUDA kernel on detached contiguous copies (on CPU tensors
+    the plain version, without autograd). Backward: autograd through
+    ``trace_rays_plain`` on the saved inputs, with the same rows and sky:
+    no kernel launch. The JAX ``custom_vjp`` split
+    (``whitted_streamed.py:399-427``)."""
+
+    @staticmethod
+    def forward(ctx, tbl, lt, bg, o, d, shape, cfg, rows, sky, offsets):
+        ctx.save_for_backward(tbl, lt, bg, o, d)
+        ctx.rest = (shape, cfg, rows, sky, offsets)
+        args = [t.detach().contiguous() for t in (tbl, lt, bg, o, d)]
+        if o.device.type == "cpu":
+            return trace_rays_plain(shape, *args, cfg, rows, sky, offsets)
+        from ..kernels import whitted_megakernel
+
+        return whitted_megakernel(*args, shape, cfg, rows, sky, offsets)
+
+    @staticmethod
+    def backward(ctx, grad):
+        shape, cfg, rows, sky, offsets = ctx.rest
+        needs = ctx.needs_input_grad[:5]  # tbl, lt, bg, o, d
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, needs)]
+            out = trace_rays_plain(shape, *ins, cfg, rows, sky, offsets)
+            got = iter(torch.autograd.grad(
+                out, [t for t in ins if t.requires_grad], grad,
+                allow_unused=True))
+        # None: no gradient (an input the render does not reach)
+        return (*(next(got) if n else None for n in needs),
+                None, None, None, None, None)
+
+
 def trace_rays_megakernel(scene: Scene, rays: Rays, cfg: RenderConfig,
                           rows=None, offsets=None) -> torch.Tensor:
     """Clamped [R,3] color of primary rays through the whole Whitted tree,
     with the stream rows ``rows`` of the config's sample plan and the
     subpixel indices ``offsets``.
 
-    CPU tensors run the plain version; CUDA tensors launch the CUDA kernel
-    or raise.
+    CPU tensors run the plain version (autograd through it where an input
+    requires grad); CUDA tensors launch the CUDA kernel or raise, through
+    ``WhittedTrace`` when an input requires grad.
     """
     from .whitted import check_config
 
@@ -265,10 +328,16 @@ def trace_rays_megakernel(scene: Scene, rays: Rays, cfg: RenderConfig,
     if o.device.type != "cuda":
         raise NotImplementedError(
             f"the megakernel runs on CUDA or CPU tensors, not {o.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (tbl, lt, bg, o, d)):
+        return WhittedTrace.apply(tbl, lt, bg, o, d, shape, cfg, rows, sky,
+                                  offsets)
     from ..kernels import whitted_megakernel
 
-    return whitted_megakernel(tbl, lt, bg, o.contiguous(), d.contiguous(),
-                              shape, cfg, rows, sky, offsets)
+    return whitted_megakernel(tbl.detach(), lt.detach(), bg.detach(),
+                              o.detach().contiguous(),
+                              d.detach().contiguous(), shape, cfg, rows,
+                              sky, offsets)
 
 
 def render_tile(scene: Scene, px: torch.Tensor, py: torch.Tensor,

@@ -153,7 +153,11 @@ def trace_rays_wavefront(scene: Scene, rays: Rays, cfg: RenderConfig,
         q_active = slots < n_live
         src = torch.searchsorted(count, slots + 1).clamp(
             max=c_act.shape[0] - 1)
-        q_f = torch.where(q_active[:, None], c_f[src], default)
+        # index_select: the dead entries all read the last child, and the
+        # backward of [src] would add their zeros into it in one serial
+        # loop on CUDA (ops/intersect.gather_prims)
+        q_f = torch.where(q_active[:, None], c_f.index_select(0, src),
+                          default)
         q_i = torch.where(q_active[:, None], c_i[src], spread)
         q_rays = Rays(q_f[:, 0:3], q_f[:, 3:6], q_f[:, 6])
         q_ior, q_w = q_f[:, 7], q_f[:, 8:11]

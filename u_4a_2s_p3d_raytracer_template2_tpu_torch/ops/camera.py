@@ -3,9 +3,12 @@
 PrimaryRay overload of the reference (camera.h:91-108) and the thin-lens one
 (camera.h:110-127), with depth of field and shutter-time motion blur on
 values its caller drew: the Whitted renderer's sample plan
-(models/samples.py) and the path tracer's uniforms.
+(models/samples.py) and the path tracer's uniforms; and ``with_eye``, the
+moved eye of inverse rendering (parallel/dist.py).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -74,3 +77,22 @@ def primary_rays(cam: Camera, px: torch.Tensor, py: torch.Tensor, *,
         lens = disk_from_uniforms(lens_u[:, 0], lens_u[:, 1]) * cam.aperture
         return thin_lens_rays(cam, px, py, lens, time)
     return pinhole_rays(cam, px, py, time)
+
+
+def with_eye(cam: Camera, eye: torch.Tensor) -> Camera:
+    """The camera moved to ``eye`` [3], its uvn frame re-derived with torch
+    ops so that a gradient on the eye reaches the rays: Camera::SetEye
+    (camera.h:80-89), as JAX ``ops/camera.py:80-100``. ``at`` is the point
+    the current frame looks at, eye_old - n·plane_dist, and the old v
+    stands in for the up vector, which the camera does not keep."""
+    eye = eye.to(torch.float32)
+    at = cam.eye - cam.n * cam.plane_dist
+    up = cam.v
+    n = eye - at
+    plane_dist = torch.linalg.vector_norm(n)
+    n = n / plane_dist
+    u = torch.linalg.cross(up, n)
+    u = u / torch.linalg.vector_norm(u)
+    v = torch.linalg.cross(n, u)
+    return dataclasses.replace(cam, eye=eye, u=u, v=v, n=n,
+                               plane_dist=plane_dist)

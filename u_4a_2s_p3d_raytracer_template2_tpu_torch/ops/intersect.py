@@ -352,10 +352,12 @@ class BruteTables:
 
 
 def brute_tables(prims: Primitives) -> BruteTables:
-    """Pack the kernels' tables from the type views of ``prims``."""
-    sph = prims.sph_p[:prims.n_sph, :4].contiguous()
+    """Pack the kernels' tables from the type views of ``prims``, detached:
+    the kernels answer discrete queries and take no tensor that needs a
+    gradient (core/build.with_prim_params repacks them after a move)."""
+    sph = prims.sph_p[:prims.n_sph, :4].detach().contiguous()
     sph_ids = prims.sph_ids[:prims.n_sph].to(torch.int32).contiguous()
-    tri_p = prims.tri_p[:prims.n_tri]
+    tri_p = prims.tri_p[:prims.n_tri].detach()
     tri = tri_p.new_zeros((prims.n_tri, 12))
     tri[:, :9] = tri_p[:, :9]
     tri[:, 9] = prims.tri_ids[:prims.n_tri].to(torch.int32).view(
@@ -370,6 +372,7 @@ def _kernel_tables(tables: BruteTables | None) -> BruteTables:
     return tables
 
 
+@torch.no_grad()
 def closest_hit_brute(prims: Primitives, rays: Rays,
                       tables: BruteTables | None = None, dead=None):
     """Brute-force closest hit (accel NONE path, main.cpp:542-553).
@@ -382,7 +385,13 @@ def closest_hit_brute(prims: Primitives, rays: Rays,
     marks slots the caller masks downstream: they read (BIG, -1), and the
     kernel and the plain version trace only the others. Returns (t [R],
     obj_id [R] int32); obj_id == -1 on miss.
+
+    The query is discrete: it reads the rays detached and runs without
+    autograd, so its answers carry no gradient on any path (JAX
+    stop_gradients the traversal's inputs and its t); the shading
+    re-derives t differentiably from the winner (``per_ray_t``).
     """
+    rays = rays.detach()
     if 0 < _small_total(prims) <= SMALL_UNROLL_MAX:
         t_best, id_best = _small_closest(prims, rays)
     elif rays.origin.device.type == "cpu":
@@ -407,6 +416,7 @@ def closest_hit_brute(prims: Primitives, rays: Rays,
     return t_best, torch.where(t_best >= C.BIG, -1, id_best)
 
 
+@torch.no_grad()
 def any_hit_brute(prims: Primitives, rays: Rays, max_t, dead=None,
                   tables: BruteTables | None = None) -> torch.Tensor:
     """Shadow-ray occlusion: any hit with t < max_t (main.cpp:481-509).
@@ -415,8 +425,11 @@ def any_hit_brute(prims: Primitives, rays: Rays, max_t, dead=None,
     1.0 with unnormalized light vectors for the physical bound. ``dead`` [R]
     bool marks lanes the caller masks downstream: they report occluded
     without a test. Dispatch as ``closest_hit_brute``
-    (``kernels.brute_any`` on CUDA tensors).
+    (``kernels.brute_any`` on CUDA tensors), on the rays detached.
     """
+    rays = rays.detach()
+    if torch.is_tensor(max_t):
+        max_t = max_t.detach()
     if 0 < _small_total(prims) <= SMALL_UNROLL_MAX:
         return _small_any(prims, rays, max_t, dead)
     if rays.origin.device.type == "cpu":
@@ -439,9 +452,12 @@ def any_hit_brute(prims: Primitives, rays: Rays, max_t, dead=None,
 
 def gather_prims(prims: Primitives, obj_id: torch.Tensor):
     """(params [R,12], ptype [R], mat_id [R]) of each ray's primitive;
-    ptype is INVALID where obj_id < 0."""
+    ptype is INVALID where obj_id < 0. ``index_select``, whose backward
+    adds into the few table rows with atomics: the backward of ``[safe]``
+    sorts the indices and adds each row's millions of duplicates in one
+    serial loop on CUDA (PERF.md §5, the train step)."""
     safe = obj_id.clamp(min=0).long()
-    params = prims.params[safe]
+    params = prims.params.index_select(0, safe)
     ptype = torch.where(obj_id < 0, C.INVALID, prims.ptype[safe])
     return params, ptype, prims.mat_id[safe]
 

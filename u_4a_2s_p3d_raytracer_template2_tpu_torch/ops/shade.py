@@ -35,12 +35,11 @@ class MatView(NamedTuple):
 
 
 def gather_materials(materials: Materials, mat_id: torch.Tensor) -> MatView:
+    """Each ray's material, by ``index_select`` (a cheap backward into the
+    few material rows: ``ops/intersect.gather_prims``)."""
     i = mat_id.long()
-    return MatView(
-        materials.diff_color[i], materials.kd[i], materials.spec_color[i],
-        materials.ks[i], materials.shine[i], materials.transmit[i],
-        materials.ior[i],
-    )
+    return MatView(*(getattr(materials, f).index_select(0, i)
+                     for f in MatView._fields))
 
 
 def blinn_phong(L_unnorm, lit_mask, light_color, mat: MatView, ray_dir,
