@@ -49,6 +49,13 @@ versions on the same inputs:
     the sound WhittedTrace must pass chip_smoke.function_cases under
     chip_smoke.GRAD_LIMIT, and a backward planted to drop o's and d's
     gradient must be rejected in every case (function_verdicts);
+  * the sharded paths (phase 30 of chip_smoke.py, shard_verdicts): two
+    gloo ranks rendering mount_low and taking one light-recovery step must
+    pass chip_smoke.sharded_rejects when sound and be rejected with rank 1
+    writing its slice one pixel early and with the gradient all-reduce
+    skipped (chip_smoke.SHARD_FAULTS); only this check runs with
+    ``python3 -c "import chip_faults, torch;
+    chip_faults.shard_verdicts(torch.device('cuda', 0))"``;
   * the train step's gathers (gather_control): the control reads the
     primitives' and materials' rows by indexing, whose CUDA backward adds
     each row's duplicates in one serial loop, in place of index_select;
@@ -778,6 +785,30 @@ def function_verdicts(dev):
     return failed
 
 
+def shard_verdicts(dev):
+    """Names of the sharded paths' variants that phase 30's checks
+    (chip_smoke.sharded_rejects) judge wrongly: two gloo ranks on the
+    card rendering mount_low and taking one light-recovery step must pass
+    when sound and be rejected under each of chip_smoke.SHARD_FAULTS (rank
+    1 writing its slice one pixel early; the gradient all-reduce skipped,
+    so each rank steps on its half of the gradient)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import launch
+
+    refs = chip_smoke.sharded_refs(dev)
+    failed = []
+    for fault in (None, *chip_smoke.SHARD_FAULTS):
+        results = launch.run(chip_smoke.sharded_rank, chip_smoke.SHARD_RANKS,
+                             ("mount", "train"), fault, backend="gloo",
+                             timeout_s=chip_smoke.SHARD_TIMEOUT_S)
+        why = chip_smoke.sharded_rejects(results, refs)
+        name = fault or "sound"
+        print(f"{name} | sharded mount_low and light step: "
+              f"{'; '.join(why) or 'passed'}")
+        if (fault is None) == bool(why):
+            failed.append(f"sharding: {name}")
+    return failed
+
+
 def gather_control(dev):
     """The train step's gathers against the indexing they replaced: the
     primitives' and materials' rows read by ``table[idx]`` (whose CUDA
@@ -940,6 +971,7 @@ def main() -> int:
               + probe_verdicts(dev, kernels, probe_sound.result(),
                                faulty["probes"])
               + function_verdicts(dev)
+              + shard_verdicts(dev)
               + gather_control(dev)
               + design_controls(dev, [(c[0], src, lib.result()) for
                                       (src, _, c), lib in zip(design_jobs,

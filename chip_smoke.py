@@ -169,6 +169,33 @@ Phases, each raising on failure:
   29. cli fit as a subprocess on the card: --fit lights at 512x512 (lr
      LIGHT_LR) and --fit geometry at 128x128 (lr GEOMETRY_LR), on the
      megakernel engine, each printing falling offsets.
+  Sharding (parallel/dist.py, ranks started by parallel/launch.py) and the
+  front end:
+  30. two gloo ranks on cuda:0 (the box has one card; NCCL refuses two
+     ranks on one device), each with its launch counters set to 0 just
+     before and read just after each path: render_image_sharded of
+     mount_low 512x512, depth 4, on the megakernel engine (one K1 launch a
+     rank, the gathered image bit-equal to phase 4's) and of the BVH field
+     (4 closest and 8 any-hit walk launches a rank, bit-equal to phase
+     10's); one train_step_full of the light recovery at LIGHT_LR (one K1
+     launch a rank, the loss and light positions within SHARD_RTOL of the
+     single process's step, the replicas equal); the sharded frame and
+     step timed on each rank (CUDA events and host wall, medians) beside
+     the single process's (sharded_rejects holds the checks;
+     chip_faults.py plants SHARD_FAULTS);
+  31. in the same ranks, glsl_world's path-traced frame at 512x512, 10
+     bounces (one K3 launch a rank), each rank's slice against the plain
+     version on that rank's rays and uniforms under PT_LIMITS["glsl"], the
+     frame's mean beside a single-process frame's;
+  32. one NCCL rank in a child process: the sharded render and step with
+     their collectives issued, against the single process's bit for bit
+     (the step so where the single-process step repeats bit for bit, else
+     within SHARD_RTOL), and NCCL's version; NCCL across cards is not
+     measured (one card);
+  33. cli orbit, view and live (keys "aw  a q", an 80-column preview) as
+     subprocesses at 512x512 on the megakernel engine: exit 0, their PNGs,
+     their FPS lines and live's accumulation counts; preview_u8 on the
+     card against the CPU within 1 u8 level.
 On a card, brute-force queries of more than 48 primitives go through the
 brute-force kernels, so the plain sweep that phase 3 holds the Whitted
 kernel against runs them on its 66-primitive field, and phase 10's 128x128
@@ -177,7 +204,8 @@ the brute-force kernels against their own plain version.
 The line before the last is a JSON object of the kernels (the walk's and
 brute force's entries each with the wavefront frame and the gradient frame
 they served, the Whitted kernel's with the Function's readings and the
-train steps); the last line is the JSON device record.
+train steps; K1's, K3's and the walk's with their launches on each rank of
+phases 30-31); the last line is the JSON device record.
 """
 import concurrent.futures
 import json
@@ -1555,6 +1583,407 @@ def offsets_printed(stdout, what):
             if what in line]
 
 
+# Phases 30-32: the sharded paths (parallel/dist.py) on ranks started by
+# parallel/launch.py. The box has one card, so phases 30-31 run two gloo
+# ranks on cuda:0 (NCCL refuses two ranks on one device) and phase 32 one
+# NCCL rank.
+SHARD_RANKS = 2
+SHARD_TIMEOUT_S = 300.0
+SHARD_FRAMES = 21      # timed frames (medians), after 3 warm-up frames
+SHARD_RTOL = 1e-6      # the sharded train step against the single process's
+SHARD_PARTS = ("mount", "field", "train", "pt")
+# planted faults the phase-30 checks must reject (chip_faults.py)
+SHARD_FAULTS = ("rank 1 writes its slice one pixel early",
+                "the gradient all-reduce skipped")
+
+
+def shard_setup():
+    """The card for a rank: cuda:0, f32 throughout."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def counted(fn, kernels_):
+    """fn()'s result and each kernel's launches in it, the counts set to 0
+    just before and read just after (the device synchronised)."""
+    for k in kernels_:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in kernels_}
+
+
+def frame_times(fn, frames=SHARD_FRAMES, warmup=3):
+    """Medians of (CUDA-event ms, host wall ms) of ``fn()`` frames, each
+    started on an idle device and ended by a synchronise."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for i in range(warmup + frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((start.elapsed_time(end),
+                          (time.perf_counter() - t0) * 1e3))
+    return tuple(float(np.median([t[j] for t in times])) for j in (0, 1))
+
+
+def light_step(dev):
+    """Phase 27's light recovery on mount_low 512x512, depth 4, on the
+    megakernel engine: (the scene, its image, and ``step()``, one
+    train_step_full at LIGHT_LR from light 0 moved by (1, -0.7, 0.5)
+    against that image, the light positions' scale 1 and every other
+    group's 0, on this process's group)."""
+    from dataclasses import replace
+
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import scenes
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+        render_image,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+
+    cfg = RenderConfig(engine="megakernel")
+    scene = build_scene(scenes.mount_scene(res=RES), device=dev)
+    target = render_image(scene, cfg)
+    moved = scene.lights.position.clone()
+    moved[0] += torch.tensor([1.0, -0.7, 0.5], device=dev)
+    start = replace(scene, lights=replace(scene.lights, position=moved))
+    scales = dist.lr_scales(materials=0.0, light_pos=1.0, light_color=0.0,
+                            camera=0.0)
+    return scene, target, lambda: dist.train_step_full(
+        start, target, cfg, LIGHT_LR, None, scales)
+
+
+def step_reading(step_out):
+    """(loss, light positions on the host) of a train step's result."""
+    new, loss = step_out
+    return float(loss), new.lights.position.cpu()
+
+
+def plant_fault(fault, rank):
+    """Replace a piece of parallel/dist.py in this rank by ``fault`` (one
+    of SHARD_FAULTS)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+
+    if fault == SHARD_FAULTS[0] and rank == 1:
+        sound = dist.gather_rows
+
+        def early(part, n, start, group=None):
+            return sound(part, n, start - 1, group)
+
+        dist.gather_rows = early
+    elif fault == SHARD_FAULTS[1]:
+        dist.all_reduce_sum = lambda tensors, group=None: list(tensors)
+    elif fault is not None and fault not in SHARD_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def sharded_rank(rank, size, parts=SHARD_PARTS, fault=None):
+    """One gloo rank of phases 30-31 on cuda:0: mount_low 512x512, depth 4,
+    on the megakernel engine (image, K1 launches, frame times); the BVH
+    field (image, walk launches); one train_step_full of the light
+    recovery at LIGHT_LR (loss, light positions, launches); glsl_world's
+    path-traced frame (K3 launches, this rank's slice against the plain
+    version on its own rays and uniforms, the frame's mean)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import scenes
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+
+    dev = shard_setup()
+    plant_fault(fault, rank)
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+    cfg_mk = RenderConfig(engine="megakernel")
+    k1 = (kernels.whitted_megakernel,)
+    if "mount" in parts or "train" in parts:
+        mount, _, step = light_step(dev)
+    if "mount" in parts:
+        img, n = counted(lambda: dist.render_image_sharded(mount, cfg_mk), k1)
+        out["mount"] = {"image": img.cpu(), "launches": n}
+        if "timing" in parts:
+            out["mount"]["frame_ms"] = frame_times(
+                lambda: dist.render_image_sharded(mount, cfg_mk))
+    if "field" in parts:
+        field = build_scene(scenes.sphere_field_scene(n_side=FIELD_SIDE,
+                                                      res=RES), device=dev)
+        walk = (kernels.bvh_closest, kernels.bvh_any, kernels.bvh_any_multi)
+        img, n = counted(
+            lambda: dist.render_image_sharded(field, RenderConfig()), walk)
+        out["field"] = {"image": img.cpu(), "launches": n}
+    if "train" in parts:
+        got, n = counted(step, k1)
+        loss, light_pos = step_reading(got)
+        out["train"] = {"loss": loss, "light_pos": light_pos, "launches": n}
+        if "timing" in parts:
+            out["train"]["step_ms"] = frame_times(step, frames=5, warmup=1)
+    if "pt" in parts:
+        out["pt"] = sharded_pt(rank, size, dev)
+    return out
+
+
+def sharded_pt(rank, size, dev):
+    """Phase 31 on one rank: glsl_world 512x512, 10 bounces."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        pathtracer as pt,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.glsl_scene import (
+        glsl_camera,
+        glsl_world,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+        pixel_grid,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+
+    world = glsl_world(device=dev)
+    cam = glsl_camera(RES, RES, device=dev)
+    cfg = pt.PTConfig()
+    frame, n = counted(lambda: dist.pt_frame_sharded(world, cam, cfg),
+                       (kernels.pt_megakernel,))
+    a, b = dist.shard_bounds(RES * RES, size, rank)
+    g = (dist.rank_generator(None, rank, size, dev)
+         or torch.Generator(device=dev).manual_seed(0))
+    px, py = pixel_grid(RES, RES, dev)
+    rays = pt.camera_rays(cam, g, px[a:b], py[a:b])
+    uni = pt.draw_uniforms(g, cfg.max_bounces, b - a)
+    want = pt.ray_color_presampled(world, cfg, rays, uni)
+    return {"launches": n, "slice": (a, b), "mean": float(frame.mean()),
+            "finite": bool(torch.isfinite(frame).all()),
+            "agreement": pt_agreement(frame.reshape(-1, 3)[a:b], want)}
+
+
+def sharded_rejects(results, refs):
+    """Why phase 30-31's checks reject the ranks' ``results`` against the
+    single-process ``refs`` (empty: they pass): images bit-equal, the
+    train step within SHARD_RTOL, the replicas equal, each kernel launched
+    as the single process launches it, the path tracer's slices within
+    PT_LIMITS["glsl"]."""
+    why = []
+    for r in results:
+        rank = r["rank"]
+        if "mount" in r:
+            if not torch.equal(r["mount"]["image"], refs["mount"]):
+                why.append(f"rank {rank}: mount_low image differs")
+            if r["mount"]["launches"] != {"whitted_megakernel": 1}:
+                why.append(f"rank {rank}: K1 launches "
+                           f"{r['mount']['launches']}")
+        if "field" in r:
+            if not torch.equal(r["field"]["image"], refs["field"]):
+                why.append(f"rank {rank}: field image differs")
+            if r["field"]["launches"] != {"bvh_closest": 4, "bvh_any": 8,
+                                          "bvh_any_multi": 0}:
+                why.append(f"rank {rank}: walk launches "
+                           f"{r['field']['launches']}")
+        if "train" in r:
+            t, (loss, pos) = r["train"], refs["train"]
+            if not np.allclose(t["loss"], loss, rtol=SHARD_RTOL, atol=0):
+                why.append(f"rank {rank}: loss {t['loss']!r} against "
+                           f"{loss!r}")
+            if not torch.allclose(t["light_pos"], pos, rtol=SHARD_RTOL,
+                                  atol=0):
+                why.append(f"rank {rank}: light positions differ by "
+                           f"{float((t['light_pos'] - pos).abs().max()):.3g}")
+            if t["launches"] != {"whitted_megakernel": 1}:
+                why.append(f"rank {rank}: step launches {t['launches']}")
+            if not torch.equal(t["light_pos"],
+                               results[0]["train"]["light_pos"]):
+                why.append(f"rank {rank}: the replicas' lights differ")
+        if "pt" in r:
+            p = r["pt"]
+            bad, mean, _ = p["agreement"]
+            max_bad, max_mean = PT_LIMITS["glsl"]
+            if not p["finite"] or bad > max_bad or mean > max_mean:
+                why.append(f"rank {rank}: path-tracer slice {p['agreement']}")
+            if p["launches"] != {"pt_megakernel": 1}:
+                why.append(f"rank {rank}: K3 launches {p['launches']}")
+    return why
+
+
+def sharded_refs(dev):
+    """The single-process references of phase 30's checks: mount_low's
+    image and the light-recovery step's (loss, light positions)."""
+    _, target, step = light_step(dev)
+    return {"mount": target.cpu(), "train": step_reading(step())}
+
+
+def nccl_rank(rank, size):
+    """Phase 32: one NCCL rank on cuda:0, the sharded render and light
+    step with the group initialised (their collectives issued), and
+    NCCL's version."""
+    out = sharded_rank(rank, size, parts=("mount", "train"))
+    out["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+    return out
+
+
+def sharding_phases(dev, card, mount_img, field_img):
+    """Phases 30-33 (see the module docstring), against phase 4's mount_low
+    image and phase 10's field image; returns (the ranks' results, the
+    sharded summary, the single-process frame and step times, the
+    single-process path-traced frame's mean)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        pathtracer as pt,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        pt_megakernel as ptk,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.glsl_scene import (
+        glsl_camera,
+        glsl_world,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+        render_image,
+    )
+
+    cfg_mk = RenderConfig(engine="megakernel")
+    world = glsl_world(device=dev)
+    cam = glsl_camera(RES, RES, device=dev)
+    pt_cfg = pt.PTConfig()
+    # 30-31. the sharded paths: two gloo ranks on cuda:0 (parallel/launch),
+    # mount_low and the BVH field against phases 4 and 10 bit for bit, the
+    # light-recovery step against the single process's, the frame and the
+    # step timed on each rank; glsl_world's path-traced frame
+    t_shard = time.perf_counter()
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.io.image import preview_u8
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import launch
+
+    m512, _, step = light_step(dev)
+    refs = {"mount": mount_img.cpu(), "field": field_img.cpu(),
+            "train": step_reading(step())}
+    again = step_reading(step())
+    step_repeats = (again[0] == refs["train"][0]
+                    and torch.equal(again[1], refs["train"][1]))
+    shard = launch.run(sharded_rank, SHARD_RANKS, SHARD_PARTS + ("timing",),
+                       backend="gloo", timeout_s=SHARD_TIMEOUT_S)
+    single_ms = frame_times(lambda: render_image(m512, cfg_mk))
+    single_step_ms = frame_times(step, frames=5, warmup=1)
+    for r in shard:
+        print(f"30 rank {r['rank']} of {SHARD_RANKS} ({r['backend']}, "
+              f"cuda:0): mount_low {RES}x{RES} megakernel launches "
+              f"{r['mount']['launches']}, bit-equal to phase 4's image "
+              f"{torch.equal(r['mount']['image'], refs['mount'])}; "
+              f"field{FIELD_SIDE} launches {r['field']['launches']}, "
+              f"bit-equal to phase 10's image "
+              f"{torch.equal(r['field']['image'], refs['field'])}; light "
+              f"step loss {r['train']['loss']!r} (single process "
+              f"{refs['train'][0]!r}), light 0 at "
+              f"{r['train']['light_pos'][0].tolist()} (single process "
+              f"{refs['train'][1][0].tolist()}), launches "
+              f"{r['train']['launches']}; frame {r['mount']['frame_ms'][0]:.4f}"
+              f" ms CUDA events, {r['mount']['frame_ms'][1]:.4f} ms host "
+              f"wall (medians of {SHARD_FRAMES}); step "
+              f"{r['train']['step_ms'][0]:.4f} ms CUDA events, "
+              f"{r['train']['step_ms'][1]:.4f} ms host wall (medians of 5)")
+        p = r["pt"]
+        print(f"31 rank {r['rank']}: glsl_world {RES}x{RES} 10 bounces "
+              f"pixels [{p['slice'][0]}, {p['slice'][1]}), launches "
+              f"{p['launches']}, slice against the plain version on its "
+              f"rays and uniforms: {p['agreement'][0] * 100:.4f}% pixels "
+              f"beyond {ATOL}, mean abs diff {p['agreement'][1]:.3g} (limits "
+              f"{PT_LIMITS['glsl']}); frame mean {p['mean']:.6f}")
+    pt_single_mean = float(ptk.make_render_frame(world, cam, pt_cfg)(
+        torch.Generator(device=dev).manual_seed(0)).mean())
+    print(f"30 single process: frame {single_ms[0]:.4f} ms CUDA events, "
+          f"{single_ms[1]:.4f} ms host wall; step {single_step_ms[0]:.4f} "
+          f"ms CUDA events, {single_step_ms[1]:.4f} ms host wall; the step "
+          f"repeats bit for bit {step_repeats}; 31 single-process "
+          f"path-traced frame mean {pt_single_mean:.6f} ({card})")
+    why = sharded_rejects(shard, refs)
+    if why:
+        raise AssertionError("30-31: " + "; ".join(why))
+
+    # 32. NCCL at world size 1 in a child process: the sharded render and
+    # step with their collectives issued, against the single process's
+    nccl = launch.run(nccl_rank, 1, backend="nccl",
+                      timeout_s=SHARD_TIMEOUT_S)[0]
+    nccl_img = torch.equal(nccl["mount"]["image"], refs["mount"])
+    nccl_step = (nccl["train"]["loss"] == refs["train"][0] and torch.equal(
+        nccl["train"]["light_pos"], refs["train"][1]))
+    print(f"32 NCCL {nccl['nccl']} ({nccl['backend']}), world size 1: "
+          f"render_image_sharded bit-equal {nccl_img}, launches "
+          f"{nccl['mount']['launches']}; train_step_full bit-equal "
+          f"{nccl_step} (loss {nccl['train']['loss']!r}), launches "
+          f"{nccl['train']['launches']}. NCCL across cards is not "
+          "measured: this box has one card.")
+    if not nccl_img or (step_repeats and not nccl_step):
+        raise AssertionError("32: the NCCL rank's render or step differs "
+                             "from the single process's")
+    if not step_repeats and sharded_rejects([nccl], refs):
+        raise AssertionError(f"32: {sharded_rejects([nccl], refs)}")
+
+    # 33. the front end on the card: cli orbit, view and live at 512x512
+    # on the megakernel engine; preview_u8 on the card against the CPU
+    cli = [sys.executable, "-m",
+           "u_4a_2s_p3d_raytracer_template2_tpu_torch.cli"]
+    common = ["--builtin", "mount", "--res", str(RES), "--engine",
+              "megakernel"]
+    front = {}
+    for name, extra, keys in (
+            ("orbit", ["--frames", "2", "-o", "build/orbit_%d.png"], None),
+            ("view", ["--orbit-frames", "2", "--still-frames", "2", "-o",
+                      "build/view.png"], None),
+            ("live", ["--preview-cols", "80", "-o", "build/live.png"],
+             "aw  a q")):
+        t0 = time.perf_counter()
+        out = subprocess.run(cli + [name] + common + extra, cwd=ROOT,
+                             input=keys, capture_output=True, text=True,
+                             check=True, timeout=300).stdout
+        lines = [ln for ln in out.splitlines() if "\x1b[" not in ln]
+        front[name] = {"seconds": time.perf_counter() - t0,
+                       "lines": lines,
+                       "preview_lines": len(out.splitlines()) - len(lines)}
+        print(f"33 cli {name} ({front[name]['seconds']:.1f} s, "
+              f"{front[name]['preview_lines']} preview lines):")
+        for ln in lines:
+            print(f"  {ln}")
+    pngs = ["orbit_0.png", "orbit_1.png", "view.png", "live.png"]
+    missing = [f for f in pngs if not (ROOT / "build" / f).exists()]
+    fps_lines = {n: sum("FPS" in ln for ln in v["lines"])
+                 for n, v in front.items()}
+    accumulated = [ln.split()[1] for ln in front["live"]["lines"]
+                   if ln.startswith("  accumulated")]
+    if (missing or fps_lines["view"] < 4 or fps_lines["live"] < 5
+            or accumulated != ["1", "2", "1"]
+            or front["live"]["preview_lines"] < 40):
+        raise AssertionError(f"33: PNGs missing {missing}, FPS lines "
+                             f"{fps_lines}, accumulated {accumulated}")
+    prev_dev = preview_u8(mount_img, 80)
+    prev_cpu = preview_u8(mount_img.cpu(), 80)
+    prev_err = int((prev_dev.cpu().int() - prev_cpu.int()).abs().max())
+    print(f"33 preview_u8 {tuple(prev_dev.shape)} on {prev_dev.device} "
+          f"against the CPU: max {prev_err} u8 levels")
+    if prev_err > 1:
+        raise AssertionError("33: preview_u8 on the card differs from the "
+                             "CPU by more than 1 level")
+    print(f"sharding and front-end phases "
+          f"{time.perf_counter() - t_shard:.1f} s")
+    sharded = {"ranks": SHARD_RANKS, "backend": "gloo, both on cuda:0",
+               "nccl_world_1": {"version": nccl["nccl"],
+                                "render_bit_equal": nccl_img,
+                                "step_bit_equal": nccl_step}}
+    return shard, sharded, single_ms, single_step_ms, pt_single_mean
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1734,6 +2163,7 @@ def main() -> int:
         raise AssertionError("main path image disagrees with the sweep")
     (ROOT / "build").mkdir(exist_ok=True)
     save_png(str(ROOT / "build" / "mount_smoke.png"), img)
+    mount_img = img  # phase 30's single-process reference
     subprocess.run(
         [sys.executable, "-m", "u_4a_2s_p3d_raytracer_template2_tpu_torch.cli",
          "render", "--builtin", "mount", "--res", str(RES), "--engine",
@@ -1908,6 +2338,7 @@ def main() -> int:
         k.launches = 0
     img = render_image(field, cfg_bvh)
     torch.cuda.synchronize()
+    field_img = img  # phase 30's single-process reference
     bvh_launches = [k.launches for k in walk_kernels]
     print(f"main path: render_image field{FIELD_SIDE} ({field.n_objects} "
           f"objects, {field.packets.nodes.shape[0]} nodes, depth "
@@ -2747,6 +3178,10 @@ def main() -> int:
                                  f"{cli_fit[fit]} do not fall")
     print(f"gradient phases {time.perf_counter() - t_grad:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
+
+    shard, sharded, single_ms, single_step_ms, pt_single_mean = (
+        sharding_phases(dev, card, mount_img, field_img))
+    print(f"all {time.perf_counter() - t_start:.1f} s")
     wave_bvh = {
         "scene": f"field{FIELD_SIDE} {RES}x{RES} depth 4, engine=wavefront",
         "launches": {"closest": w1_counts["bvh_closest"],
@@ -2826,6 +3261,14 @@ def main() -> int:
                       for label, r in fn_readings.items()},
             "max_rel_err": fn_err, "limit": GRAD_LIMIT},
         "train_step": train,
+        "sharded": dict(
+            sharded, scene=f"mount_low {RES}x{RES} depth 4",
+            launches_per_rank=[r["mount"]["launches"] for r in shard],
+            step_launches_per_rank=[r["train"]["launches"] for r in shard],
+            frame_ms_per_rank=[r["mount"]["frame_ms"] for r in shard],
+            single_frame_ms=single_ms,
+            step_ms_per_rank=[r["train"]["step_ms"] for r in shard],
+            single_step_ms=single_step_ms),
     }, {
         "name": "pt_megakernel",
         "route": "cuda",
@@ -2839,12 +3282,21 @@ def main() -> int:
         "bound_ms": pt_bound_ms,
         "bound_by": pt_bound_by,
         "library_ms": None,
+        "sharded": dict(
+            sharded, launches_per_rank=[r["pt"]["launches"] for r in shard],
+            agreement_per_rank=[r["pt"]["agreement"] for r in shard],
+            frame_mean=shard[0]["pt"]["mean"],
+            single_frame_mean=pt_single_mean),
     },
         bvh_entry("bvh_walk closest", "closest", "closest, level 0", ":770",
                   bvh_launches[0], also_replaces=pk_src + ":843",
-                  frame=walk_frame["closest"]),
+                  frame=walk_frame["closest"],
+                  sharded_launches_per_rank=[
+                      r["field"]["launches"]["bvh_closest"] for r in shard]),
         bvh_entry("bvh_walk any", "any", "any, level 0, light 0",
-                  ":813", bvh_launches[1], frame=walk_frame["any"]),
+                  ":813", bvh_launches[1], frame=walk_frame["any"],
+                  sharded_launches_per_rank=[
+                      r["field"]["launches"]["bvh_any"] for r in shard]),
         bvh_entry("bvh_walk any multi", "multi",
                   "multi, level 0, both lights", ":729", multi_launches),
         brute_entry("brute_intersect closest, spheres (K4a)", "closest",

@@ -42,6 +42,10 @@ def test_port_imports_no_jax():
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.roofline_mount\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.megakernels\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel.dist\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel.launch\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.entry\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.profiling\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.io.image\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.camera\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build\n"
         "import chip_smoke, chip_faults\n"

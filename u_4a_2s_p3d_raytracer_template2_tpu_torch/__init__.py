@@ -22,6 +22,7 @@ Quick start::
     scene = rt.build_scene(mount_scene(res=512), device=dev)
     img = rt.render_image(scene, rt.RenderConfig(engine="megakernel"))
     rt.save_png("out.png", img)   # [H, W, 3] float, row 0 = bottom
+    scene = rt.load_scene("scene.p3f", device=dev)   # a .p3f file
 
     world, cam = rt.glsl_world(device=dev), rt.glsl_camera(512, 512, device=dev)
     cfg = rt.PTConfig()
@@ -32,7 +33,7 @@ Quick start::
 """
 
 from .core import constants
-from .core.build import build_camera, build_scene
+from .core.build import build_camera, build_scene, load_scene
 from .core.types import (
     Camera,
     Lights,
@@ -42,7 +43,7 @@ from .core.types import (
     RenderConfig,
     Scene,
 )
-from .io.image import save_png
+from .io.image import load_png, save_png
 from .io.p3f import SceneDef, parse_p3f, parse_p3f_text
 from .models.glsl_scene import glsl_camera, glsl_world
 from .models.pathtracer import (

@@ -1,5 +1,6 @@
-"""Command-line entry point of the port: the ``render``, ``fit`` and
-``pathtrace`` subcommands of ``u_4a_2s_p3d_raytracer_template2_tpu/cli.py``.
+"""Command-line entry point of the port: the ``render``, ``fit``,
+``pathtrace``, ``orbit``, ``view`` and ``live`` subcommands of
+``u_4a_2s_p3d_raytracer_template2_tpu/cli.py``.
 
 Usage::
 
@@ -14,6 +15,15 @@ Usage::
         --builtin mount --res 512 --steps 3 --fit lights --lr 1e4
     python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.cli pathtrace \\
         --res 512 --frames 16 --checkpoint pt.npz -o pt.png
+    torchrun --standalone --nproc_per_node 2 \\
+        -m u_4a_2s_p3d_raytracer_template2_tpu_torch.cli fit \\
+        --builtin mount --res 16 --steps 3 --device cpu
+    python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.cli orbit \\
+        --builtin mount --res 512 --frames 8 -o orbit_%d.png
+    python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.cli view \\
+        --builtin mount --res 512 --orbit-frames 8 --still-frames 4
+    printf 'aw  a q' | python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.cli \\
+        live --builtin mount --res 512 --engine megakernel
 
 All run on the CUDA card unless ``--device cpu`` is given; without a card
 they exit with an error rather than fall back to the CPU.
@@ -33,11 +43,23 @@ one host wall-clock render, labelled as such.
 
 ``fit`` perturbs the scene and recovers it by gradient descent
 (parallel/dist.py, ``cmd_fit``), printing the loss and the offset from
-the truth a step.
+the truth a step. Under torchrun (``WORLD_SIZE`` above 1) every process
+joins the group (``dist.initialize_multihost``: gloo on the CPU, NCCL on
+``cuda:LOCAL_RANK``), the steps shard the pixels over it, and rank 0 alone
+prints.
 
 ``pathtrace`` accumulates progressive 1-spp frames of the GLSL world,
 optionally resuming from and saving a checkpoint, and writes the
 gamma-corrected PNG.
+
+``orbit`` writes turntable frames; ``view`` renders while the camera
+orbits, printing each frame's time, FPS and Mrays/s, then accumulates
+jittered frames with the camera still; ``live`` reads keys from stdin (a
+terminal or a pipe) and re-renders on each, drawing the frame in the
+terminal (``--preview-cols``, ``io/image.preview_u8`` and
+``ansi_halfblock``). Their frames are ``render_image`` with ``--tile-rows``
+image rows a tile (0: the whole frame at once); their times are host wall
+clock around a frame that ends in a device synchronise.
 """
 from __future__ import annotations
 
@@ -156,28 +178,46 @@ def cmd_fit(args) -> None:
     (an accelerator's tables keep the built geometry)."""
     import dataclasses
 
+    import torch.distributed
+
     from .core import constants as C
     from .core.build import build_scene, with_prim_params
-    from .models.whitted import engine_of, render_image
-    from .parallel.dist import lr_scales, train_step, train_step_full
+    from .models.whitted import engine_of
+    from .parallel.dist import (
+        initialize_multihost,
+        lr_scales,
+        rank_device,
+        render_image_sharded,
+        train_step,
+        train_step_full,
+        world,
+    )
 
     dev = torch.device(args.device)
+    n_procs = int(os.environ.get("WORLD_SIZE", "1"))
+    if n_procs > 1:
+        if dev.type == "cuda":
+            dev = rank_device(dev)
+        initialize_multihost(num_processes=n_procs, device=dev)
+    rank, size = world()
+    say = print if rank == 0 else (lambda *a, **k: None)
     scene = build_scene(_scene_def(args), device=dev, accel=args.accel)
     cfg = _config(args, scene)
     if args.fit == "geometry" and scene.accel_type != C.ACCEL_NONE:
-        print("note: scene declares an accelerator; geometry fit forces "
-              "accel_impl='brute' (accel tables hold the built geometry "
-              "during a fit)")
+        say("note: scene declares an accelerator; geometry fit forces "
+            "accel_impl='brute' (accel tables hold the built geometry "
+            "during a fit)")
         cfg = dataclasses.replace(cfg, accel_impl="brute")
     cam = scene.camera
-    print(f"fit {args.fit}: {cam.res_x}x{cam.res_y}, {scene.n_objects} "
-          f"objects, depth {cfg.max_depth}, engine {engine_of(scene, cfg)}, "
-          f"lr {args.lr:g}, {args.steps} steps, device {scene.device}")
+    say(f"fit {args.fit}: {cam.res_x}x{cam.res_y}, {scene.n_objects} "
+        f"objects, depth {cfg.max_depth}, engine {engine_of(scene, cfg)}, "
+        f"lr {args.lr:g}, {args.steps} steps, device {scene.device}, "
+        f"{size} rank(s)")
 
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)
 
-    target = render_image(scene, cfg, gen(args.seed))
+    target = render_image_sharded(scene, cfg, None, gen(args.seed))
     t0 = time.perf_counter()
     if args.fit == "materials":
         mats = dataclasses.replace(
@@ -186,7 +226,7 @@ def cmd_fit(args) -> None:
         s = dataclasses.replace(scene, materials=mats)
         for i in range(args.steps):
             s, loss = train_step(s, target, cfg, args.lr, gen(i))
-            print(f"step {i}: loss {float(loss):.6f}")
+            say(f"step {i}: loss {float(loss):.6f}")
     elif args.fit == "geometry":
         true_params = scene.prims.params
         sph = torch.nonzero(scene.prims.ptype == C.SPHERE)[:, 0]
@@ -210,10 +250,10 @@ def cmd_fit(args) -> None:
             s, loss = train_step_full(s, target, cfg, args.lr, gen(i), sc)
             d = float(torch.linalg.vector_norm(
                 s.prims.params[row, 0:3] - true_params[row, 0:3]))
-            print(f"step {i}: loss {float(loss):.6f}  center offset {d:.4f}")
+            say(f"step {i}: loss {float(loss):.6f}  center offset {d:.4f}")
             if i == 0 and float(loss) < 1e-7:
-                print("note: displaced sphere does not affect the image at "
-                      "this resolution — try a higher --res")
+                say("note: displaced sphere does not affect the image at "
+                    "this resolution — try a higher --res")
     else:
         true_pos = scene.lights.position
         delta = torch.zeros_like(true_pos)
@@ -225,11 +265,13 @@ def cmd_fit(args) -> None:
         for i in range(args.steps):
             s, loss = train_step_full(s, target, cfg, args.lr, gen(i), sc)
             d = float(torch.linalg.vector_norm(s.lights.position - true_pos))
-            print(f"step {i}: loss {float(loss):.6f}  light offset {d:.3f}")
+            say(f"step {i}: loss {float(loss):.6f}  light offset {d:.3f}")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    print(f"{args.steps} steps in {time.perf_counter() - t0:.3f} s (host "
-          f"wall clock, {dev.type})")
+    say(f"{args.steps} steps in {time.perf_counter() - t0:.3f} s (host "
+        f"wall clock, {dev.type}, {size} rank(s))")
+    if n_procs > 1:
+        torch.distributed.destroy_process_group()
 
 
 def cmd_pathtrace(args) -> None:
@@ -269,9 +311,226 @@ def cmd_pathtrace(args) -> None:
     print(f"Image file created: {args.output}")
 
 
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _orbit_scene(scene, alpha, beta, r):
+    """``scene`` with its camera on the orbit (``ops/camera.orbit_eye``)."""
+    import dataclasses
+
+    from .ops.camera import orbit_eye, with_eye
+
+    cam = scene.camera
+    return dataclasses.replace(
+        scene, camera=with_eye(cam, orbit_eye(cam, alpha, beta, r)))
+
+
+def cmd_orbit(args) -> None:
+    """Turntable frames around the origin at pitch ``--beta``: the
+    headless counterpart of the reference's mouse-orbit viewer
+    (main.cpp:357-433; JAX cli.py:279-307). A ``%d`` in ``-o`` takes the
+    frame number, else ``_NNN`` goes before the extension."""
+    from .core.build import build_scene
+    from .io.image import save_png
+    from .models.whitted import render_image
+
+    dev = torch.device(args.device)
+    scene = build_scene(_scene_def(args), device=dev, accel=args.accel)
+    cfg = _config(args, scene)
+    r = float(torch.linalg.vector_norm(scene.camera.eye))
+    for i in range(args.frames):
+        alpha = 360.0 * i / args.frames
+        img = render_image(_orbit_scene(scene, alpha, args.beta, r), cfg,
+                           torch.Generator(device=dev).manual_seed(i),
+                           tile_rows=args.tile_rows)
+        path = (args.output.replace("%d", str(i)) if "%d" in args.output
+                else f"{args.output.rsplit('.', 1)[0]}_{i:03d}.png")
+        save_png(path, img)
+        print(f"frame {i}: {path}")
+
+
+def cmd_view(args) -> None:
+    """A viewer session without a window (the reference's idle-func
+    viewer, main.cpp:835-868; JAX cli.py:310-384): frames while the camera
+    orbits ``--sweep`` degrees, each with its time, FPS and Mrays/s
+    (main.cpp:280-289), then ``--still-frames`` jittered frames
+    accumulated with the camera still (P3D_RT.glsl:345-365); the orbit
+    frames, rendered without AA, are not blended in."""
+    import dataclasses
+
+    from .core.build import build_scene
+    from .io.image import save_png
+    from .models.whitted import render_image
+
+    dev = torch.device(args.device)
+    scene = build_scene(_scene_def(args), device=dev, accel=args.accel)
+    cfg = _config(args, scene)
+    cam0 = scene.camera
+    rays_per_frame = cam0.res_x * cam0.res_y * (1 + scene.n_lights)
+    r = float(torch.linalg.vector_norm(cam0.eye))
+
+    def frame(s, use_cfg, seed):
+        img = render_image(s, use_cfg,
+                           torch.Generator(device=dev).manual_seed(seed),
+                           tile_rows=args.tile_rows)
+        _sync(dev)
+        return img
+
+    # a warm-up frame (kernel loading), outside the readout, as the
+    # reference's first frame pays the scene build
+    img = frame(_orbit_scene(scene, 0.0, args.beta, r), cfg, 0)
+    print(f"session: {cam0.res_x}x{cam0.res_y}, {scene.n_objects} objects, "
+          f"orbit {args.orbit_frames} frames over {args.sweep} deg, then "
+          f"accumulate {args.still_frames} frames, device {dev}")
+    for i in range(args.orbit_frames):
+        alpha = args.sweep * (i + 1) / max(args.orbit_frames, 1)
+        t0 = time.perf_counter()
+        img = frame(_orbit_scene(scene, alpha, args.beta, r), cfg, 0)
+        dt = time.perf_counter() - t0
+        print(f"orbit frame {i}: alpha={alpha:7.2f}  {dt * 1e3:7.1f} ms  "
+              f"{1.0 / dt:6.2f} FPS  {rays_per_frame / dt / 1e6:7.2f} Mrays/s")
+
+    acc_cfg = (dataclasses.replace(cfg, anti_aliasing=True,
+                                   spp=max(cfg.spp, 1))
+               if args.still_frames else cfg)
+    still = _orbit_scene(scene, args.sweep, args.beta, r)
+    acc = torch.zeros_like(img)
+    for i in range(args.still_frames):
+        t0 = time.perf_counter()
+        img = frame(still, acc_cfg, 1 + i)
+        acc = acc + img
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        print(f"still frame {i}: {i + 1} samples  {dt * 1e3:7.1f} ms  "
+              f"{1.0 / dt:6.2f} FPS")
+    save_png(args.output, acc / args.still_frames if args.still_frames
+             else img)
+    print(f"Image file created: {args.output}")
+
+
+def _read_keys():
+    """Single keypresses from stdin: on a terminal in cbreak mode, each
+    key as it is pressed; from a pipe every character of every line, the
+    newlines skipped (``printf 'ad+q' | ... live``)."""
+    if sys.stdin.isatty():
+        import termios
+        import tty
+
+        fd = sys.stdin.fileno()
+        old = termios.tcgetattr(fd)
+        try:
+            tty.setcbreak(fd)
+            while ch := sys.stdin.read(1):
+                yield ch
+        finally:
+            termios.tcsetattr(fd, termios.TCSADRAIN, old)
+    else:
+        while ch := sys.stdin.read(1):
+            if ch not in "\r\n":
+                yield ch
+
+
+def cmd_live(args) -> None:
+    """The reference's keyboard and mouse loop on stdin (JAX
+    cli.py:419-530): processKeys (main.cpp:327-349), the yaw/pitch orbit
+    with the ±85° pitch clamp (main.cpp:395-421) and the 0.1 zoom step
+    with its 0.1 radius floor (main.cpp:425-431). Each key re-renders,
+    draws the frame in the terminal (``--preview-cols``; 0 draws nothing)
+    and prints the title bar's FPS and Mrays/s (main.cpp:280-289).
+
+    Keys: a/d yaw -/+5°, w/s pitch +/-5°, +/- zoom in/out, SPACE
+    accumulates one jittered frame (a camera move resets the sum, the GLSL
+    iFrame reset, P3D_RT.glsl:345-365), r resets the camera, c prints its
+    coordinates, q or ESC quits and writes the PNG (the mean of the
+    accumulated frames, else the last frame)."""
+    import dataclasses
+    import math
+
+    from .core.build import build_scene
+    from .io.image import ansi_halfblock, preview_u8, save_png
+    from .models.whitted import render_image
+
+    dev = torch.device(args.device)
+    scene = build_scene(_scene_def(args), device=dev, accel=args.accel)
+    cfg = _config(args, scene)
+    cam0 = scene.camera
+    rays_per_frame = cam0.res_x * cam0.res_y * (1 + scene.n_lights)
+    acc_cfg = dataclasses.replace(cfg, anti_aliasing=True,
+                                  spp=max(cfg.spp, 1))
+
+    def spherical_of_eye():
+        # the reference's 'r' handler (main.cpp:334-341)
+        ex, ey, ez = cam0.eye.tolist()
+        rr = math.sqrt(ex * ex + ey * ey + ez * ez)
+        return (math.degrees(math.atan2(ex, ez)),
+                math.degrees(math.asin(ey / rr)), rr)
+
+    alpha, beta, r = spherical_of_eye()
+    acc, n_acc = None, 0
+
+    def render(use_cfg, seed):
+        t0 = time.perf_counter()
+        img = render_image(_orbit_scene(scene, alpha, beta, r), use_cfg,
+                           torch.Generator(device=dev).manual_seed(seed),
+                           tile_rows=args.tile_rows)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        if args.preview_cols > 0:
+            print(ansi_halfblock(preview_u8(img, args.preview_cols)),
+                  flush=True)
+        print(f"alpha={alpha:7.2f} beta={beta:6.2f} r={r:6.2f}  "
+              f"{dt * 1e3:7.1f} ms  {1.0 / dt:6.2f} FPS  "
+              f"{rays_per_frame / dt / 1e6:7.2f} Mrays/s", flush=True)
+        return img
+
+    print(f"live: {cam0.res_x}x{cam0.res_y}, {scene.n_objects} objects, "
+          f"device {dev}; keys: a/d yaw, w/s pitch, +/- zoom, SPACE "
+          "accumulate, r reset, c coords, q quit", flush=True)
+    img = render(cfg, 0)
+    for ch in _read_keys():
+        if ch in ("q", "\x1b"):          # ESC, main.cpp:331
+            break
+        if ch == "c":                     # main.cpp:343-347
+            ex, ey, ez = _orbit_scene(scene, alpha, beta,
+                                      r).camera.eye.tolist()
+            print(f"Camera Spherical Coordinates ({r:f}, {beta:f}, "
+                  f"{alpha:f})")
+            print(f"Camera Cartesian Coordinates ({ex:f}, {ey:f}, {ez:f})",
+                  flush=True)
+            continue
+        if ch == " ":
+            n_acc += 1
+            img = render(acc_cfg, n_acc)
+            acc = img if acc is None else acc + img
+            print(f"  accumulated {n_acc} samples", flush=True)
+            continue
+        if ch == "r":
+            alpha, beta, r = spherical_of_eye()
+        elif ch == "a":
+            alpha -= 5.0
+        elif ch == "d":
+            alpha += 5.0
+        elif ch == "w":
+            beta = min(beta + 5.0, 85.0)   # pitch clamp, main.cpp:402-405
+        elif ch == "s":
+            beta = max(beta - 5.0, -85.0)
+        elif ch == "+":
+            r = max(r - 0.1, 0.1)          # radius floor, main.cpp:426-427
+        elif ch == "-":
+            r += 0.1
+        else:
+            continue
+        acc, n_acc = None, 0
+        img = render(cfg, 0)
+    save_png(args.output, acc / n_acc if acc is not None else img)
+    print(f"Image file created: {args.output}")
+
+
 def _scene_args(p) -> None:
-    """The arguments of a Whitted scene and config, shared by render and
-    fit (the JAX CLI's ``common``, cli.py:532-566 there)."""
+    """The arguments of a Whitted scene and config, shared by render, fit
+    and the viewers (the JAX CLI's ``common``, cli.py:532-566 there)."""
     p.add_argument("scene", nargs="?", help=".p3f scene file")
     p.add_argument("--builtin",
                    choices=["mount", "mount_dist", "spheres", "random"],
@@ -358,6 +617,39 @@ def main(argv=None) -> int:
     pp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
     pp.add_argument("-o", "--output", default="PT_Output.png")
     pp.set_defaults(fn=cmd_pathtrace)
+
+    def viewer(name, help, output, fn):
+        sp = sub.add_parser(name, help=help)
+        _scene_args(sp)
+        sp.add_argument("--tile-rows", type=int, default=0,
+                        help="image rows a tile of a frame (default 0: the "
+                        "whole frame at once)")
+        sp.add_argument("-o", "--output", default=output)
+        sp.set_defaults(fn=fn)
+        return sp
+
+    pv = viewer("view", "viewer session: frames while the camera orbits "
+                "with an FPS readout, then still-camera accumulation",
+                "View_Output.png", cmd_view)
+    pv.add_argument("--orbit-frames", type=int, default=8,
+                    help="frames rendered while the camera orbits")
+    pv.add_argument("--still-frames", type=int, default=4,
+                    help="jittered frames accumulated once the camera stops")
+    pv.add_argument("--sweep", type=float, default=90.0,
+                    help="total orbit sweep in degrees")
+    pv.add_argument("--beta", type=float, default=20.0)
+
+    pl = viewer("live", "terminal viewer: a half-block image a frame and a "
+                "stdin key loop (a/d/w/s orbit, +/- zoom, SPACE accumulate, "
+                "r reset, c coords, q quit)", "Live_Output.png", cmd_live)
+    pl.add_argument("--preview-cols", type=int, default=80,
+                    help="terminal preview width in characters (0 disables "
+                    "the preview)")
+
+    po = viewer("orbit", "camera-orbit turntable frames", "orbit.png",
+                cmd_orbit)
+    po.add_argument("--frames", type=int, default=8)
+    po.add_argument("--beta", type=float, default=20.0)
 
     args = p.parse_args(argv)
     if torch.device(args.device).type == "cuda" and \

@@ -10,7 +10,8 @@ spatial-median tree (``accel/bvh.build_bvh``) and a grid scene its uniform
 grid (``accel/grid.build_grid``), which ``accel_impl="perray"`` traverses
 (JAX ``core/build.py:122-150``). An ``env`` directory's cubemap is loaded as raw u8
 (io/skybox.py). Every scene gets the brute-force kernels' tables
-(``ops/intersect.brute_tables``), packed once on its device.
+(``ops/intersect.brute_tables``), packed once on its device. ``load_scene``
+parses and builds a ``.p3f`` file.
 ``with_prim_params`` swaps a scene's primitive table differentiably
 (inverse rendering, parallel/dist.py).
 """
@@ -178,6 +179,14 @@ def build_scene(sd, *, device, accel: Optional[int] = None) -> Scene:
         grid=grid,
         brute=brute_tables(prims),
     )
+
+
+def load_scene(path: str, *, device, accel: Optional[int] = None) -> Scene:
+    """``build_scene`` of the ``.p3f`` file at ``path`` (JAX
+    ``core/build.py:193-196``)."""
+    from ..io.p3f import parse_p3f
+
+    return build_scene(parse_p3f(path), device=device, accel=accel)
 
 
 def with_prim_params(scene: Scene, params: torch.Tensor) -> Scene:

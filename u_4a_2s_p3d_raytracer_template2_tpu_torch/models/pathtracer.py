@@ -412,13 +412,16 @@ def make_accumulator(res_x: int, res_y: int, *, device) -> Accumulator:
         torch.zeros((), dtype=torch.float32, device=device))
 
 
-def camera_rays(cam: Camera, generator: torch.Generator) -> Rays:
-    """The frame's primary rays: pixel jitter [R,2] with no +0.5 offset, a
-    lens disk sample scaled by aperture·0.5 (common.glsl:120) and a shutter
-    time, all drawn from ``generator`` in that order. Row 0 = bottom."""
-    from .whitted import pixel_grid
+def camera_rays(cam: Camera, generator: torch.Generator, px=None,
+                py=None) -> Rays:
+    """The primary rays of the pixels (px, py) [R] (default the whole frame,
+    row 0 = bottom): pixel jitter [R,2] with no +0.5 offset, a lens disk
+    sample scaled by aperture·0.5 (common.glsl:120) and a shutter time, all
+    drawn from ``generator`` in that order."""
+    if px is None:
+        from .whitted import pixel_grid
 
-    px, py = pixel_grid(cam.res_x, cam.res_y, generator.device)
+        px, py = pixel_grid(cam.res_x, cam.res_y, generator.device)
     R = px.shape[0]
     jit2 = uniform(generator, (R, 2))
     lens = sample_unit_disk(generator, (R,)) * (cam.aperture * 0.5)

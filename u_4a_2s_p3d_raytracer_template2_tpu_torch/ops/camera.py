@@ -3,8 +3,9 @@
 PrimaryRay overload of the reference (camera.h:91-108) and the thin-lens one
 (camera.h:110-127), with depth of field and shutter-time motion blur on
 values its caller drew: the Whitted renderer's sample plan
-(models/samples.py) and the path tracer's uniforms; and ``with_eye``, the
-moved eye of inverse rendering (parallel/dist.py).
+(models/samples.py) and the path tracer's uniforms; ``with_eye``, the
+moved eye of inverse rendering (parallel/dist.py) and of the viewers; and
+``orbit_eye``, the viewers' orbit (cli.py orbit, view, live).
 """
 from __future__ import annotations
 
@@ -96,3 +97,18 @@ def with_eye(cam: Camera, eye: torch.Tensor) -> Camera:
     v = torch.linalg.cross(n, u)
     return dataclasses.replace(cam, eye=eye, u=u, v=v, n=n,
                                plane_dist=plane_dist)
+
+
+def orbit_eye(cam: Camera, alpha_deg, beta_deg, radius) -> torch.Tensor:
+    """The eye [3] (f32, on the camera's device) on the sphere of
+    ``radius`` about the origin at yaw ``alpha_deg`` and pitch
+    ``beta_deg``: the reference's mouse orbit (main.cpp:419-421), as JAX
+    ``ops/camera.py:102-108``."""
+    dev = cam.eye.device
+    a = torch.deg2rad(torch.as_tensor(alpha_deg, dtype=torch.float32,
+                                      device=dev))
+    b = torch.deg2rad(torch.as_tensor(beta_deg, dtype=torch.float32,
+                                      device=dev))
+    return torch.stack([radius * torch.sin(a) * torch.cos(b),
+                        radius * torch.sin(b),
+                        radius * torch.cos(a) * torch.cos(b)])
