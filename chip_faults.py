@@ -56,6 +56,16 @@ versions on the same inputs:
     skipped (chip_smoke.SHARD_FAULTS); only this check runs with
     ``python3 -c "import chip_faults, torch;
     chip_faults.shard_verdicts(torch.device('cuda', 0))"``;
+  * the compiled programs (phase 34 of chip_smoke.py, graph_verdicts):
+    chip_smoke.graph_checks at 128x128 must pass the sound programs and
+    reject each of chip_smoke.GRAPH_FAULTS (the graph's generator not
+    registered; every replay restarting from the capture's draws; the
+    camera not copied in; the megakernel tables packed into the caller's
+    Scene.cache by the capture, with no warm-up; the train step's graph
+    returning the scene it was given, its update lost); only this check
+    runs with
+    ``python3 -c "import chip_faults, torch;
+    chip_faults.graph_verdicts(torch.device('cuda', 0))"``;
   * the train step's gathers (gather_control): the control reads the
     primitives' and materials' rows by indexing, whose CUDA backward adds
     each row's duplicates in one serial loop, in place of index_select;
@@ -809,6 +819,144 @@ def shard_verdicts(dev):
     return failed
 
 
+def camera_leaves(spec) -> list:
+    """The positions, among the tensor leaves of utils/graphs.flatten's
+    ``spec``, of the leaves that lie inside a Camera."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Camera
+
+    out, n = [], 0
+
+    def walk(spec, inside):
+        nonlocal n
+        kind = spec[0]
+        if kind == "tensor":
+            if inside:
+                out.append(n)
+            n += 1
+        elif kind == "dataclass":
+            for _, s in spec[2]:
+                walk(s, inside or spec[1] is Camera)
+        elif kind == "tuple":
+            for s in spec[2]:
+                walk(s, inside)
+
+    walk(spec, False)
+    return out
+
+
+def plant_graph_fault(fault):
+    """Plant ``fault`` (one of chip_smoke.GRAPH_FAULTS) in
+    utils/graphs.py; returns the function that takes it out again."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Scene
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+
+    undo = []
+
+    def patch(owner, name, value):
+        undo.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, value)
+
+    if fault == chip_smoke.GRAPH_FAULTS[0]:
+        sound_capture = graphs.CudaGraphs.capture
+
+        def unregistered(self, device, run, generator):
+            return sound_capture(self, device, run, None)
+
+        patch(graphs.CudaGraphs, "capture", unregistered)
+    elif fault == chip_smoke.GRAPH_FAULTS[1]:
+        def frozen(self, generator):
+            if self.generator is not None:
+                if not hasattr(self, "frozen"):
+                    self.frozen = self.generator.get_state()
+                self.generator.set_state(self.frozen)
+
+        patch(graphs.Graph, "enter", frozen)
+    elif fault == chip_smoke.GRAPH_FAULTS[2]:
+        sound_call, sound_copy = graphs.GraphCache.call, graphs.Graph.copy_in
+        cams = []  # the camera's leaves in the call being made
+
+        def finding_camera(self, name, fn, args, generator=None, **kw):
+            cams[:] = camera_leaves(graphs.flatten(
+                args, kw.get("keep", frozenset()))[1])
+            return sound_call(self, name, fn, args, generator, **kw)
+
+        def no_camera(self, leaves):
+            held = [self.inputs[i].clone() for i in cams]
+            sound_copy(self, leaves)
+            for i, x in zip(cams, held):
+                self.inputs[i].copy_(x)
+
+        patch(graphs.GraphCache, "call", finding_camera)
+        patch(graphs.Graph, "copy_in", no_camera)
+    elif fault == chip_smoke.GRAPH_FAULTS[3]:
+        sound_call = graphs.GraphCache.call
+
+        def sharing(self, name, fn, args, generator=None, **kw):
+            caches = [a.cache for a in args if isinstance(a, Scene)]
+
+            def shared(*xs):
+                for x in xs:
+                    if isinstance(x, Scene) and caches:
+                        object.__setattr__(x, "cache", caches[0])
+                return fn(*xs)
+
+            return sound_call(self, name, shared, args, generator, **kw)
+
+        patch(graphs.GraphCache, "call", sharing)
+        patch(graphs, "WARMUP", 0)
+    elif fault == chip_smoke.GRAPH_FAULTS[4]:
+        sound_call = graphs.GraphCache.call
+
+        def update_lost(self, name, fn, args, generator=None, **kw):
+            if not name.startswith("dist."):
+                return sound_call(self, name, fn, args, generator, **kw)
+
+            def given(scene, target, g):
+                return scene, fn(scene, target, g)[1]
+
+            return sound_call(self, name, given, args, generator, **kw)
+
+        patch(graphs.GraphCache, "call", update_lost)
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+
+    def take_out():
+        for owner, name, value in reversed(undo):
+            setattr(owner, name, value)
+
+    return take_out
+
+
+def graph_verdicts(dev, res=128):
+    """Names of the compiled programs' variants that phase 34's checks
+    (chip_smoke.graph_checks at ``res``: mount_low's megakernel frame, its
+    distribution frame, the 16-frame orbit, 16 progressive path-tracer
+    frames, the megakernel train step) judge wrongly: the sound programs
+    must pass every check, and each of chip_smoke.GRAPH_FAULTS must fail
+    one (a check that raises fails: a capture that breaks ends
+    chip_smoke.py)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+
+    failed = []
+    for fault in (None, *chip_smoke.GRAPH_FAULTS):
+        take_out = plant_graph_fault(fault)
+        graphs.CACHE.clear()
+        try:
+            why = {k: v for k, v in chip_smoke.graph_checks(dev, res).items()
+                   if v}
+        except RuntimeError as e:  # a failed capture: what the script does
+            why = {"raised": [str(e).splitlines()[0]]}
+        finally:
+            take_out()
+            graphs.CACHE.clear()
+        name = fault or "sound"
+        print(f"{name} | compiled programs at {res}x{res}: "
+              f"{why or 'passed'}")
+        if (fault is None) == bool(why):
+            failed.append(f"graphs: {name}")
+    return failed
+
+
 def gather_control(dev):
     """The train step's gathers against the indexing they replaced: the
     primitives' and materials' rows read by ``table[idx]`` (whose CUDA
@@ -972,6 +1120,7 @@ def main() -> int:
                                faulty["probes"])
               + function_verdicts(dev)
               + shard_verdicts(dev)
+              + graph_verdicts(dev)
               + gather_control(dev)
               + design_controls(dev, [(c[0], src, lib.result()) for
                                       (src, _, c), lib in zip(design_jobs,

@@ -122,7 +122,8 @@ Phases, each raising on failure:
   19. W1: render_image of the field on engine="wavefront" with every
      launch counter reset just before and read just after (the walk, no
      Whitted or brute-force kernel), the queue's live entries a round read
-     after the frame, the image against the sweep's of phase 10 (max abs
+     after an eager frame (render_tile: a capture records none), the image
+     against the sweep's of phase 10 (max abs
      err WAVE_ATOL), frames beside the sweep's, and a profile (device ops,
      busy time and idle share, the walk's share);
   20. W2: the same under ACCEL_NONE through the brute-force kernels,
@@ -194,8 +195,40 @@ Phases, each raising on failure:
      measured (one card);
   33. cli orbit, view and live (keys "aw  a q", an 80-column preview) as
      subprocesses at 512x512 on the megakernel engine: exit 0, their PNGs,
-     their FPS lines and live's accumulation counts; preview_u8 on the
-     card against the CPU within 1 u8 level.
+     their FPS lines, live's accumulation counts and the captures each
+     prints (orbit 1, view and live 2: the moving camera replays one
+     graph); preview_u8 on the card against the CPU within 1 u8 level.
+  Compiled programs (utils/graphs.py: render_image, the megakernel's
+  tile, make_render_frame and make_train_step on the card are CUDA graphs,
+  captured at a first call and replayed; every main-path phase above
+  makes that first call, then sets the wrappers' counts to 0 and drives
+  the path as a replay under torch.profiler: its launches are the device
+  kernel events of each kernel (utils/profiling.device_launches), and the
+  wrappers' counts must stay 0, since a replay launches from no wrapper,
+  replay_launches):
+  34. for mount_low 512x512 on the megakernel engine, the distribution
+     frame of phase 17, the BVH field on the sweep and on the wavefront,
+     the brute field on the sweep and on the wavefront, glsl_world's
+     path-traced frame, and train_step_full on mount_low 512x512, depth 4,
+     on the megakernel engine (the light recovery) and on the wavefront
+     (fit --fit all), each from an empty graph cache (graph_path): the
+     first call's host ms, the capture's own ms, the graph pool's MiB and
+     max_memory_allocated before and after; the replays against the eager
+     function (the frames bit for bit on two fresh seeds and a generator
+     advanced by one frame, the second seed on a moved and relit scene,
+     each generator left where eager leaves it, replay_agreement; two
+     chained steps within GRAD_LIMIT on the loss, every parameter and
+     every update, step_agreement); the kernels' launches a compiled call
+     counted on the device;
+     for the compiled and the eager function the host's kernel launch
+     calls and graph launches, device ops and idle share under the
+     profiler, CUDA-event and host-wall ms (medians) and utils/timing
+     .loop_ms, each beside the card's name and power limit; one capture
+     over every call (20 or more); then a 16-frame orbit of mount_low with
+     the camera moving (one capture, every frame bit-equal to eager) and
+     16 progressive path-tracer frames bit-equal to 16 eager ones.
+     chip_faults.py plants GRAPH_FAULTS under graph_checks, the same
+     checks at 128x128.
 On a card, brute-force queries of more than 48 primitives go through the
 brute-force kernels, so the plain sweep that phase 3 holds the Whitted
 kernel against runs them on its 66-primitive field, and phase 10's 128x128
@@ -614,10 +647,12 @@ def profile_frames(label, frame, args_of, card, frames=20, share_of=()):
     """One frame's breakdown under torch.profiler over ``frames`` frames
     ``frame(*args_of(i))``: host wall time, device busy time (the union of
     the device's kernel and copy intervals), the device's idle share, device
-    operations per frame and the busiest kernels; with ``share_of``, the
-    device time of the kernels whose names hold one of those strings, and
-    its share of the busy time. Returns them as a dict (wall_ms, busy_ms,
-    idle, device_ops, kernels_ms)."""
+    operations per frame, the host's kernel launch calls and graph launches
+    per frame (its CPU-side events named *LaunchKernel* and *GraphLaunch*)
+    and the busiest kernels; with ``share_of``, the device time of the
+    kernels whose names hold one of those strings, and its share of the
+    busy time. Returns them as a dict (wall_ms, busy_ms, idle, device_ops,
+    launch_calls, graph_launches, kernels_ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     frame(*args_of(0))
@@ -631,10 +666,17 @@ def profile_frames(label, frame, args_of, card, frames=20, share_of=()):
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the host's launch calls: kernels (runtime and driver API) and graphs
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU]
+    calls = {"launch_calls": sum("LaunchKernel" in n for n in names) / frames,
+             "graph_launches": sum("GraphLaunch" in n for n in names)
+             / frames}
     if not device:
         print(f"profile {label}: host wall {wall_ms:.4f} ms/frame; device "
-              "time not measured (the profiler saw no device events)")
-        return {"wall_ms": wall_ms}
+              "time not measured (the profiler saw no device events); "
+              f"launch calls a frame {calls}")
+        return {"wall_ms": wall_ms, **calls}
     busy_us, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end)
                               for e in device):
@@ -648,11 +690,14 @@ def profile_frames(label, frame, args_of, card, frames=20, share_of=()):
     print(f"profile {label} (profiler on, {frames} frames, {card}): host "
           f"wall {wall_ms:.4f} ms/frame, device busy {busy_ms:.4f} "
           f"ms/frame, device idle {100 * (1 - busy_ms / wall_ms):.1f}%, "
-          f"{len(device) / frames:.1f} device ops/frame; busiest: "
+          f"{len(device) / frames:.1f} device ops/frame, "
+          f"{calls['launch_calls']:.1f} kernel launch calls and "
+          f"{calls['graph_launches']:.1f} graph launches/frame; busiest: "
           + "; ".join(f"{name[:90]} {us / 1e3 / frames:.4f} ms/frame"
                       for name, us in top))
     out = {"wall_ms": wall_ms, "busy_ms": busy_ms,
-           "idle": 1 - busy_ms / wall_ms, "device_ops": len(device) / frames}
+           "idle": 1 - busy_ms / wall_ms, "device_ops": len(device) / frames,
+           **calls}
     if share_of:
         parts = {s: sum(us for name, us in by_name.items() if s in name)
                  / 1e3 / frames for s in share_of}
@@ -1616,6 +1661,27 @@ def counted(fn, kernels_):
     return out, {k.__name__: k.launches for k in kernels_}
 
 
+def replay_launches(fn, kernels_):
+    """fn()'s result and each kernel's launches in it, for a compiled call
+    whose graph is captured: the wrappers' counts set to 0 just before and
+    read just after must stay 0 (a replay runs the kernels without their
+    wrappers: a call that ran eagerly raises), and the launches are the
+    card's runs of each kernel, counted from the profiler's device kernel
+    events (utils/profiling.device_launches)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.profiling import (
+        device_launches,
+    )
+
+    for k in kernels_:
+        k.launches = 0
+    out, n = device_launches(fn, kernels_)
+    eager = {k.__name__: k.launches for k in kernels_ if k.launches}
+    if eager:
+        raise AssertionError(f"the wrappers launched {eager} in a call "
+                             "that should replay a CUDA graph")
+    return out, n
+
+
 def frame_times(fn, frames=SHARD_FRAMES, warmup=3):
     """Medians of (CUDA-event ms, host wall ms) of ``fn()`` frames, each
     started on an idle device and ended by a synchronise."""
@@ -1962,11 +2028,18 @@ def sharding_phases(dev, card, mount_img, field_img):
                  for n, v in front.items()}
     accumulated = [ln.split()[1] for ln in front["live"]["lines"]
                    if ln.startswith("  accumulated")]
+    # one graph for the orbit's frames, one for the accumulated ones: a
+    # moving camera replays its graph
+    captures = {n: [int(ln.split(":")[1]) for ln in v["lines"]
+                    if ln.startswith("CUDA graphs captured:")]
+                for n, v in front.items()}
     if (missing or fps_lines["view"] < 4 or fps_lines["live"] < 5
             or accumulated != ["1", "2", "1"]
-            or front["live"]["preview_lines"] < 40):
+            or front["live"]["preview_lines"] < 40
+            or captures != {"orbit": [1], "view": [2], "live": [2]}):
         raise AssertionError(f"33: PNGs missing {missing}, FPS lines "
-                             f"{fps_lines}, accumulated {accumulated}")
+                             f"{fps_lines}, accumulated {accumulated}, "
+                             f"captures {captures}")
     prev_dev = preview_u8(mount_img, 80)
     prev_cpu = preview_u8(mount_img.cpu(), 80)
     prev_err = int((prev_dev.cpu().int() - prev_cpu.int()).abs().max())
@@ -1982,6 +2055,494 @@ def sharding_phases(dev, card, mount_img, field_img):
                                 "render_bit_equal": nccl_img,
                                 "step_bit_equal": nccl_step}}
     return shard, sharded, single_ms, single_step_ms, pt_single_mean
+
+
+# Phase 34: the compiled programs (utils/graphs.py) against the eager
+# functions they capture, at the headline sizes of PERF.md section 4.
+GRAPH_FRAMES = 11     # timed frames a frame path: with the agreement, the
+                      # profile and loop_ms, over 20 replays of one capture
+GRAPH_PROFILE = 5     # frames a path under the profiler
+GRAPH_STEPS = 4       # timed train steps a step path (2 profiled)
+ORBIT_FRAMES = 16
+# planted faults phase 34's checks must reject (chip_faults.py)
+GRAPH_FAULTS = ("the graph's generator is not registered",
+                "every replay restarts from the capture's draws",
+                "the camera is not copied in",
+                "the capture packs the megakernel tables into the caller's "
+                "Scene.cache, with no warm-up",
+                "the train step's graph returns the scene it was given, "
+                "its update lost")
+
+
+def generator(dev, seed=None, state=None):
+    """A generator on ``dev`` seeded ``seed`` or in ``state``."""
+    g = torch.Generator(device=dev)
+    if state is not None:
+        g.set_state(state)
+    else:
+        g.manual_seed(seed)
+    return g
+
+
+def orbit_scene(scene, alpha, beta=10.0):
+    """``scene`` with its camera moved on cli orbit's orbit to yaw
+    ``alpha`` degrees (a new Scene from dataclasses.replace)."""
+    from dataclasses import replace
+
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.camera import (
+        orbit_eye,
+        with_eye,
+    )
+
+    cam = scene.camera
+    r = float(torch.linalg.vector_norm(cam.eye))
+    return replace(scene, camera=with_eye(cam, orbit_eye(cam, alpha, beta,
+                                                         r)))
+
+
+def drifted_scene(scene, i):
+    """``scene`` with its eye moved by i·1e-5 of itself (the view of the
+    headline frame, a new input each frame: the timed frames of phase 34)."""
+    from dataclasses import replace
+
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.camera import (
+        with_eye,
+    )
+
+    cam = scene.camera
+    return replace(scene, camera=with_eye(cam, cam.eye * (1.0 + 1e-5 * i)))
+
+
+def moved_scene(scene):
+    """Another input of one structure: the camera moved 15 degrees and the
+    lights at 0.8 of their colour (a table value, packed per replay)."""
+    from dataclasses import replace
+
+    s = orbit_scene(scene, 15.0)
+    return replace(s, lights=replace(s.lights, color=s.lights.color * 0.8))
+
+
+def whitted_path(scene, cfg):
+    """(compiled, eager, inputs) of a Whitted frame: render_image (one
+    graph replay on the card) against the eager render_tile over the
+    frame; inputs two fresh seeds and a generator already advanced by one
+    frame, the second seed on ``moved_scene``."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+        pixel_grid,
+        render_image,
+        render_tile,
+    )
+
+    cam = scene.camera
+    dev = scene.device
+    px, py = pixel_grid(cam.res_x, cam.res_y, dev)
+
+    def compiled(s, g):
+        return render_image(s, cfg, g)
+
+    def eager(s, g):
+        return render_tile(s, px, py, cfg, g).reshape(cam.res_y, cam.res_x,
+                                                      3)
+
+    advanced = generator(dev, 2)
+    eager(scene, advanced)
+    return compiled, eager, [(scene, generator(dev, 1)), (scene, advanced),
+                             (moved_scene(scene), generator(dev, 3))]
+
+
+def replay_agreement(compiled, eager, inputs):
+    """Why the compiled calls disagree with the eager function on
+    ``inputs`` [(x, generator)] (empty: they agree). Every compiled call
+    runs first, then the eager calls from the generators' states before
+    them, so that an eager call reads whatever a capture left in a cache
+    after other inputs' replays. Outputs bit for bit; each generator left
+    where the eager call leaves it."""
+    starts = [g.get_state() for _, g in inputs]
+    got = [compiled(x, g) for x, g in inputs]
+    why = []
+    for i, ((x, g), state, a) in enumerate(zip(inputs, starts, got)):
+        e = generator(g.device, state=state)
+        b = eager(x, e)
+        if not torch.equal(a, b):
+            why.append(f"input {i}: {int((a != b).any(dim=-1).sum())} "
+                       f"pixels differ, max abs "
+                       f"{float((a - b).abs().max()):.3g}")
+        if not torch.equal(g.get_state(), e.get_state()):
+            why.append(f"input {i}: the generator is left elsewhere than "
+                       "the eager call leaves it")
+    return why
+
+
+def orbit_agreement(scene, cfg, frames=ORBIT_FRAMES):
+    """Why a compiled orbit of ``frames`` frames (the camera moved each
+    frame, cli orbit's loop) fails: a frame unequal to the eager one, or
+    other than one capture. Starts from an empty graph cache."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+
+    compiled, eager, _ = whitted_path(scene, cfg)
+    graphs.CACHE.clear()
+    n0 = graphs.CACHE.captures
+    dev = scene.device
+    scenes = [orbit_scene(scene, 360.0 * i / frames) for i in range(frames)]
+    got = [compiled(s, generator(dev, i)) for i, s in enumerate(scenes)]
+    captures = graphs.CACHE.captures - n0
+    why = [] if captures == 1 else [f"{captures} captures, not 1"]
+    bad = [i for i, (s, a) in enumerate(zip(scenes, got))
+           if not torch.equal(a, eager(s, generator(dev, i)))]
+    if bad:
+        why.append(f"frames {bad} differ from the eager frames")
+    return why, captures
+
+
+def pt_agreement_progressive(world, cam, cfg, frames=PT_FRAMES):
+    """Why ``frames`` compiled progressive path-tracer frames differ from
+    the eager ones from one seed (empty: bit-equal)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        pathtracer as pt,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        pt_megakernel as ptk,
+    )
+
+    tables = ptk.pt_tables(world)
+    dev = world.device
+    got = pt.render_progressive(world, cam, cfg, generator(dev, 11), frames,
+                                frame_fn=ptk.make_render_frame(world, cam,
+                                                               cfg))
+    want = pt.render_progressive(
+        world, cam, cfg, generator(dev, 11), frames,
+        frame_fn=lambda g: ptk.render_frame_megakernel(tables, cam, cfg, g))
+    if torch.equal(got.sum_linear, want.sum_linear):
+        return []
+    return [f"{frames} progressive frames differ: max abs "
+            f"{float((got.sum_linear - want.sum_linear).abs().max()):.3g}"]
+
+
+def train_setup(dev, engine, res=RES):
+    """Phase 27's fits on mount_low at ``res``, depth 4: (start, target,
+    cfg, lr, scales): on the megakernel engine the light recovery at
+    LIGHT_LR, on the wavefront fit --fit all at BENCH_LR; light 0 moved by
+    (1, -0.7, 0.5)."""
+    from dataclasses import replace
+
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import scenes
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+        render_image,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+
+    cfg = RenderConfig(engine=engine)
+    scene = build_scene(scenes.mount_scene(res=res), device=dev)
+    target = render_image(scene, cfg)
+    moved = scene.lights.position.clone()
+    moved[0] += torch.tensor([1.0, -0.7, 0.5], device=dev)
+    start = replace(scene, lights=replace(scene.lights, position=moved))
+    lr = LIGHT_LR if engine == "megakernel" else BENCH_LR
+    scales = dist.lr_scales(materials=0.0, light_pos=1.0, light_color=0.0,
+                            camera=0.0 if engine == "megakernel" else 1.0)
+    return start, target, cfg, lr, scales
+
+
+def step_agreement(compiled, eager, start, target, steps=2):
+    """Why ``steps`` chained compiled train steps disagree with the eager
+    ones (empty: they agree): the loss, every parameter leaf and every
+    leaf's update within GRAD_LIMIT of the eager step's (GRAD_LIMIT[0] of
+    the largest magnitude, plus GRAD_LIMIT[1]). The compiled chain runs
+    first."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+
+    def chain(step):
+        out, s = [], start
+        for _ in range(steps):
+            new, loss = step(s, target)
+            out.append((s, new, loss))
+            s = new
+        return out
+
+    got, want = chain(compiled), chain(eager)
+    why = []
+
+    def within(what, a, b):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        if not err <= GRAD_LIMIT[0] * scale + GRAD_LIMIT[1]:
+            why.append(f"{what}: off by {err:.3g} (scale {scale:.3g})")
+
+    for i, ((a0, a, la), (b0, b, lb)) in enumerate(zip(got, want)):
+        within(f"step {i} loss", la, lb)
+        for j, (pa0, pa, pb0, pb) in enumerate(zip(
+                dist.tree_leaves(dist.params_of(a0)),
+                dist.tree_leaves(dist.params_of(a)),
+                dist.tree_leaves(dist.params_of(b0)),
+                dist.tree_leaves(dist.params_of(b)))):
+            within(f"step {i} leaf {j}", pa, pb)
+            within(f"step {i} leaf {j}'s update", pa - pa0, pb - pb0)
+    return why
+
+
+def graph_checks(dev, res):
+    """Phase 34's agreement checks at ``res`` (the ones chip_faults.py
+    plants GRAPH_FAULTS under, and the card tests run at 64x64), each a
+    list of reasons (empty: it passes): mount_low's megakernel frame, its
+    distribution frame (spp 2, soft shadows, fuzzy reflection, a synthetic
+    cubemap), the 16-frame orbit, 16 progressive path-tracer frames of
+    glsl_world, and the megakernel train step."""
+    from dataclasses import replace
+
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        pathtracer as pt,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import scenes
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.glsl_scene import (
+        glsl_camera,
+        glsl_world,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+
+    cfg = RenderConfig(engine="megakernel")
+    mount = build_scene(scenes.mount_scene(res=res), device=dev)
+    out = {}
+    graphs.CACHE.clear()
+    out["mount"] = replay_agreement(*whitted_path(mount, cfg))
+    dscene = replace(mount, spp=2, skybox=synthetic_cubemap(dev),
+                     has_skybox=True)
+    dcfg = RenderConfig(engine="megakernel", soft_shadow=True,
+                        fuzzy_reflection=True,
+                        use_skybox=True).with_scene_flags(dscene)
+    out["distribution"] = replay_agreement(*whitted_path(dscene, dcfg))
+    out["orbit"] = orbit_agreement(mount, cfg)[0]
+    world = glsl_world(device=dev)
+    out["pt"] = pt_agreement_progressive(world, glsl_camera(res, res,
+                                                            device=dev),
+                                         pt.PTConfig())
+    start, target, tcfg, lr, sc = train_setup(dev, "megakernel", res)
+    step = dist.make_train_step(dist.train_step_full, tcfg, lr, scales=sc)
+    out["step"] = step_agreement(
+        step, lambda s, t: dist.train_step_full(s, t, tcfg, lr, None, sc),
+        start, target)
+    graphs.CACHE.clear()
+    return out
+
+
+def graph_path(label, compiled, eager, inputs, xs, card, counted,
+               frames=GRAPH_FRAMES, profiled=GRAPH_PROFILE,
+               loop=(2, 6, 3), check=None):
+    """One path of phase 34 from an empty graph cache: the first compiled
+    call (warm-up and capture: host ms, the capture's own ms, the pool's
+    MiB, max_memory_allocated before and after), the agreement (``check``
+    on (compiled, eager, inputs), replay_agreement by default), the
+    kernels' launches a compiled call (replay_launches: counted on the
+    device), then for the compiled and the eager function: launch calls,
+    graph launches, device ops and idle share under the profiler,
+    CUDA-event and host-wall frame ms (medians of ``frames``), loop_ms;
+    the captures over every compiled call, required to be 1. ``xs``: the
+    timed inputs (a drifting camera or target), each call with a
+    generator of its own seed. Returns a record."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.timing import (
+        loop_ms,
+    )
+
+    graphs.CACHE.clear()
+    torch.cuda.synchronize()
+    dev = torch.device("cuda", 0)
+    n0 = graphs.CACHE.captures
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.max_memory_allocated(dev) / 2**20
+    t0 = time.perf_counter()
+    compiled(xs[0], generator(dev, 999))
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    mem1 = torch.cuda.max_memory_allocated(dev) / 2**20
+    [graph] = graphs.CACHE.graphs.values()
+    why = (check or replay_agreement)(compiled, eager, inputs)
+    _, n = replay_launches(lambda: compiled(xs[0], generator(dev, 998)),
+                           counted)
+    launches = {k: v for k, v in n.items() if v}
+    rec = {"label": label, "first_call_ms": first_ms,
+           "capture_ms": graph.capture_ms, "pool_mib": graph.pool_mib,
+           "max_allocated_mib": (mem0, mem1), "agreement": why,
+           "launches": launches}
+    for mode, fn in (("compiled", compiled), ("eager", eager)):
+        def call(i, fn=fn):
+            return fn(xs[i % len(xs)], generator(dev, 1000 + i))
+
+        prof = profile_frames(f"34 {label} {mode}", call, lambda i: (i,),
+                              card, frames=profiled)
+        it = iter(range(10**6))
+        ev_ms, wall_ms = frame_times(lambda: call(next(it)), frames=frames,
+                                     warmup=1)
+        rec[mode] = {"profile": prof, "cuda_ms": ev_ms, "wall_ms": wall_ms,
+                     "loop_ms": loop_ms(call, *loop)}
+    rec["captures"] = graphs.CACHE.captures - n0
+    rec["replays"] = graph.replays
+    c, e = rec["compiled"], rec["eager"]
+    print(f"34 {label}: agreement {'ok' if not why else why}; captures "
+          f"{rec['captures']} over {graph.replays} replays; launches a "
+          f"compiled call {launches}; launch calls a call (profiler) "
+          f"compiled {c['profile'].get('launch_calls')} + "
+          f"{c['profile'].get('graph_launches')} graph, eager "
+          f"{e['profile'].get('launch_calls')}; device idle compiled "
+          f"{c['profile'].get('idle')}, eager {e['profile'].get('idle')}; "
+          f"CUDA-event ms compiled {c['cuda_ms']:.4f}, eager "
+          f"{e['cuda_ms']:.4f}; host wall ms compiled {c['wall_ms']:.4f}, "
+          f"eager {e['wall_ms']:.4f}; loop_ms compiled {c['loop_ms']:.4f}, "
+          f"eager {e['loop_ms']:.4f}; first call {first_ms:.1f} ms, capture "
+          f"{graph.capture_ms:.1f} ms, pool {graph.pool_mib:.1f} MiB, "
+          f"max allocated {mem0:.1f} -> {mem1:.1f} MiB ({card})")
+    graphs.CACHE.clear()
+    return rec
+
+
+def graph_phase(dev, card, dscene, dcfg, field, field_nb):
+    """Phase 34 (see the module docstring): the compiled programs at the
+    headline sizes, on phase 17's distribution scene and config and the
+    BVH and brute fields of phases 10 and 13; raises on a failed check and
+    returns the summary it prints."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        pathtracer as pt,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
+        pt_megakernel as ptk,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import scenes
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.glsl_scene import (
+        glsl_camera,
+        glsl_world,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+
+    # each path's replays against its eager function, its captures, the
+    # host's launch calls, the device's idle share, and compiled and eager
+    # times; the 16-frame orbit and 16 progressive path-tracer frames
+    t_graph = time.perf_counter()
+    cfg_mk = RenderConfig(engine="megakernel")
+    cfg_bvh = RenderConfig()
+    cfg_wf = RenderConfig(engine="wavefront")
+    world = glsl_world(device=dev)
+    cam = glsl_camera(RES, RES, device=dev)
+    pt_cfg = pt.PTConfig()
+    n_sub = max(dcfg.spp, 1) ** 2 if dcfg.anti_aliasing else 1
+    counted34 = (kernels.bvh_closest, kernels.bvh_any,
+                 kernels.brute_closest, kernels.brute_any,
+                 kernels.whitted_megakernel, kernels.pt_megakernel)
+
+    mount34 = build_scene(scenes.mount_scene(res=RES), device=dev)
+    walk12 = {"bvh_closest": 4, "bvh_any": 8}
+    brute12 = {"brute_closest": 4, "brute_any": 8}
+    graph_recs, expected = {}, {}
+    for label, gscene, gcfg, want in (
+            ("mount_low megakernel", mount34, cfg_mk,
+             {"whitted_megakernel": 1}),
+            ("distribution frame", dscene, dcfg,
+             {"whitted_megakernel": n_sub}),
+            ("BVH field sweep", field, cfg_bvh, walk12),
+            ("BVH field wavefront (W1)", field, cfg_wf, walk12),
+            ("brute field sweep", field_nb, cfg_bvh, brute12),
+            ("brute field wavefront (W2)", field_nb, cfg_wf, brute12)):
+        xs = [drifted_scene(gscene, i) for i in range(16)]
+        graph_recs[label] = graph_path(label, *whitted_path(gscene, gcfg),
+                                       xs, card, counted34)
+        expected[label] = want
+
+    def pt_compiled(c, g):
+        return ptk.make_render_frame(world, c, pt_cfg)(g)
+
+    def pt_eager(c, g):
+        return ptk.render_frame_megakernel(ptk.pt_tables(world), c, pt_cfg,
+                                           g)
+
+    pt_adv = generator(dev, 2)
+    pt_eager(cam, pt_adv)
+    dof_cam = glsl_camera(RES, RES, showcase_dof=True, device=dev)
+    graph_recs["glsl_world path tracer"] = graph_path(
+        "glsl_world path tracer", pt_compiled, pt_eager,
+        [(cam, generator(dev, 1)), (cam, pt_adv),
+         (dof_cam, generator(dev, 3))], [cam], card, counted34)
+    expected["glsl_world path tracer"] = {"pt_megakernel": 1}
+    for engine, want in (("megakernel", {"whitted_megakernel": 1}),
+                         ("wavefront", {})):
+        start, target, tcfg, lr, sc = train_setup(dev, engine)
+        step = dist.make_train_step(dist.train_step_full, tcfg, lr,
+                                    scales=sc)
+
+        def step_compiled(x, g, step=step):
+            return step(x[0], x[1], g)
+
+        def step_eager(x, g, tcfg=tcfg, lr=lr, sc=sc):
+            return dist.train_step_full(x[0], x[1], tcfg, lr, g, sc)
+
+        def step_check(c, e, _, start=start, target=target):
+            return step_agreement(lambda s, t: c((s, t), None),
+                                  lambda s, t: e((s, t), None), start,
+                                  target)
+
+        label = f"train step {engine}"
+        graph_recs[label] = graph_path(
+            label, step_compiled, step_eager, None,
+            [(start, target + 1e-7 * i) for i in range(GRAPH_STEPS)], card,
+            counted34, frames=GRAPH_STEPS, profiled=2, loop=(1, 4, 2),
+            check=step_check)
+        expected[label] = want
+        del start, target, step
+    orbit_why, orbit_captures = orbit_agreement(mount34, cfg_mk)
+    print(f"34 orbit: mount_low {RES}x{RES} megakernel, {ORBIT_FRAMES} "
+          f"frames with the camera moving, {orbit_captures} capture(s); "
+          f"every frame bit-equal to eager {not orbit_why}")
+    pt_why = pt_agreement_progressive(world, cam, pt_cfg)
+    print(f"34 path tracer: {PT_FRAMES} progressive compiled frames "
+          f"bit-equal to {PT_FRAMES} eager ones {not pt_why}")
+    graphs.CACHE.clear()
+    failed = {k: r["agreement"] for k, r in graph_recs.items()
+              if r["agreement"]}
+    failed.update({f"{k} captures": r["captures"] for k, r in
+                   graph_recs.items()
+                   if r["captures"] != 1 or r["replays"] < 20})
+    failed.update({f"{k} launches": r["launches"]
+                   for k, r in graph_recs.items()
+                   if r["launches"] != expected[k]})
+    if orbit_why:
+        failed["orbit"] = orbit_why
+    if pt_why:
+        failed["progressive"] = pt_why
+    summary = {k: {"captures": r["captures"], "replays": r["replays"],
+                   "launches": r["launches"],
+                   "capture_ms": r["capture_ms"], "pool_mib": r["pool_mib"],
+                   "max_allocated_mib": r["max_allocated_mib"],
+                   **{m: {"cuda_ms": r[m]["cuda_ms"],
+                          "wall_ms": r[m]["wall_ms"],
+                          "loop_ms": r[m]["loop_ms"],
+                          **{q: r[m]["profile"].get(q) for q in (
+                              "launch_calls", "graph_launches", "idle",
+                              "busy_ms", "device_ops")}}
+                      for m in ("compiled", "eager")}}
+               for k, r in graph_recs.items()}
+    print("34 summary " + json.dumps({"card": card, "paths": summary,
+                                      "orbit_captures": orbit_captures}))
+    print(f"graph phase {time.perf_counter() - t_graph:.1f} s")
+    if failed:
+        raise AssertionError(f"34: {failed}")
+    return summary
 
 
 def main() -> int:
@@ -2032,7 +2593,10 @@ def main() -> int:
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.tools import (
         roofline_mount as rm,
     )
-    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import checkpoint
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import (
+        checkpoint,
+        graphs,
+    )
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.timing import (
         cuda_ms,
         frame_ms,
@@ -2139,14 +2703,15 @@ def main() -> int:
     if bad512 > MAX_BAD:
         raise AssertionError(f"kernel and plain version disagree at {RES}^2")
 
-    # 4. main path through the entry points a user calls
+    # 4. main path through the entry points a user calls; render_image on
+    # the card replays the frame's CUDA graph (utils/graphs.py), captured
+    # by a first frame; the replay's launches are counted on the device
     probe_kernels = (kernels.op_rate, kernels.fma_peak, kernels.stack_walk)
-    for k in (kernels.whitted_megakernel,) + probe_kernels:
-        k.launches = 0
-    img = render_image(scene, cfg_mk)
-    torch.cuda.synchronize()
-    launches = kernels.whitted_megakernel.launches
-    probe_launches = [k.launches for k in probe_kernels]
+    render_image(scene, cfg_mk)
+    img, n = replay_launches(lambda: render_image(scene, cfg_mk),
+                             (kernels.whitted_megakernel,) + probe_kernels)
+    launches = n["whitted_megakernel"]
+    probe_launches = [n[k.__name__] for k in probe_kernels]
     print(f"main path: render_image mount_low {RES}x{RES} depth "
           f"{cfg_mk.max_depth} engine=megakernel, kernel launches {launches}")
     if launches < 1:
@@ -2203,6 +2768,7 @@ def main() -> int:
           f"and {ww['sph_tests']} spheres; {w_flops / 1e9:.4f} GFLOP, "
           f"{w_bytes / 1e6:.4f} MB; bound {w_bound_ms:.5f} ms ({w_bound_by})")
 
+    graphs.CACHE.clear()  # the graphs so far and their memory pools
     # 6. path tracer: kernel against plain on the same rays and uniforms
     t_pt = time.perf_counter()
     for label, limits, tables, args, cfg in pt_cases(dev):
@@ -2218,13 +2784,12 @@ def main() -> int:
 
     # 7. path-tracer main path through the entry points a user calls
     frame_fn = ptk.make_render_frame(world, cam, pt_cfg, "megakernel")
-    kernels.pt_megakernel.launches = 0
-    acc = pt.render_progressive(
+    frame_fn(torch.Generator(device=dev).manual_seed(99))  # the capture
+    acc, n = replay_launches(lambda: pt.render_progressive(
         world, cam, pt_cfg, torch.Generator(device=dev).manual_seed(0),
-        n_frames=PT_FRAMES, frame_fn=frame_fn)
+        n_frames=PT_FRAMES, frame_fn=frame_fn), (kernels.pt_megakernel,))
     image = pt.to_image(acc)
-    torch.cuda.synchronize()
-    pt_launches = kernels.pt_megakernel.launches
+    pt_launches = n["pt_megakernel"]
     print(f"main path: render_progressive glsl_world {RES}x{RES}, "
           f"{pt_cfg.max_bounces} bounces, {PT_FRAMES} frames, "
           f"engine=megakernel, kernel launches {pt_launches}")
@@ -2305,6 +2870,7 @@ def main() -> int:
     print(f"path-tracer phases {time.perf_counter() - t_pt:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    graphs.CACHE.clear()  # the graphs so far and their memory pools
     # 9. BVH walk: kernels against plain on the same rays
     t_bvh = time.perf_counter()
     bvh_err = {"closest": 0.0, "any": 0.0, "multi": 0.0}
@@ -2332,18 +2898,19 @@ def main() -> int:
     field = build_scene(scenes.sphere_field_scene(n_side=FIELD_SIDE,
                                                   res=RES), device=dev)
     cfg_bvh = RenderConfig()
-    walk_kernels = (kernels.bvh_closest, kernels.bvh_any,
-                    kernels.bvh_any_multi)
-    for k in walk_kernels:
-        k.launches = 0
-    img = render_image(field, cfg_bvh)
-    torch.cuda.synchronize()
+    # on the device bvh_any and bvh_any_multi are one kernel (any_kernel):
+    # a frame's any-hit launches read as bvh_any's, a fused frame's as
+    # bvh_any_multi's
+    walk_kernels = (kernels.bvh_closest, kernels.bvh_any)
+    render_image(field, cfg_bvh)  # the capture
+    img, n = replay_launches(lambda: render_image(field, cfg_bvh),
+                             walk_kernels)
     field_img = img  # phase 30's single-process reference
-    bvh_launches = [k.launches for k in walk_kernels]
+    bvh_launches = [n["bvh_closest"], n["bvh_any"]]
     print(f"main path: render_image field{FIELD_SIDE} ({field.n_objects} "
           f"objects, {field.packets.nodes.shape[0]} nodes, depth "
           f"{field.packets.depth}) {RES}x{RES} depth {cfg_bvh.max_depth} "
-          f"accel bvh, launches closest/any/multi {bvh_launches}")
+          f"accel bvh, launches closest/any {bvh_launches}")
     if bvh_launches[0] < 1 or bvh_launches[1] < 1:
         raise AssertionError("the BVH main path did not launch the walk")
     if img.shape != (RES, RES, 3) or not bool(torch.isfinite(img).all()):
@@ -2352,16 +2919,18 @@ def main() -> int:
         raise AssertionError("BVH image outside [0, 1]")
     print(f"BVH image mean {float(img.mean()):.5f}")
     save_png(str(ROOT / "build" / "field_smoke.png"), img)
-    for k in walk_kernels:
-        k.launches = 0
-    img_multi = render_image(field, RenderConfig(accel_impl="multi"))
-    torch.cuda.synchronize()
-    multi_launches = kernels.bvh_any_multi.launches
-    print(f"main path, accel_impl='multi': launches closest/any/multi "
-          f"{[k.launches for k in walk_kernels]}")
-    if multi_launches < 1:
-        raise AssertionError("accel_impl='multi' did not launch the fused "
-                             "walk")
+    render_image(field, RenderConfig(accel_impl="multi"))  # the capture
+    img_multi, n = replay_launches(
+        lambda: render_image(field, RenderConfig(accel_impl="multi")),
+        (kernels.bvh_closest, kernels.bvh_any_multi))
+    multi_launches = n["bvh_any_multi"]
+    print(f"main path, accel_impl='multi': launches closest/multi "
+          f"{[n['bvh_closest'], multi_launches]}")
+    if not 1 <= multi_launches < bvh_launches[1]:
+        raise AssertionError(f"accel_impl='multi' launched the any-hit "
+                             f"walk {multi_launches} times: want one fused "
+                             f"launch a level, fewer than "
+                             f"{bvh_launches[1]}")
     if not torch.equal(img_multi, img):
         raise AssertionError("accel_impl='multi' changed the image")
     small = build_scene(scenes.sphere_field_scene(n_side=FIELD_SIDE,
@@ -2439,6 +3008,7 @@ def main() -> int:
     print(f"BVH phases {time.perf_counter() - t_bvh:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    graphs.CACHE.clear()  # the graphs so far and their memory pools
     # 12. brute force: the kernels against their plain version on the same
     # rays, into poisoned outputs
     t_brute = time.perf_counter()
@@ -2464,17 +3034,16 @@ def main() -> int:
     brute_kernels = (kernels.brute_closest, kernels.brute_any)
 
     def brute_frame(scene, label):
-        for k in brute_kernels + walk_kernels:
-            k.launches = 0
-        image = render_image(scene, cfg_bvh)
-        torch.cuda.synchronize()
-        counts = ([k.launches for k in brute_kernels],
-                  [k.launches for k in walk_kernels])
+        render_image(scene, cfg_bvh)  # the capture
+        image, n = replay_launches(lambda: render_image(scene, cfg_bvh),
+                                   brute_kernels + walk_kernels)
+        counts = ([n[k.__name__] for k in brute_kernels],
+                  [n[k.__name__] for k in walk_kernels])
         print(f"main path: render_image {label} ({scene.n_objects} objects) "
               f"{RES}x{RES} depth {cfg_bvh.max_depth} accel none, launches "
-              f"brute closest/any {counts[0]}, walk closest/any/multi "
+              f"brute closest/any {counts[0]}, walk closest/any "
               f"{counts[1]}")
-        if counts != ([4, 8], [0, 0, 0]):
+        if counts != ([4, 8], [0, 0]):
             raise AssertionError(f"{label}: want 4 closest and 8 any-hit "
                                  "brute-force launches and no walk")
         if image.shape != (RES, RES, 3) or not bool(
@@ -2601,6 +3170,7 @@ def main() -> int:
     print(f"brute-force phases {time.perf_counter() - t_brute:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    graphs.CACHE.clear()  # the graphs so far and their memory pools
     # 15. device probes: T2's FMA stream, T1's class rates, mount_low's op
     # mix and floor beside K1, T3's walk in both stack placements
     t_probe = time.perf_counter()
@@ -2662,10 +3232,11 @@ def main() -> int:
           f"{n_sub} samples a pixel, {dlayout.n_rows} stream rows a ray "
           f"({sum(k[0] == 'shadow' for k in dlayout.rowmap) * 2} shadow, "
           f"{sum(k[0] == 'fuzzy' for k in dlayout.rowmap) * 3} fuzzy)")
-    kernels.whitted_megakernel.launches = 0
-    dimg = render_image(dscene, dcfg, torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    dist_launches = kernels.whitted_megakernel.launches
+    render_image(dscene, dcfg, torch.Generator(device=dev).manual_seed(99))
+    dimg, n = replay_launches(lambda: render_image(
+        dscene, dcfg, torch.Generator(device=dev).manual_seed(0)),
+        (kernels.whitted_megakernel,))
+    dist_launches = n["whitted_megakernel"]
     print(f"main path: render_image mount_low {RES}x{RES} spp {dcfg.spp} "
           f"depth {dcfg.max_depth} AA+DoF, soft shadows, fuzzy reflection, "
           f"skybox, engine=megakernel, kernel launches {dist_launches}")
@@ -2772,6 +3343,7 @@ def main() -> int:
     print(f"distribution phases {time.perf_counter() - t_dist:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    graphs.CACHE.clear()  # the graphs so far and their memory pools
     # 19. W1, the wavefront BVH frame: the field at 512x512, depth 4, on
     # engine="wavefront" through the walk, with the launch counters reset
     # just before and read just after, held against the sweep's image of
@@ -2788,19 +3360,20 @@ def main() -> int:
     counted = walk_kernels + brute_kernels + (kernels.whitted_megakernel,)
 
     def wave_frame(label, scene, cfg):
-        """render_image with every launch counter reset just before and
-        read just after; the queue's live entries a round, read after the
-        frame."""
-        for k in counted:
-            k.launches = 0
+        """render_image (a graph replay, captured first) and its launches
+        counted on the device (replay_launches); the queue's live entries
+        a round, read after an eager frame (render_tile: a capture writes
+        nothing it records)."""
+        render_image(scene, cfg)
+        image, counts = replay_launches(lambda: render_image(scene, cfg),
+                                        counted)
         wf.record_live = []
         try:
-            image = render_image(scene, cfg)
+            render_tile(scene, px, py, cfg)
             torch.cuda.synchronize()
             live = [int(n) for n in wf.record_live]
         finally:
             wf.record_live = None
-        counts = {k.__name__: k.launches for k in counted}
         print(f"main path: render_image {label} {RES}x{RES} depth "
               f"{cfg.max_depth} engine={cfg.engine}, launches {counts}; the "
               f"queue's live entries a round {live}")
@@ -2910,6 +3483,7 @@ def main() -> int:
     print(f"wavefront phases {time.perf_counter() - t_wave:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    graphs.CACHE.clear()  # the graphs so far and their memory pools
     # 24. P1, the per-ray median BVH (accel_impl="perray", batched PyTorch)
     t_perray = time.perf_counter()
     cfg_pr = RenderConfig(accel_impl="perray")
@@ -3013,6 +3587,7 @@ def main() -> int:
     print(f"per-ray phases {time.perf_counter() - t_perray:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    graphs.CACHE.clear()  # the graphs so far and their memory pools
     # 26. the Whitted kernel's autograd.Function against autograd straight
     # through its plain version, on CUDA tensors, case by case
     t_grad = time.perf_counter()
@@ -3179,14 +3754,18 @@ def main() -> int:
     print(f"gradient phases {time.perf_counter() - t_grad:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    graphs.CACHE.clear()  # the graphs so far and their memory pools
     shard, sharded, single_ms, single_step_ms, pt_single_mean = (
         sharding_phases(dev, card, mount_img, field_img))
+    print(f"all {time.perf_counter() - t_start:.1f} s")
+
+    # 34. the compiled programs (utils/graphs.py) at the headline sizes
+    graph_phase(dev, card, dscene, dcfg, field, field_nb)
     print(f"all {time.perf_counter() - t_start:.1f} s")
     wave_bvh = {
         "scene": f"field{FIELD_SIDE} {RES}x{RES} depth 4, engine=wavefront",
         "launches": {"closest": w1_counts["bvh_closest"],
-                     "any": w1_counts["bvh_any"],
-                     "multi": w1_counts["bvh_any_multi"]},
+                     "any": w1_counts["bvh_any"]},
         "live_per_round": w1_live, "max_abs_err_vs_sweep": w1_err,
         "frame_ms": w1_ms, "sweep_frame_ms": bvh_ms, "profile": w1_prof,
         "sweep_profile": bvh_prof}

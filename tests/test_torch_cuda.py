@@ -57,9 +57,10 @@ def test_kernel_matches_plain_mount64_depth4(fresnel):
     dev = _cuda()
     scene = build_scene(mount_scene(res=64), device=dev)
     cfg_mk = RenderConfig(engine="megakernel", fresnel_mode=fresnel)
-    before = kernels.whitted_megakernel.launches
-    got = render_image(scene, cfg_mk)
-    assert kernels.whitted_megakernel.launches == before + 1
+    render_image(scene, cfg_mk)  # the frame's capture (utils/graphs.py)
+    got, n = chip_smoke.replay_launches(lambda: render_image(scene, cfg_mk),
+                                        (kernels.whitted_megakernel,))
+    assert n == {"whitted_megakernel": 1}
     want = render_image(scene, RenderConfig(fresnel_mode=fresnel))
     assert got.shape == (64, 64, 3) and bool(torch.isfinite(got).all())
     assert _bad_fraction(got, want) <= MAX_BAD
@@ -158,9 +159,11 @@ def test_whitted_distribution_render_image():
     cfg = RenderConfig(engine="megakernel", soft_shadow=True,
                        fuzzy_reflection=True,
                        use_skybox=True).with_scene_flags(scene)
-    before = kernels.whitted_megakernel.launches
-    got = render_image(scene, cfg, torch.Generator(device=dev).manual_seed(3))
-    assert kernels.whitted_megakernel.launches == before + 4
+    render_image(scene, cfg, torch.Generator(device=dev).manual_seed(9))
+    got, n = chip_smoke.replay_launches(lambda: render_image(
+        scene, cfg, torch.Generator(device=dev).manual_seed(3)),
+        (kernels.whitted_megakernel,))
+    assert n == {"whitted_megakernel": 4}
     want = render_image(scene, dataclasses.replace(cfg, engine="sweep"),
                         torch.Generator(device=dev).manual_seed(3))
     assert got.shape == (32, 32, 3) and bool(torch.isfinite(got).all())
@@ -195,10 +198,12 @@ def test_pt_kernel_matches_plain_glsl32(cfg):
     world = glsl_world(device=dev, showcase_fuzzy_reflections=True,
                        showcase_fuzzy_refractions=True)
     cam = glsl_camera(32, 32, device=dev)
-    before = kernels.pt_megakernel.launches
-    got = ptk.make_render_frame(world, cam, cfg, "megakernel")(
-        torch.Generator(device=dev).manual_seed(4))
-    assert kernels.pt_megakernel.launches == before + 1
+    frame = ptk.make_render_frame(world, cam, cfg, "megakernel")
+    frame(torch.Generator(device=dev).manual_seed(9))  # the capture
+    got, n = chip_smoke.replay_launches(
+        lambda: frame(torch.Generator(device=dev).manual_seed(4)),
+        (kernels.pt_megakernel,))
+    assert n == {"pt_megakernel": 1}
     want = ptk.make_render_frame(world, cam, cfg, "plain")(
         torch.Generator(device=dev).manual_seed(4))
     assert got.shape == (32, 32, 3) and bool(torch.isfinite(got).all())
@@ -399,8 +404,10 @@ def test_brute_kernels_match_plain_on_a_mixed_soup():
     assert [a - b for a, b in zip(after, before)] == [3, 12]
     sd = chip_smoke.soup_scene(n_tri=400, n_sph=400, res=32)
     brute = build_scene(sd, device=dev, accel=C.ACCEL_NONE)
-    got = render_image(brute, RenderConfig())
-    assert kernels.brute_closest.launches == after[0] + 4
+    render_image(brute, RenderConfig())  # the capture
+    got, n = chip_smoke.replay_launches(
+        lambda: render_image(brute, RenderConfig()), (kernels.brute_closest,))
+    assert n == {"brute_closest": 4}
     want = render_image(build_scene(sd, device=dev), RenderConfig())
     assert got.shape == (32, 32, 3) and bool(torch.isfinite(got).all())
     assert _bad_fraction(got, want) <= MAX_BAD
@@ -553,9 +560,11 @@ def test_wavefront_matches_sweep_on_the_card(accel):
                         device=dev)
     want = render_image(scene, RenderConfig())
     launched = (kernels.bvh_closest if accel else kernels.brute_closest)
-    before = launched.launches
-    got = render_image(scene, RenderConfig(engine="wavefront"))
-    assert launched.launches == before + 4
+    render_image(scene, RenderConfig(engine="wavefront"))  # the capture
+    got, n = chip_smoke.replay_launches(
+        lambda: render_image(scene, RenderConfig(engine="wavefront")),
+        (launched,))
+    assert n == {launched.__name__: 4}
     assert float((got - want).abs().max()) <= 5e-4
     whitted = kernels.whitted_megakernel.launches
     assert torch.equal(render_image(scene, RenderConfig(engine="megakernel")),
@@ -722,3 +731,105 @@ def test_with_prim_params_repacks_the_brute_force_tables():
     _, ids2 = intersect.closest_hit_brute(moved.prims, Rays.make(o2, d),
                                           moved.brute)
     assert int(ids2[0]) != row
+
+
+# ---------------------------------------------------------------------------
+# the compiled programs (utils/graphs.py): replays against the eager
+# functions
+
+
+@pytest.mark.cuda
+def test_compiled_programs_replay_the_eager_ones():
+    """chip_smoke.py phase 34's checks at 64x64: mount_low's megakernel
+    frame and its distribution frame on two seeds and an advanced
+    generator (bit for bit, the generator left as eager leaves it), the
+    16-frame orbit in one capture, 16 progressive path-tracer frames, and
+    two chained train steps within GRAD_LIMIT."""
+    dev = _cuda()
+    why = chip_smoke.graph_checks(dev, 64)
+    assert not any(why.values()), why
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accel, engine", [
+    (None, "sweep"), (None, "wavefront"), (None, "megakernel"),
+    ("dist", "sweep"), ("dist", "wavefront"),
+    (0, "sweep"), (0, "wavefront"), (2, "sweep"), (2, "wavefront")],
+    ids=["mount-sweep", "mount-wavefront", "mount-megakernel",
+         "distribution-sweep", "distribution-wavefront",
+         "brute-sweep", "brute-wavefront", "walk-sweep", "walk-wavefront"])
+def test_compiled_frame_on_each_engine_equals_eager(accel, engine):
+    """render_image's graph on each engine (mount_low; its distribution
+    frame, spp 2 with soft shadows and fuzzy reflection; a 258-sphere
+    field on brute force and on the walk) equals the eager render_tile bit
+    for bit on two seeds and an advanced generator, one capture for every
+    input."""
+    import dataclasses
+
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+
+    dev = _cuda()
+    cfg = RenderConfig(engine=engine)
+    if accel in (None, "dist"):
+        scene = build_scene(mount_scene(res=64), device=dev)
+    else:
+        scene = build_scene(sphere_field_scene(n_side=16, res=64,
+                                               accel=accel), device=dev)
+    if accel == "dist":
+        scene = dataclasses.replace(scene, spp=2)
+        cfg = dataclasses.replace(cfg, soft_shadow=True,
+                                  fuzzy_reflection=True).with_scene_flags(
+                                      scene)
+    graphs.CACHE.clear()
+    n0 = graphs.CACHE.captures
+    why = chip_smoke.replay_agreement(*chip_smoke.whitted_path(scene, cfg))
+    assert not why and graphs.CACHE.captures == n0 + 1, why
+    graphs.CACHE.clear()
+
+
+@pytest.mark.cuda
+def test_graph_cache_keeps_memory_bounded_over_new_scenes():
+    """One freshly built BVH field after another (new tables each, so a new
+    capture each) keeps PER_PROGRAM graphs of the frame, and the card's
+    reserved memory stops growing once the cache is full."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+
+    dev = _cuda()
+    graphs.CACHE.clear()
+    n0 = graphs.CACHE.captures
+    keep = graphs.PER_PROGRAM
+    reserved = []
+    for _ in range(3 * keep):
+        scene = build_scene(sphere_field_scene(n_side=8, res=64, accel=2),
+                            device=dev)
+        render_image(scene, RenderConfig())
+        del scene
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved(dev))
+    assert graphs.CACHE.captures - n0 == 3 * keep
+    assert len(graphs.CACHE.graphs) == keep
+    pool = max(g.pool_mib for g in graphs.CACHE.graphs.values()) * 2**20
+    assert reserved[-1] <= reserved[keep - 1] + 2 * pool, reserved
+    graphs.CACHE.clear()
+
+
+@pytest.mark.cuda
+def test_capture_of_a_host_sync_raises():
+    """A program that reads a device value on the host cannot be
+    captured: the call raises, naming the program, and nothing runs
+    eagerly in its place."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+
+    dev = _cuda()
+    cache = graphs.GraphCache()
+
+    def host_sync(x, generator):
+        return x * float(x.sum())
+
+    with pytest.raises(RuntimeError, match="capturing host_sync") as e:
+        cache.call("host_sync", host_sync, (torch.ones(4, device=dev),))
+    assert e.value.__cause__ is not None
+    assert not cache.graphs and cache.captures == 0
+    assert torch.equal(torch.ones(2, device=dev) * 2,
+                       torch.full((2,), 2.0, device=dev))

@@ -20,6 +20,7 @@ def test_port_imports_no_jax():
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted_megakernel\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.core.convert\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.timing\n"
+        "import u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.graphs\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.pathtracer\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.pt_megakernel\n"
         "import u_4a_2s_p3d_raytracer_template2_tpu_torch.models.glsl_scene\n"

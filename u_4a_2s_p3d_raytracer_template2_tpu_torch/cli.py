@@ -26,7 +26,11 @@ Usage::
         live --builtin mount --res 512 --engine megakernel
 
 All run on the CUDA card unless ``--device cpu`` is given; without a card
-they exit with an error rather than fall back to the CPU.
+they exit with an error rather than fall back to the CPU. On the card each
+frame and each train step is one compiled program (``utils/graphs.py``):
+captured as a CUDA graph at its first call and replayed after, so a
+viewer's orbit captures once; the viewers and ``fit`` print the captures
+at the end.
 
 ``render`` renders a ``.p3f`` file or a built-in scene (mount_low, mount_low
 in distribution mode with spp 4 and an 8-pixel lens, the sphere field or
@@ -169,8 +173,10 @@ def cmd_render(args) -> None:
 def cmd_fit(args) -> None:
     """Inverse rendering (JAX cli.py:120-222 there): the target is the
     scene's own render; the fit starts from a perturbed scene and runs
-    ``--steps`` steps of parallel/dist.py's train steps, printing the loss
-    and the distance to the truth a step. ``--fit materials``: the diffuse
+    ``--steps`` steps of parallel/dist.py's train steps (compiled by
+    ``make_train_step``: one CUDA graph replay a step on one card, eager on
+    the CPU and under torchrun), printing the loss and the distance to the
+    truth a step. ``--fit materials``: the diffuse
     colours +0.3 (``train_step``); ``lights`` / ``all``: light 0 moved by
     (1, -0.7, 0.5), fitting its position (and with ``all`` the camera);
     ``geometry``: the largest sphere's centre moved by 0.4 r along (0.8,
@@ -186,6 +192,7 @@ def cmd_fit(args) -> None:
     from .parallel.dist import (
         initialize_multihost,
         lr_scales,
+        make_train_step,
         rank_device,
         render_image_sharded,
         train_step,
@@ -224,8 +231,9 @@ def cmd_fit(args) -> None:
             scene.materials,
             diff_color=(scene.materials.diff_color + 0.3).clamp(0.0, 1.0))
         s = dataclasses.replace(scene, materials=mats)
+        step = make_train_step(train_step, cfg, args.lr)
         for i in range(args.steps):
-            s, loss = train_step(s, target, cfg, args.lr, gen(i))
+            s, loss = step(s, target, gen(i))
             say(f"step {i}: loss {float(loss):.6f}")
     elif args.fit == "geometry":
         true_params = scene.prims.params
@@ -246,8 +254,9 @@ def cmd_fit(args) -> None:
         sc = dataclasses.replace(
             lr_scales(materials=0.0, light_pos=0.0, light_color=0.0,
                       camera=0.0, geometry=0.0), prim_params=mask)
+        step = make_train_step(train_step_full, cfg, args.lr, scales=sc)
         for i in range(args.steps):
-            s, loss = train_step_full(s, target, cfg, args.lr, gen(i), sc)
+            s, loss = step(s, target, gen(i))
             d = float(torch.linalg.vector_norm(
                 s.prims.params[row, 0:3] - true_params[row, 0:3]))
             say(f"step {i}: loss {float(loss):.6f}  center offset {d:.4f}")
@@ -262,14 +271,16 @@ def cmd_fit(args) -> None:
             scene.lights, position=true_pos + delta))
         sc = lr_scales(materials=0.0, light_pos=1.0, light_color=0.0,
                        camera=1.0 if args.fit == "all" else 0.0)
+        step = make_train_step(train_step_full, cfg, args.lr, scales=sc)
         for i in range(args.steps):
-            s, loss = train_step_full(s, target, cfg, args.lr, gen(i), sc)
+            s, loss = step(s, target, gen(i))
             d = float(torch.linalg.vector_norm(s.lights.position - true_pos))
             say(f"step {i}: loss {float(loss):.6f}  light offset {d:.3f}")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     say(f"{args.steps} steps in {time.perf_counter() - t0:.3f} s (host "
         f"wall clock, {dev.type}, {size} rank(s))")
+    _say_captures(say, dev)
     if n_procs > 1:
         torch.distributed.destroy_process_group()
 
@@ -316,6 +327,15 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _say_captures(say, dev) -> None:
+    """Print how many programs were captured as CUDA graphs (utils/graphs.py)
+    on the card."""
+    if dev.type == "cuda":
+        from .utils import graphs
+
+        say(f"CUDA graphs captured: {graphs.CACHE.captures}")
+
+
 def _orbit_scene(scene, alpha, beta, r):
     """``scene`` with its camera on the orbit (``ops/camera.orbit_eye``)."""
     import dataclasses
@@ -349,6 +369,7 @@ def cmd_orbit(args) -> None:
                 else f"{args.output.rsplit('.', 1)[0]}_{i:03d}.png")
         save_png(path, img)
         print(f"frame {i}: {path}")
+    _say_captures(print, dev)
 
 
 def cmd_view(args) -> None:
@@ -408,6 +429,7 @@ def cmd_view(args) -> None:
     save_png(args.output, acc / args.still_frames if args.still_frames
              else img)
     print(f"Image file created: {args.output}")
+    _say_captures(print, dev)
 
 
 def _read_keys():
@@ -526,6 +548,7 @@ def cmd_live(args) -> None:
         img = render(cfg, 0)
     save_png(args.output, acc / n_acc if acc is not None else img)
     print(f"Image file created: {args.output}")
+    _say_captures(print, dev)
 
 
 def _scene_args(p) -> None:

@@ -292,3 +292,15 @@ def normalize(a: torch.Tensor) -> torch.Tensor:
 def clamp01(c: torch.Tensor) -> torch.Tensor:
     """Color::clamp (color.h:38-43)."""
     return c.clamp(0.0, 1.0)
+
+
+def filled(values, dtype, device) -> torch.Tensor:
+    """A [len(values)] tensor of ``values`` made on ``device`` by fills, not
+    by a copy from host memory (``torch.tensor(values, device=...)``, or
+    ``out[i] = v``, which copies a host scalar): a CUDA graph cannot
+    capture such a copy (utils/graphs.py)."""
+    out = torch.zeros(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        if v:
+            out[i].fill_(v)
+    return out

@@ -3,7 +3,11 @@
 Each wrapper checks its tensors, launches its kernel on PyTorch's current
 stream through the ctypes entry point, raises if the launch returned a CUDA
 error, and counts its launches in a plain integer attribute (``.launches``),
-so a run can show that it went through the kernel. Nothing here runs on the
+so a run can show that it went through the kernel; a launch that a CUDA
+graph's capture records counts there too. A graph's replays run the kernel
+without its wrapper: they are counted on the device, from the profiler's
+kernel events named ``.device_kernel`` (``utils/profiling.device_launches``).
+Nothing here runs on the
 CPU: the dispatch between a kernel and its plain version lives beside the
 plain version (models/, accel/packets.py, ops/intersect.py); the device
 probes' plain versions are in tools/, and the probes have no dispatch.
@@ -165,6 +169,7 @@ def whitted_megakernel(tbl, lt, bg, o, d, shape, cfg, rows=None,
 
 
 whitted_megakernel.launches = 0
+whitted_megakernel.device_kernel = "whitted_kernel"
 
 
 def pt_megakernel(tables, o, d, time, uni, cfg) -> torch.Tensor:
@@ -211,6 +216,7 @@ def pt_megakernel(tables, o, d, time, uni, cfg) -> torch.Tensor:
 
 
 pt_megakernel.launches = 0
+pt_megakernel.device_kernel = "pt_kernel"
 
 
 # per-ray work counters of the BVH walk: child box tests; triangle tests
@@ -284,6 +290,7 @@ def bvh_closest(tables, o, d, dead=None, counts=None, out=None):
 
 
 bvh_closest.launches = 0
+bvh_closest.device_kernel = "closest_kernel"
 
 
 def _bvh_any(tables, o, dirs, max_t, dead, counts, out):
@@ -319,6 +326,7 @@ def bvh_any(tables, o, d, max_t: float, dead=None, counts=None, out=None):
 
 
 bvh_any.launches = 0
+bvh_any.device_kernel = "any_kernel"
 
 
 def bvh_any_multi(tables, o, dirs, max_t: float, dead=None, counts=None,
@@ -336,6 +344,7 @@ def bvh_any_multi(tables, o, dirs, max_t: float, dead=None, counts=None,
 
 
 bvh_any_multi.launches = 0
+bvh_any_multi.device_kernel = "any_kernel"
 
 
 @functools.cache
@@ -432,6 +441,7 @@ def brute_closest(tables, o, d, dead=None, out=None):
 
 
 brute_closest.launches = 0
+brute_closest.device_kernel = "brute_closest_sweep"
 
 
 def brute_any(tables, o, d, max_t: float, dead=None, out=None):
@@ -459,6 +469,7 @@ def brute_any(tables, o, d, max_t: float, dead=None, out=None):
 
 
 brute_any.launches = 0
+brute_any.device_kernel = "brute_any_sweep"
 
 
 # T1's instruction classes, in csrc/probes.cu's order
@@ -515,6 +526,7 @@ def op_rate(x, op: str, k: int = 512) -> torch.Tensor:
 
 
 op_rate.launches = 0
+op_rate.device_kernel = "op_rate_kernel"
 
 
 def fma_peak(x) -> torch.Tensor:
@@ -535,6 +547,7 @@ def fma_peak(x) -> torch.Tensor:
 
 
 fma_peak.launches = 0
+fma_peak.device_kernel = "fma_peak_kernel"
 
 
 def stack_walk(nbox, nmeta, table, rays, stack: str = "shared"):
@@ -573,3 +586,4 @@ def stack_walk(nbox, nmeta, table, rays, stack: str = "shared"):
 
 
 stack_walk.launches = 0
+stack_walk.device_kernel = "stack_walk_kernel"

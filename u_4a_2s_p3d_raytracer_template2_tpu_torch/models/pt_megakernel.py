@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.types import Camera, Rays
+from ..utils import graphs
 from .pathtracer import (
     PTConfig,
     PTMaterials,
@@ -184,27 +185,47 @@ def trace_rays_megakernel(tables: PTTables, o, d, time, uni,
 ENGINES = ("plain", "megakernel")
 
 
+def render_frame_megakernel(tables: PTTables, cam: Camera, cfg: PTConfig,
+                            generator: torch.Generator) -> torch.Tensor:
+    """One 1-spp frame [H,W,3] (linear) through ``trace_rays_megakernel``,
+    eagerly: the draws of ``pathtracer.render_frame`` (``camera_rays``,
+    then ``[B, 11, R]`` uniforms) from ``generator``, one trace and the
+    reshape (JAX ``make_render_frame``'s jitted frame,
+    ``pt_megakernel.py:602``)."""
+    rays = camera_rays(cam, generator)
+    uni = draw_uniforms(generator, cfg.max_bounces, rays.origin.shape[0])
+    col = trace_rays_megakernel(tables, rays.origin, rays.direction,
+                                rays.time, uni, cfg)
+    return col.reshape(cam.res_y, cam.res_x, 3)
+
+
 def make_render_frame(scene: PTScene, cam: Camera, cfg: PTConfig,
                       engine: str = "megakernel"):
     """generator -> [H,W,3] linear 1-spp estimate.
 
     ``engine="plain"`` is ``pathtracer.render_frame``. ``"megakernel"``
-    draws the frame's samples as it does (``camera_rays``, then ``[B, 11,
-    R]`` uniforms) and traces them with ``trace_rays_megakernel``, so one
-    seed gives elementwise-comparable frames from both engines."""
+    draws the frame's samples as it does and traces them with
+    ``trace_rays_megakernel``, so one seed gives elementwise-comparable
+    frames from both engines: on CUDA tensors as one compiled program (a
+    replay of the CUDA graph of ``render_frame_megakernel``, captured at
+    the first frame of its config, camera shape and tables;
+    ``utils/graphs.py``), the camera copied in and the generator advanced
+    as the eager frame advances it; on CPU tensors the eager frame."""
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r}: want one of {ENGINES}")
     if engine == "plain":
         return functools.partial(render_frame, scene, cam, cfg)
     tables = pt_tables(scene)
     _check_supported(tables)
+    if not graphs.on_card(scene.device):
+        return functools.partial(render_frame_megakernel, tables, cam, cfg)
 
     def frame(generator: torch.Generator) -> torch.Tensor:
-        rays = camera_rays(cam, generator)
-        uni = draw_uniforms(generator, cfg.max_bounces,
-                            rays.origin.shape[0])
-        col = trace_rays_megakernel(tables, rays.origin, rays.direction,
-                                    rays.time, uni, cfg)
-        return col.reshape(cam.res_y, cam.res_x, 3)
+        # the tables are the graph's by identity: the closure holds them
+        # while the graph lives, so their id is not reused in a key
+        return graphs.CACHE.call(
+            "pt_megakernel.frame",
+            lambda c, g: render_frame_megakernel(tables, c, cfg, g),
+            (cam,), generator, static=(cfg, id(tables)))
 
     return frame

@@ -103,20 +103,6 @@ class StreamLayout:
     def has_fuzzy(self, lvl: int) -> bool:
         return self.fuzzy and lvl < self.shape.n_levels - 1
 
-    @functools.cached_property
-    def kinds(self):
-        """Row indices by transform: (jx rows, jy rows, sphere x, y, z
-        rows)."""
-        out = ([], [], [], [], [])
-        for key, rs in self.rowmap.items():
-            if key[0] == "shadow":
-                out[0].append(rs[0])
-                out[1].append(rs[1])
-            else:
-                for k in range(3):
-                    out[2 + k].append(rs[k])
-        return out
-
 
 class NodeDraws(NamedTuple):
     """The trace values of one level's rays: ``rows`` [n_rows, R] (after
@@ -153,9 +139,12 @@ class NodeDraws(NamedTuple):
         return torch.stack([self.values(off + k) for k in range(3)], dim=-1)
 
 
+@functools.lru_cache(maxsize=64)
 def stream_layout(has_refl: bool, has_refr: bool, n_lights: int,
                   cfg: RenderConfig) -> StreamLayout:
-    """The layout of ``_stream_layout`` for a scene's static shape."""
+    """The layout of ``_stream_layout`` for a scene's static shape (made
+    once per shape and config: a frame asks for it at every subpixel and
+    level, and a compiled frame at every call)."""
     shape = tree_shape(has_refl, has_refr, cfg.max_depth)
     soft_jit = bool(cfg.soft_shadow and cfg.anti_aliasing)
     fuzzy = bool(cfg.fuzzy_reflection and has_refl)
@@ -210,17 +199,30 @@ def stream_rows(raw: torch.Tensor, layout: StreamLayout, ij,
     """[n_rows, R] values of the raw U[0,1) rows ``raw``: a shadow row
     0.5·((i + u)/spp) (x offset) or 0.5·((j + u)/spp) (y offset)
     (main.cpp:621-624); a fuzzy node's three rows the unit-sphere point of
-    its three draws (ops/sampling.unit_sphere_from_uniforms)."""
+    its three draws (ops/sampling.unit_sphere_from_uniforms). A level's
+    nodes are read as one strided view, with no index tensor (one made from
+    a list would be copied from host memory, which a CUDA graph cannot
+    capture)."""
     out = raw.clone()
-    jx, jy, f0, f1, f2 = layout.kinds
-    if jx:
-        i, j = ij if ij is not None else (0.0, 0.0)
-        spp = max(spp, 1)
-        out[jx] = 0.5 * ((i + raw[jx]) / spp)
-        out[jy] = 0.5 * ((j + raw[jy]) / spp)
-    if f0:
-        s = unit_sphere_from_uniforms(raw[f0], raw[f1], raw[f2])
-        out[f0], out[f1], out[f2] = s[..., 0], s[..., 1], s[..., 2]
+    i, j = ij if ij is not None else (0.0, 0.0)
+    spp = max(spp, 1)
+    L2 = 2 * layout.n_lights
+    for lvl in range(layout.shape.n_levels):
+        step = layout.node_rows[lvl]
+        if not step:
+            continue
+        base = layout.level_base[lvl]
+        n = layout.shape.branch ** lvl * step
+        src = raw[base:base + n].view(-1, step, raw.shape[-1])
+        dst = out[base:base + n].view(-1, step, raw.shape[-1])
+        if layout.soft_jit:
+            dst[:, 0:L2:2] = 0.5 * ((i + src[:, 0:L2:2]) / spp)
+            dst[:, 1:L2:2] = 0.5 * ((j + src[:, 1:L2:2]) / spp)
+        if layout.has_fuzzy(lvl):
+            o = layout.fuzzy_offset()
+            s = unit_sphere_from_uniforms(src[:, o], src[:, o + 1],
+                                          src[:, o + 2])
+            dst[:, o:o + 3] = s.movedim(-1, 1)
     return out
 
 

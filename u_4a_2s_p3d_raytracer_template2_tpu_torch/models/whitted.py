@@ -31,15 +31,32 @@ depth of field, motion-blur shutter times, jittered soft shadows, fuzzy
 reflection) takes its random values from a sample plan drawn before the
 trace (models/samples.py); misses read the skybox when ``use_skybox`` is set
 and the scene has one.
+
+On CUDA tensors ``render_image`` runs a frame as one compiled program
+(``render_tile_compiled``, the counterpart of JAX's ``render_tile_jit``):
+a CUDA graph captured at the first frame of a signature and replayed
+after (utils/graphs.py). ``render_tile`` stays the eager function each
+replay is held to.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..core import constants as C
-from ..core.types import RenderConfig, Rays, Scene, clamp01, dot, normalize
+from ..core.types import (
+    RenderConfig,
+    Rays,
+    Scene,
+    clamp01,
+    dot,
+    filled,
+    normalize,
+)
 from ..ops import intersect, shade
 from ..ops.camera import primary_rays
+from ..utils import graphs
 from .samples import (
     Draws,
     NodeDraws,
@@ -198,9 +215,9 @@ def direct_lighting(scene: Scene, rays: Rays, hit_point, precise, normal,
             start = -distance * 0.5 * 4.0
             for i in range(4):
                 for j in range(4):
-                    off = torch.tensor(
+                    off = filled(
                         [start + j * distance, start + i * distance, 0.0],
-                        dtype=lpos.dtype, device=lpos.device)
+                        lpos.dtype, lpos.device)
                     color = color + one_sample((lpos + off)[None, :],
                                                lcol / 16.0)
         elif cfg.soft_shadow:
@@ -281,8 +298,8 @@ def _level_step(scene: Scene, rays: Rays, active, ior_in, cfg: RenderConfig,
     ro = shade.refract(rays.direction, nf, inside, ior_in, mat.ior,
                        cfg.refraction_mode)
     refr_active = hit & (mat.transmit != 0.0) & ro.can_refract
-    default_dir = torch.tensor([0.0, 0.0, 1.0], dtype=local.dtype,
-                               device=local.device).expand(ro.direction.shape)
+    default_dir = filled([0.0, 0.0, 1.0], local.dtype,
+                         local.device).expand(ro.direction.shape)
     refr_dir = torch.where(refr_active[:, None], ro.direction, default_dir)
     refr_origin = torch.where(refr_active[:, None],
                               hit_point + refr_dir * 0.001, precise)
@@ -400,6 +417,12 @@ def _stochastic(layout, cfg: RenderConfig) -> bool:
                 or layout.n_rows)
 
 
+def stochastic(scene: Scene, cfg: RenderConfig) -> bool:
+    """Whether a frame of ``cfg`` on ``scene`` draws random values (AA, DoF,
+    motion blur, or trace rows of the sample plan)."""
+    return _stochastic(scene_layout(scene, cfg), cfg)
+
+
 def subpixel_rays(scene: Scene, px: torch.Tensor, py: torch.Tensor,
                   cfg: RenderConfig, s: Draws) -> Rays:
     """The primary rays of one subpixel's draws ``s``: the pixel centre, or
@@ -503,21 +526,107 @@ def pixel_grid(res_x: int, res_y: int, device) -> tuple[torch.Tensor,
     return xs.reshape(-1), ys.reshape(-1)
 
 
+# ---------------------------------------------------------------------------
+# compiled tiles and frames (JAX render_tile_jit, models/whitted.py:542, and
+# render_image's tile loop, :564-587)
+
+# the Scene fields a compiled frame keeps whole and keys by identity: the
+# tables derived once per scene (utils/graphs.py)
+SCENE_TABLES = frozenset({"skybox", "packets", "bvh", "grid", "brute"})
+
+
+def capturable(scene: Scene, cfg: RenderConfig) -> bool:
+    """Whether a frame of ``cfg`` on ``scene`` can be captured as a CUDA
+    graph: every engine and traversal except the per-ray ones
+    (``accel_impl="perray"``, and a grid scene's shadows under
+    ``reference_grid_shadow_initfail``), whose loops read a host sync every
+    ``accel/traverse.CHECK_EVERY`` iterations; those frames run eagerly."""
+    return (_accel(scene, cfg) not in ("bvh", "grid")
+            and not _grid_initfail(scene, cfg))
+
+
+def _tiles(scene: Scene, px, py, cfg: RenderConfig, tile: int,
+           generator) -> torch.Tensor:
+    """``render_tile`` over consecutive tiles of ``tile`` pixels, drawing
+    from ``generator`` in turn: the program of a compiled frame."""
+    return torch.cat([render_tile(scene, px[a:a + tile], py[a:a + tile], cfg,
+                                  generator)
+                      for a in range(0, px.shape[0], tile)], dim=0)
+
+
+def render_tile_compiled(scene: Scene, px: torch.Tensor, py: torch.Tensor,
+                         cfg: RenderConfig, generator=None, *,
+                         tile: int = 0) -> torch.Tensor:
+    """``render_tile`` as one compiled program (JAX ``render_tile_jit``), or
+    with ``tile`` > 0 ``render_image``'s loop over tiles of that many
+    pixels: on CUDA tensors a replay of its CUDA graph, captured at the
+    first call of its signature (``utils/graphs.py``: the config, the tile
+    size, the scene's structure and derived tables); on CPU tensors the
+    eager function. The camera, materials, lights, primitives, background
+    and pixels are the graph's inputs, copied in each call; the draws come
+    from ``generator`` (one seeded 0 when it is None and the config draws),
+    which the call advances as the eager function would (a config that
+    draws nothing leaves it untouched). Raises for a config that cannot be
+    captured (``capturable``)."""
+    n = px.shape[0]
+    tile = n if tile <= 0 or tile > n else tile
+    if not stochastic(scene, cfg):
+        generator = None  # one graph with or without an unused generator
+    elif generator is None:
+        generator = torch.Generator(device=scene.device).manual_seed(0)
+    if not graphs.on_card(scene.device):
+        return _tiles(scene, px, py, cfg, tile, generator)
+    if not capturable(scene, cfg):
+        raise NotImplementedError(
+            f"accel_impl={cfg.accel_impl!r} on this scene runs the per-ray "
+            "traversals, which read the host every few iterations and cannot "
+            "be captured; render_tile runs them eagerly")
+    return graphs.CACHE.call(
+        "whitted.tiles",
+        lambda s, x, y, g: _tiles(s, x, y, cfg, tile, g),
+        (scene, px, py), generator, static=(cfg, tile), keep=SCENE_TABLES)
+
+
+def _needs_grad(scene: Scene) -> bool:
+    """Whether a tensor of the scene's value requires grad (under grad
+    mode): such a render runs eagerly, so that autograd sees it."""
+    if not torch.is_grad_enabled():
+        return False
+    parts = (scene.prims, scene.materials, scene.lights, scene.camera)
+    return scene.bg_color.requires_grad or any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for part in parts for t in vars(part).values())
+
+
+@functools.lru_cache(maxsize=8)
+def _frame_pixels(res_x: int, res_y: int, device) -> tuple:
+    """``pixel_grid`` of a frame, made once (read only)."""
+    return pixel_grid(res_x, res_y, device)
+
+
 def render_image(scene: Scene, cfg: RenderConfig, generator=None, *,
                  tile_rows: int = 0) -> torch.Tensor:
     """Full-frame render -> [res_y, res_x, 3] float image in [0,1] on the
     scene's device, ``tile_rows`` image rows a tile (0: one tile), the
     tiles drawing in turn from ``generator``.
 
+    On CUDA tensors the frame is one compiled program
+    (``render_tile_compiled``: one CUDA graph a frame, all tiles), except a
+    per-ray traversal's (``capturable``) or a scene whose tensors require
+    grad, which run the eager tile loop as CPU tensors do.
+
     Row y=0 is the bottom scanline, as in the reference's framebuffer
     (main.cpp:749-805 fills bottom-up).
     """
     cam = scene.camera
-    px, py = pixel_grid(cam.res_x, cam.res_y, scene.device)
+    px, py = _frame_pixels(cam.res_x, cam.res_y, scene.device)
     n = cam.res_y * cam.res_x
-    if generator is None and _stochastic(scene_layout(scene, cfg), cfg):
+    if generator is None and stochastic(scene, cfg):
         generator = torch.Generator(device=scene.device).manual_seed(0)
     tile = n if tile_rows <= 0 else tile_rows * cam.res_x
-    chunks = [render_tile(scene, px[a:a + tile], py[a:a + tile], cfg,
-                          generator) for a in range(0, n, tile)]
-    return torch.cat(chunks, dim=0).reshape(cam.res_y, cam.res_x, 3)
+    if (graphs.on_card(scene.device) and capturable(scene, cfg)
+            and not _needs_grad(scene)):
+        img = render_tile_compiled(scene, px, py, cfg, generator, tile=tile)
+    else:
+        img = _tiles(scene, px, py, cfg, tile, generator)
+    return img.reshape(cam.res_y, cam.res_x, 3)

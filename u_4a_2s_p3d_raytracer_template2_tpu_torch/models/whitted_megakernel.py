@@ -63,6 +63,7 @@ from ..core.types import (
     Rays,
     Scene,
     clamp01,
+    filled,
 )
 from ..ops import intersect
 from .samples import stream_layout
@@ -190,10 +191,14 @@ def reconstruct_scene(shape: StaticShape, tbl, lt, bg, skybox=None) -> Scene:
     params12 = tblm[:, :12]
     Npad = _round_up(N, 8)
     params = torch.nn.functional.pad(params12, (0, 0, 0, Npad - N))
-    codes = ([C.TRIANGLE] * shape.n_tri + [C.SPHERE] * shape.n_sph
-             + [C.PLANE] * shape.n_pl + [C.AABOX] * shape.n_box
-             + [C.INVALID] * (Npad - N))
-    ptype = torch.tensor(codes, dtype=torch.int32, device=dev)
+    # filled on the device: the Function's backward rebuilds this scene
+    # inside a captured train step (utils/graphs.py), which cannot copy
+    # from host memory
+    ptype = torch.cat([
+        torch.full((n,), code, dtype=torch.int32, device=dev)
+        for code, n in ((C.TRIANGLE, shape.n_tri), (C.SPHERE, shape.n_sph),
+                        (C.PLANE, shape.n_pl), (C.AABOX, shape.n_box),
+                        (C.INVALID, Npad - N))])
     mat_id = torch.arange(Npad, dtype=torch.int32, device=dev) % max(N, 1)
 
     def view(start, n, width):
@@ -221,12 +226,15 @@ def reconstruct_scene(shape: StaticShape, tbl, lt, bg, skybox=None) -> Scene:
     lights = Lights(position=Lp[:, 0:3], color=Lp[:, 3:6])
 
     def z(x):
-        return torch.tensor(x, dtype=torch.float32, device=dev)
+        return filled(x, torch.float32, dev)
+
+    def s(x):
+        return torch.full((), x, dtype=torch.float32, device=dev)
 
     cam = Camera(eye=z([0.0, 0.0, 0.0]), u=z([1.0, 0.0, 0.0]),
-                 v=z([0.0, 1.0, 0.0]), n=z([0.0, 0.0, 1.0]), w=z(1.0),
-                 h=z(1.0), plane_dist=z(1.0), focal_ratio=z(1.0),
-                 aperture=z(0.0), time0=z(0.0), time1=z(0.0),
+                 v=z([0.0, 1.0, 0.0]), n=z([0.0, 0.0, 1.0]), w=s(1.0),
+                 h=s(1.0), plane_dist=s(1.0), focal_ratio=s(1.0),
+                 aperture=s(0.0), time0=s(0.0), time1=s(0.0),
                  res_x=1, res_y=1)
     prims = Primitives(
         params=params, ptype=ptype, mat_id=mat_id,
@@ -350,3 +358,23 @@ def render_tile(scene: Scene, px: torch.Tensor, py: torch.Tensor,
     check_supported(scene, cfg)
     return render_samples(scene, px, py, cfg, trace_rays_megakernel,
                           generator, draws)
+
+
+def make_render_tile(scene: Scene, cfg: RenderConfig):
+    """``tile(px, py, generator=None)`` -> clamped [R,3] colors of
+    ``scene``'s pixels on the megakernel engine (JAX ``make_render_tile``,
+    ``whitted_megakernel.py:828-909``): every subpixel of a call in one
+    program, as JAX's ``lax.scan`` over them, so a distribution frame's
+    draws (``models/samples.draw_subpixel``) and its 16 launches are one
+    CUDA graph replay on CUDA tensors (``whitted.render_tile_compiled``);
+    on CPU tensors the eager ``render_tile``."""
+    from .whitted import check_config, render_tile_compiled
+
+    check_config(cfg)
+    check_supported(scene, cfg)
+    cfg = dataclasses.replace(cfg, engine="megakernel")
+
+    def tile(px, py, generator=None):
+        return render_tile_compiled(scene, px, py, cfg, generator)
+
+    return tile

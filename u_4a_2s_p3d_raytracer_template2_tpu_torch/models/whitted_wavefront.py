@@ -48,13 +48,14 @@ import math
 
 import torch
 
-from ..core.types import RenderConfig, Rays, Scene
+from ..core.types import RenderConfig, Rays, Scene, filled
 from . import whitted
 from .samples import NodeDraws
 
 # When a list, every round appends its queue's live count (a device tensor
 # after the first round, never read here): chip_smoke.py prints them after
-# a frame.
+# an eager frame. A frame captured as a CUDA graph (utils/graphs.py) runs
+# nothing while it is captured, so under capture a list here raises.
 record_live = None
 
 # float payload of an entry: origin (3), direction (3), time, ior, weight
@@ -71,9 +72,15 @@ def _payload(rays: Rays, ior, w):
                       ior[:, None], w], dim=-1)
 
 
-def _record(n) -> None:
-    if record_live is not None:
-        record_live.append(n)
+def _record(n, device) -> None:
+    if record_live is None:
+        return
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "whitted_wavefront.record_live is set while a frame is captured "
+            "as a CUDA graph: the counts a capture appends are never "
+            "written. Read them from an eager frame (whitted.render_tile)")
+    record_live.append(n)
 
 
 def trace_rays_wavefront(scene: Scene, rays: Rays, cfg: RenderConfig,
@@ -92,7 +99,7 @@ def trace_rays_wavefront(scene: Scene, rays: Rays, cfg: RenderConfig,
     q_ior = torch.ones(R, dtype=rays.origin.dtype, device=dev)
     q_pix = torch.arange(R, device=dev)
     q_path = torch.zeros(R, dtype=torch.int64, device=dev)
-    _record(R)
+    _record(R, dev)
 
     if not (spawn_refl or spawn_refr) or cfg.max_depth <= 1:
         local, _ = whitted._level_step(
@@ -106,7 +113,7 @@ def trace_rays_wavefront(scene: Scene, rays: Rays, cfg: RenderConfig,
     # can, so that the zeros it adds do not pile onto one pixel of the
     # accumulation
     spread = torch.stack([slots % R, torch.zeros_like(slots)], dim=-1)
-    default = torch.tensor(_DEFAULT, dtype=rays.origin.dtype, device=dev)
+    default = filled(_DEFAULT, rays.origin.dtype, dev)
     out = torch.zeros((R, 3), dtype=rays.origin.dtype, device=dev)
     q_rays = rays
     q_w = torch.ones((R, 3), dtype=rays.origin.dtype, device=dev)
@@ -162,5 +169,5 @@ def trace_rays_wavefront(scene: Scene, rays: Rays, cfg: RenderConfig,
         q_rays = Rays(q_f[:, 0:3], q_f[:, 3:6], q_f[:, 6])
         q_ior, q_w = q_f[:, 7], q_f[:, 8:11]
         q_pix, q_path = q_i[:, 0], q_i[:, 1]
-        _record(torch.clamp(n_live, max=cap))
+        _record(torch.clamp(n_live, max=cap), dev)
     return out

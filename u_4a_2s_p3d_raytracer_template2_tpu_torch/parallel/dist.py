@@ -462,3 +462,63 @@ def train_step_full(scene: Scene, target: torch.Tensor, cfg: RenderConfig,
             new, materials=_project_materials(new.materials),
             cam_focal=new.cam_focal.clamp(min=0.05), prim_params=pp)
         return _apply_params(scene, new), loss
+
+
+# ---------------------------------------------------------------------------
+# compiled train steps (JAX's jitted train_step and train_step_full,
+# parallel/dist.py:101, :273)
+
+# the Scene fields a compiled step keeps whole: the tables a step does not
+# change (Scene.brute is rebuilt by the step from the primitive table, so it
+# is an input like the rest)
+STEP_TABLES = frozenset({"skybox", "packets", "bvh", "grid"})
+
+
+def make_train_step(step, cfg: RenderConfig, lr: float = 0.05, *,
+                    scales: FitParams | None = None, freeze: tuple = ()):
+    """``run(scene, target, generator=None) -> (scene', loss)``: ``step``
+    (``train_step`` or ``train_step_full``, the latter with ``scales`` and
+    ``freeze``) as one compiled program on one CUDA device. The scene's
+    parameter groups and the target are the CUDA graph's inputs; the eager
+    step, its forward (``WhittedTrace`` on the megakernel engine: one K1
+    launch a subpixel; or the sweep or the wavefront),
+    ``torch.autograd.grad``, the update and the projections, is captured
+    whole, and the returned scene is cloned from the graph's outputs (the
+    tables it does not change, ``STEP_TABLES``, are the caller's). On CPU
+    tensors, and under an initialised process group (gloo's CUDA
+    all_reduce goes through the host and cannot be captured), ``run`` is
+    the eager ``step``. The backward adds with
+    atomics, so a replay equals the eager step within the gradient's
+    rounding, not bit for bit."""
+    from ..models.whitted import stochastic
+    from ..utils import graphs
+
+    if step is train_step:
+        if scales is not None or freeze:
+            raise ValueError("train_step takes no scales or freeze")
+        kw = {}
+        static = ("train_step", cfg, lr)
+    elif step is train_step_full:
+        scales = lr_scales() if scales is None else scales
+        kw = {"scales": scales, "freeze": tuple(freeze)}
+        # a tensor scale is the graph's by identity (the program holds it)
+        static = ("train_step_full", cfg, lr, tuple(freeze), tuple(
+            ("tensor", id(s)) if torch.is_tensor(s) else s
+            for s in tree_leaves(scales)))
+    else:
+        raise ValueError(f"make_train_step compiles train_step or "
+                         f"train_step_full, not {step!r}")
+
+    def program(scene, target, generator):
+        return step(scene, target, cfg, lr, generator, **kw)
+
+    def run(scene: Scene, target: torch.Tensor, generator=None):
+        if not graphs.on_card(scene.device) or _initialised():
+            return step(scene, target, cfg, lr, generator, **kw)
+        if not stochastic(scene, cfg):
+            generator = None  # one graph with or without an unused one
+        return graphs.CACHE.call("dist." + step.__name__, program,
+                                 (scene, target), generator, static=static,
+                                 keep=STEP_TABLES)
+
+    return run

@@ -5,7 +5,9 @@
 records a ``torch.profiler`` trace of the CPU and, where there is a card,
 CUDA activity, and writes it as a Chrome trace (``trace.json`` in its
 directory, for chrome://tracing or Perfetto), in place of JAX's
-``xla_trace``. JAX's ``enable_compilation_cache`` has no counterpart: it
+``xla_trace``. ``device_launches`` counts the hand-written kernels' runs on
+the card from the same profiler's kernel events, a CUDA graph's replays
+included. JAX's ``enable_compilation_cache`` has no counterpart: it
 kept XLA's compiled programs across processes, and the port compiles no
 programs at run time except its CUDA kernels, which ``kernels/build.py``
 keeps in ``build/kernels/`` by the hash of their sources.
@@ -20,6 +22,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import time
 from typing import Optional
 
@@ -77,6 +80,45 @@ def trace(log_dir: Optional[str]):
         yield prof
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def launched(names, kernel: str) -> int:
+    """How many of the device kernel events ``names`` ran the ``__global__``
+    function ``kernel`` (a whole word of the demangled name, template
+    arguments and signature aside: "void closest_kernel<true>(...)")."""
+    word = re.compile(rf"(?<![A-Za-z0-9_]){re.escape(kernel)}(?![A-Za-z0-9_])")
+    return sum(bool(word.search(n)) for n in names)
+
+
+def device_launches(fn, wrappers) -> tuple:
+    """(``fn()``, {wrapper name: runs}): how many times the card ran each
+    kernel wrapper's device kernel (its ``.device_kernel``) while ``fn``
+    ran, counted from ``torch.profiler``'s kernel events, so a launch by the
+    wrapper and a CUDA graph's replay of one count alike. Wrappers that
+    share a device kernel (``bvh_any`` and ``bvh_any_multi``) cannot be told
+    apart, and are refused together. Raises if the profiler saw no device
+    event (then nothing can be counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    by_kernel = {}
+    for w in wrappers:
+        other = by_kernel.setdefault(w.device_kernel, w)
+        if other is not w:
+            raise ValueError(f"{other.__name__} and {w.__name__} both run "
+                             f"{w.device_kernel}: count one of them")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        raise RuntimeError("the profiler saw no device events: the kernels' "
+                           "runs cannot be counted")
+    return out, {w.__name__: launched(names, w.device_kernel)
+                 for w in wrappers}
 
 
 def ray_count(res_x: int, res_y: int, n_lights: int, spp: int = 0,

@@ -8,6 +8,13 @@ and, in distribution mode, draws its samples from a generator of its own
 seed inside the timed frame; a path-tracer frame draws from a generator of
 its own seed, so no frame repeats another's inputs. Without a card these raise: a time here is a
 device measurement.
+
+``frame_ms`` and ``pt_frame_ms`` time what ``render_image`` and
+``make_render_frame`` run on the card: the compiled frame, one CUDA graph
+replay (``utils/graphs.py``). ``loop_ms`` is the JAX package's
+``loop_time``/``frame_time`` (``utils/timing.py:39-109`` there): n calls
+back to back between two CUDA events, each on inputs of its own, and the
+slope between two n, so each call's fixed cost cancels.
 """
 from __future__ import annotations
 
@@ -63,12 +70,47 @@ def queued_ms(fn, args_list, *, rounds: int = 5, hold_cycles: int = 10**8
     return statistics.median(times)
 
 
+def loop_ms(step, n_lo: int = 2, n_hi: int = 12, reps: int = 3) -> float:
+    """Ms a call of ``step(i)`` (the i-th call, on inputs of its own: a
+    drifted pixel grid, a generator of its own seed) issued back to back,
+    each call's fixed cost cancelled: the median over ``reps`` of
+    (T(n_hi) - T(n_lo)) / (n_hi - n_lo), T(n) the CUDA-event time of n
+    calls (JAX ``loop_time``); the device's time a call where the device
+    paces the calls, the host's where the host does. One call first,
+    untimed (a capture)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA-event timing needs a CUDA device")
+    step(0)
+    slopes, i = [], 1
+    for _ in range(reps):
+        t = {}
+        for n in (n_lo, n_hi):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for k in range(i, i + n):
+                step(k)
+            end.record()
+            end.synchronize()
+            t[n] = start.elapsed_time(end)
+            i += n
+        slopes.append((t[n_hi] - t[n_lo]) / (n_hi - n_lo))
+    return statistics.median(slopes)
+
+
 def frame_ms(scene: Scene, cfg: RenderConfig, *, frames: int = 21,
              warmup: int = 3) -> float:
-    """Median ms of a full-frame ``render_tile`` over ``frames`` frames,
-    the sample draws of a distribution-mode frame included (each frame's
-    generator is made before the timed calls)."""
-    from ..models.whitted import pixel_grid, render_tile
+    """Median ms of a full frame as ``render_image`` runs it on the card
+    (``render_tile_compiled``, one graph replay; the eager ``render_tile``
+    for a per-ray traversal, ``whitted.capturable``) over ``frames``
+    frames, the sample draws of a distribution-mode frame included (each
+    frame's generator is made before the timed calls)."""
+    from ..models.whitted import (
+        capturable,
+        pixel_grid,
+        render_tile,
+        render_tile_compiled,
+    )
 
     if scene.device.type != "cuda":
         raise RuntimeError(f"frame timing needs a scene on a CUDA device, "
@@ -78,7 +120,8 @@ def frame_ms(scene: Scene, cfg: RenderConfig, *, frames: int = 21,
     args = [(scene, px + 0.37 * i, py, cfg,
              torch.Generator(device=scene.device).manual_seed(1000 + i))
             for i in range(frames)]
-    return cuda_ms(render_tile, args, warmup=warmup)
+    fn = render_tile_compiled if capturable(scene, cfg) else render_tile
+    return cuda_ms(fn, args, warmup=warmup)
 
 
 def mrays_per_s(scene: Scene, frame_time_ms: float,
@@ -96,7 +139,8 @@ def mrays_per_s(scene: Scene, frame_time_ms: float,
 def pt_frame_ms(frame_fn, *, device, frames: int = 21,
                 warmup: int = 3) -> float:
     """Median ms of a path-tracer frame ``frame_fn(generator)`` (e.g.
-    ``models.pt_megakernel.make_render_frame``) over ``frames`` frames, each
+    ``models.pt_megakernel.make_render_frame``'s, compiled on the card)
+    over ``frames`` frames, each
     drawing from a ``torch.Generator`` on ``device`` with a seed of its own;
     the generators are made before the timed calls."""
     if torch.device(device).type != "cuda":
