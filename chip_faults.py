@@ -3,8 +3,9 @@
     python3 chip_faults.py       # from the root of a checkout; needs one card
 
 Builds copies of csrc/whitted_megakernel.cu, csrc/pt_megakernel.cu,
-csrc/bvh_walk.cu, csrc/brute_intersect.cu and csrc/probes.cu (with the
-headers they include) with one fault planted in each (under build/copies/,
+csrc/bvh_walk.cu, csrc/brute_intersect.cu, csrc/probes.cu and
+csrc/perray_traverse.cu (with the headers they include) with one fault
+planted in each (under build/copies/,
 kernels/build.build_copy, one nvcc per copy, all started together), two
 controls of the Whitted kernel (WHITTED_CONTROLS) and the design controls
 of both megakernels (WHITTED_DESIGN, PT_DESIGN), and runs the sound kernels
@@ -34,6 +35,13 @@ versions on the same inputs:
     row read when it is tested), which must answer as the sound walk does
     on every slot of the BVH frame's 12 launches, each timed beside it in
     turns (tools/megakernels.walk_timed_in_turns);
+  * the per-ray traversals' (chip_smoke.perray_cases: the median BVH's
+    walk and the grid DDA, closest and any hit) with the same readings,
+    the share of live slots whose ids differ at another t, and the dead
+    slots', judged by chip_smoke.PERRAY_LIMITS (PERRAY_FAULTS: the inside
+    box's entry of 0 dropped, a leaf's tie taking the last object, the
+    DDA's exit-axis tie taken z first, a dead slot traced, the initfail
+    quirk ignored);
   * the brute-force kernels' (chip_smoke.brute_cases) with the same
     readings over the live slots and the share of dead slots whose answer
     is wrong (chip_smoke.live_agreement, the kernel writing into poisoned
@@ -315,6 +323,24 @@ BRUTE_FAULTS = (
 )
 
 
+# (name, text of csrc/perray_traverse.cu or of a header it includes, its
+# faulty replacement)
+PERRAY_FAULTS = (
+    ("the inside-box 0 dropped",
+     "      if (lin) ldist = 0.f;\n      if (rin) rdist = 0.f;\n", ""),
+    ("a leaf tie taking the last object",
+     "          if (t < lt) {", "          if (t <= lt) {"),
+    ("the DDA's axis tie taken z-first",
+     "  if (s.tz < t_exit) {", "  if (s.tz <= t_exit) {"),
+    ("a dead slot traced",
+     "const bool live = in && !(dead && dead[mine]);",
+     "const bool live = in;"),
+    ("init_fail_occludes ignored",
+     "        if (init_fail_occludes && misses) occ = true;  "
+     "// grid.cpp:326-328\n", ""),
+)
+
+
 # Builds of csrc/brute_intersect.cu timed beside the sound kernel on the
 # field's frame queries and the soup's triangles (brute_controls): the
 # designs the sound kernel was chosen over. Each is (name, (text, its
@@ -576,6 +602,34 @@ def bvh_verdicts(dev, kernels, sound, faulty):
                 + f"; {'rejected by ' + ', '.join(out) if out else 'passed'}")
         if (name == "sound") == (rejected > 0):
             failed.append(name)
+    return failed
+
+
+def perray_verdicts(dev, kernels, sound, faulty):
+    """Names of the per-ray kernels the limits judge wrongly; the sound
+    entry points are put back after."""
+    cases = list(chip_smoke.perray_cases(dev))
+    wants = [chip_smoke.perray_run(kind, query, scene, args, kernel=False)
+             for _, kind, scene, query, args in cases]
+    failed = []
+    for name, lib in [("sound", None)] + faulty:
+        entries = {n: sound[n] if lib is None else entry_of(lib, n, sound[n])
+                   for n in sound}
+        kernels._perray_entry = lambda n, entries=entries: entries[n]
+        rejected = 0
+        for (label, kind, scene, query, args), want in zip(cases, wants):
+            reading = chip_smoke.perray_agreement(
+                query, chip_smoke.perray_run(kind, query, scene, args,
+                                             poison=True),
+                want, chip_smoke.dead_of(query, args))
+            out = chip_smoke.rejects(reading, chip_smoke.PERRAY_LIMITS)
+            rejected += bool(out)
+            print(f"{name} | {label} ({kind} {query}): " + ", ".join(
+                f"{k} {v:.3g}" for k, v in reading.items())
+                + f"; {'rejected by ' + ', '.join(out) if out else 'passed'}")
+        if (name == "sound") == (rejected > 0):
+            failed.append(name)
+    kernels._perray_entry = lambda n: sound[n]
     return failed
 
 
@@ -1057,7 +1111,9 @@ def main() -> int:
             + [("pt_megakernel", i, f) for i, f in enumerate(PT_FAULTS)]
             + [("bvh_walk", i, f) for i, f in enumerate(BVH_FAULTS)]
             + [("brute_intersect", i, f) for i, f in enumerate(BRUTE_FAULTS)]
-            + [("probes", i, f) for i, f in enumerate(PROBE_FAULTS)])
+            + [("probes", i, f) for i, f in enumerate(PROBE_FAULTS)]
+            + [("perray_traverse", i, f)
+               for i, f in enumerate(PERRAY_FAULTS)])
     control_jobs = [(f"control{i}", edits, drop)
                     for i, (_, edits, drop, _) in enumerate(WHITTED_CONTROLS)]
     brute_control_jobs = [(f"control{i}", edits)
@@ -1072,9 +1128,11 @@ def main() -> int:
     brute_names = ("brute_closest_launch", "brute_any_launch",
                    "brute_scratch_bytes")
     probe_names = ("op_rate_launch", "fma_peak_launch", "stack_walk_launch")
+    perray_names = ("median_bvh_closest_launch", "median_bvh_any_launch",
+                    "grid_closest_launch", "grid_any_launch")
     with concurrent.futures.ThreadPoolExecutor(
             len(jobs) + len(control_jobs) + len(brute_control_jobs)
-            + len(design_jobs) + len(bvh_design_jobs) + 5) as pool:
+            + len(design_jobs) + len(bvh_design_jobs) + 6) as pool:
         whitted_sound = pool.submit(kernels._whitted_entry)
         pt_sound = pool.submit(kernels._pt_entry)
         bvh_sound = pool.submit(lambda: {n: kernels._bvh_entry(n)
@@ -1083,6 +1141,8 @@ def main() -> int:
                                            for n in brute_names})
         probe_sound = pool.submit(lambda: {n: kernels._probe_entry(n)
                                            for n in probe_names})
+        perray_sound = pool.submit(lambda: {n: kernels._perray_entry(n)
+                                            for n in perray_names})
         control_libs = [pool.submit(kb.build_copy, "whitted_megakernel", *j)
                         for j in control_jobs]
         brute_control_libs = [
@@ -1099,7 +1159,7 @@ def main() -> int:
     faulty = {src: [(f[0], lib) for (s, _, f), lib in zip(jobs, libs)
                     if s == src]
               for src in ("whitted_megakernel", "pt_megakernel", "bvh_walk",
-                          "brute_intersect", "probes")}
+                          "brute_intersect", "probes", "perray_traverse")}
     failed = (whitted_verdicts(dev, kernels, whitted_sound.result(),
                                faulty["whitted_megakernel"])
               + frame_verdicts(dev, kernels, whitted_sound.result(),
@@ -1118,6 +1178,8 @@ def main() -> int:
                                 in zip(BRUTE_CONTROLS, brute_control_libs)])
               + probe_verdicts(dev, kernels, probe_sound.result(),
                                faulty["probes"])
+              + perray_verdicts(dev, kernels, perray_sound.result(),
+                                faulty["perray_traverse"])
               + function_verdicts(dev)
               + shard_verdicts(dev)
               + graph_verdicts(dev)

@@ -5,9 +5,9 @@
 Phases, each raising on failure:
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile csrc/whitted_megakernel.cu, csrc/pt_megakernel.cu,
-     csrc/bvh_walk.cu, csrc/brute_intersect.cu and csrc/probes.cu with nvcc,
-     one process each, started together; print the build times and ptxas's
-     register and spill report.
+     csrc/bvh_walk.cu, csrc/brute_intersect.cu, csrc/probes.cu and
+     csrc/perray_traverse.cu with nvcc, one process each, started together;
+     print the build times and ptxas's register and spill report.
   Whitted path (mount_low 512x512, depth 4):
   3. kernel against plain: the CUDA kernel against its plain PyTorch version
      on the same rays, at 64x64 depth 4 (mount_low under all 12 Fresnel x
@@ -136,16 +136,32 @@ Phases, each raising on failure:
      the wavefront (WAVE_ATOL): the queue reads the same draws;
   23. W5: the BVH frame at wavefront_capacity 0.05: finite, a mean abs
      difference under 0.1 against W1, primaries-only pixels unchanged.
-  Per-ray path (accel/traverse.py, batched PyTorch on the card):
-  24. P1: the field under accel_impl="perray" (the median BVH's walk)
-     against the walk's image under WHITTED_LIMITS; level-0 hit ids against
-     the walk kernel's (only ties may differ); frame time, iterations and
-     host syncs a query;
-  25. P2: the field under ACCEL_GRID with accel_impl="perray" (the DDA)
-     against the walk's image, and with reference_grid_shadow_initfail (the
-     share of shadow rays whose grid entry failed); frame times; the grid
-     section of tools/device_validate. A per-ray frame over PERRAY_CUT_S
-     seconds moves both phases to PERRAY_CUT_RES, with the reason printed.
+  Per-ray path (accel/traverse.py: csrc/perray_traverse.cu on the card):
+  24. the four per-ray kernels (the median BVH's closest and any hit, the
+     grid DDA's closest and shadow hit) against their plain version on the
+     same rays under PERRAY_LIMITS (perray_cases, perray_agreement: ids
+     equal but at equal t, every live slot's occlusion equal, every dead
+     slot exactly (BIG, -1) or occluded, the kernel writing into poisoned
+     outputs): the field's own frame queries as a BVH and as a grid scene
+     (primaries, level-1 rays and shadow segments with the sweep's dead
+     masks, unbounded, under init_fail_occludes), segments most of which
+     miss the grid, twinned primitives, the four-type soup and the corner
+     grid whose exit-axis ties decide the answer; then P1: render_image
+     of the field under accel_impl="perray" (the median BVH's walk) as a
+     compiled frame, its launches counted on the card (4 closest, 8 any
+     hit), against the walk's image under WHITTED_LIMITS; level-0 hit ids
+     against the walk kernel's (only ties may differ);
+  25. P2: the field under ACCEL_GRID with accel_impl="perray" (the DDA),
+     and P2q with reference_grid_shadow_initfail, compiled, their launches
+     counted on the card, P2 against the walk's image, P2q bit-equal to an
+     eager frame that counts the shadow rays whose grid entry failed; each
+     kernel on the frames' own queries of seven drifting frames, queued
+     (utils/timing.queued_ms), beside its plain version and its bound
+     (perray_work: the kernel's own counts of node box tests or cell steps
+     and primitive tests); the compiled frames' times; the grid section of
+     tools/device_validate. A first compiled frame over PERRAY_CUT_S
+     seconds moves both phases to PERRAY_CUT_RES, with the reason
+     printed.
   Gradients (models/whitted_megakernel.WhittedTrace, parallel/dist.py):
   26. the Whitted kernel's autograd.Function against autograd straight
      through its plain version on the same CUDA tensors (function_cases:
@@ -208,8 +224,10 @@ Phases, each raising on failure:
   replay_launches):
   34. for mount_low 512x512 on the megakernel engine, the distribution
      frame of phase 17, the BVH field on the sweep and on the wavefront,
-     the brute field on the sweep and on the wavefront, glsl_world's
-     path-traced frame, and train_step_full on mount_low 512x512, depth 4,
+     the brute field on the sweep and on the wavefront, P1, P2 and P2q
+     (the per-ray kernels' frames), glsl_world's path-traced frame on the
+     megakernel and on the plain engine, and train_step_full on mount_low
+     512x512, depth 4,
      on the megakernel engine (the light recovery) and on the wavefront
      (fit --fit all), each from an empty graph cache (graph_path): the
      first call's host ms, the capture's own ms, the graph pool's MiB and
@@ -1506,6 +1524,269 @@ def brute_work(query, prims, tables, args, batch=PLAIN_BATCH):
 
 
 # ---------------------------------------------------------------------------
+# the per-ray traversals (csrc/perray_traverse.cu)
+
+# The per-ray kernels against their plain version (accel/traverse.py's
+# *_plain) on the same rays, per case, over the live slots: hit_agreement's
+# readings, "ids_other_t", the share of live slots whose ids differ at
+# another t, and "dead" (live_agreement). The kernels run the plain
+# version's f32 operations in its order and are built without
+# multiply-add contraction (kernels/build.py), so the sound kernels read 0
+# on all; ids may differ only at equal t, and no live slot's occlusion may
+# differ (chip_faults.py plants PERRAY_FAULTS that these limits reject).
+PERRAY_LIMITS = {"ids": 1e-4, "ids_other_t": 0.0, "t_rel": 1e-5,
+                 "occ": 0.0, "dead": 0.0}
+# Operations of a DDA cell step in the bound: the smallest of three next
+# t, the step, the add to the next t, the stop test and the cell's index
+PERRAY_DDA_STEP = 12
+PERRAY_KINDS = ("bvh", "grid")
+PERRAY_CORNER_RAYS = 4096
+
+
+def perray_kernels():
+    """The per-ray kernels' wrappers: closest and any hit of the median BVH
+    and of the grid DDA."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+
+    return (kernels.perray_bvh_closest, kernels.perray_bvh_any,
+            kernels.grid_closest, kernels.grid_any)
+
+
+def perray_run(kind, query, scene, args, kernel=True, poison=False,
+               counts=None):
+    """One case's answer from a per-ray kernel (``kind`` "bvh" or "grid",
+    ``query`` "closest" with args (o, d, dead) or "any" with (o, d, max_t,
+    dead, init_fail_occludes)) or from its plain version. ``poison``: the
+    kernel writes into poisoned_outputs; ``counts``: its work counters."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import traverse
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import Rays
+
+    accel = scene.bvh if kind == "bvh" else scene.grid
+    o, d, rest = args[0], args[1], args[2:]
+    if not kernel:
+        fn = {("bvh", "closest"): traverse.bvh_closest_plain,
+              ("bvh", "any"): traverse.bvh_any_plain,
+              ("grid", "closest"): traverse.grid_closest_plain,
+              ("grid", "any"): traverse.grid_any_plain}[kind, query]
+        if kind == "bvh" and query == "any":
+            rest = rest[:2]
+        return fn(accel, scene.prims, Rays.make(o, d), *rest)
+    out = {"out": poisoned_outputs(query, args)} if poison else {}
+    rows = kernels.perray_rows(scene.prims)
+    if query == "closest":
+        fn = (kernels.perray_bvh_closest if kind == "bvh"
+              else kernels.grid_closest)
+        return fn(accel, rows, o, d, rest[0], counts=counts, **out)
+    max_t, dead, init_fail = rest
+    if kind == "bvh":
+        return kernels.perray_bvh_any(accel, rows, o, d, max_t, dead,
+                                      counts=counts, **out)
+    return kernels.grid_any(accel, rows, o, d, max_t, dead, init_fail,
+                            counts=counts, **out)
+
+
+def perray_agreement(query, got, want, dead):
+    """live_agreement's readings of a per-ray kernel against its plain
+    version, and "ids_other_t": the share of live slots whose ids differ
+    where t differs too."""
+    reading = live_agreement(query, got, want, dead)
+    if query == "closest":
+        live = (torch.ones_like(got[1], dtype=torch.bool) if dead is None
+                else ~dead)
+        other = (got[1] != want[1]) & (got[0] != want[0]) & live
+        reading["ids_other_t"] = float(other.double().sum()
+                                       / max(int(live.sum()), 1))
+    return reading
+
+
+def corner_grid_scene(dev, n=PERRAY_CORNER_RAYS, seed=7):
+    """(scene, o, d): a 2x1x2 grid over [0, 2] x [0, 1] x [0, 2] whose one
+    object, a sphere of radius 0.2 at (0.5, 0.5, 0.5) in cell (0, 0, 0),
+    is listed in cell (1, 0, 0) alone; and ``n`` rays from (-1, y, -1)
+    along the diagonal (1, 0, 1) / sqrt(2), y in [0.25, 0.75], which pass
+    through the cells' corners: at each step the next boundary t of x and
+    of z are equal. The DDA takes the first axis of the smallest t, x, so
+    it steps into cell (1, 0, 0) and finds the sphere there (its t lies
+    before the cell's exit); a DDA that took z first would step into
+    (0, 0, 1) and miss it. Only the tie rule decides."""
+    import dataclasses
+
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        GridArrays,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.io.p3f import SceneDef
+
+    sd = SceneDef()
+    sd.accel_type = C.ACCEL_GRID
+    sd.set_camera(eye=[-1, 0.5, -1], at=[0, 0.5, 0], up=[0, 1, 0], fov=45,
+                  hither=0.01, res_x=16, res_y=16, aperture_ratio=0,
+                  focal_ratio=1)
+    m = sd.add_material([0.7, 0.7, 0.7], 1.0, [1, 1, 1], 0.1, 20, 0, 1)
+    sd.add_sphere([0.5, 0.5, 0.5], 0.2, m)
+    sd.add_light([10, 10, 10], [1, 1, 1])
+    scene = build_scene(sd, device=dev)
+    items = torch.full((4, 8), -1, dtype=torch.int32, device=dev)
+    items[1, 0] = 0
+    grid = GridArrays(
+        bbox_min=torch.zeros(3, device=dev),
+        bbox_max=torch.tensor([2.0, 1.0, 2.0], device=dev),
+        cell_items=items, cell_count=(items >= 0).sum(dim=1).int(),
+        unbounded_ids=scene.grid.unbounded_ids, nx=2, ny=1, nz=2,
+        max_per_cell=8)
+    rng = np.random.default_rng(seed)
+    o = np.stack([np.full(n, -1.0), rng.uniform(0.25, 0.75, n),
+                  np.full(n, -1.0)], 1).astype(np.float32)
+    d = np.array([1.0, 0.0, 1.0], np.float32) / np.float32(np.sqrt(2.0))
+    d = np.broadcast_to(d, (n, 3))
+    return (dataclasses.replace(scene, grid=grid),
+            torch.from_numpy(o).to(dev),
+            torch.from_numpy(np.ascontiguousarray(d)).to(dev))
+
+
+def perray_cases(dev, res=RES, n_side=FIELD_SIDE, n_rays=65536):
+    """The per-ray kernels' kernel-against-plain cases as (label, kind,
+    scene, query, args) (perray_run's arguments): on the field of n_side^2
+    spheres at res x res, as a BVH and as a grid scene, the frame's own
+    queries under accel_impl="perray" (frame_queries: the primary rays,
+    the level-1 rays with the sweep's dead mask, the shadow segments of
+    levels 0 and 1 with theirs, and level 0's unbounded), the grid's
+    shadow segments under init_fail_occludes, and segments from a box
+    three times the grid's, most of which miss it, with and without the
+    quirk; tie_scene (twinned primitives, where only the tie rule decides)
+    and the four-type soup (a plane, a box, triangles and spheres) as both
+    with ``n_rays`` incoherent rays, segments with a dead mask and
+    axis-parallel rays in the box's face; and corner_grid_scene's diagonal
+    rays."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
+        RenderConfig,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import scenes
+
+    cfg = RenderConfig(accel_impl="perray")
+    rng = np.random.default_rng(4)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    for kind, accel in zip(PERRAY_KINDS, (C.ACCEL_BVH, C.ACCEL_GRID)):
+        scene = build_scene(scenes.sphere_field_scene(
+            n_side=n_side, res=res, accel=accel), device=dev)
+        tag = f"{kind} field{n_side} {res}x{res}"
+        closest, shadows = frame_queries(scene, *camera_rays(scene), cfg)
+        n_lights = len(shadows) // len(closest)
+        yield f"{tag} primary rays", kind, scene, "closest", closest[0]
+        yield (f"{tag} level-1 rays, {live_of(closest[1][2], 0)} of "
+               f"{closest[1][0].shape[0]} slots live", kind, scene,
+               "closest", closest[1])
+        for k, (so, sd, max_t, dead) in enumerate(shadows[:2 * n_lights]):
+            yield (f"{tag} shadow segments, level {k // n_lights}, light "
+                   f"{k % n_lights}, max_t {max_t:g}", kind, scene, "any",
+                   (so, sd, max_t, dead, False))
+        so, sd, _, dead = shadows[0]
+        yield (f"{tag} shadow segments, level 0, light 0, max_t 1e+30",
+               kind, scene, "any", (so, sd, C.BIG, dead, False))
+        if kind == "grid":
+            yield (f"{tag} shadow segments, level 0, light 0, max_t 1, "
+                   "init_fail_occludes", kind, scene, "any",
+                   (so, sd, 1.0, dead, True))
+            lo, hi = scene.grid.bbox_min.cpu().numpy(), \
+                scene.grid.bbox_max.cpu().numpy()
+            n = n_rays
+            o = lo + (hi - lo) * rng.uniform(-1, 2, (n, 3))
+            seg = lo + (hi - lo) * rng.uniform(-1, 2, (n, 3)) - o
+            dead = rng.uniform(size=n) < 0.2
+            for quirk in (False, True):
+                yield (f"{tag} segments from a box 3x the grid's, max_t 1"
+                       + (", init_fail_occludes" if quirk else ""), kind,
+                       scene, "any",
+                       (t(o), t(seg), 1.0, t(dead, torch.bool), quirk))
+        del scene, closest, shadows, so, sd, dead
+
+    n = n_rays
+    o = t(rng.uniform(-8, 8, (n, 3)))
+    d = rng.normal(size=(n, 3))
+    d = t(d / np.linalg.norm(d, axis=1, keepdims=True))
+    segs = t(rng.uniform(-8, 8, (n, 3))) - o
+    dead = t(rng.uniform(size=n) < 0.3, torch.bool)
+    m = min(n_rays, 4096)
+    ao = t(np.stack([np.full(m, -6.0), rng.uniform(-7, -4, m),
+                     rng.uniform(-6.5, -4.7, m)], 1))
+    ad = np.zeros((m, 3))
+    ad[np.arange(m), rng.integers(1, 3, m)] = rng.choice([-1.0, 1.0], m)
+    ad = t(ad)
+    for kind, accel in zip(PERRAY_KINDS, (C.ACCEL_BVH, C.ACCEL_GRID)):
+        ties = build_scene(tie_scene(), device=dev, accel=accel)
+        yield (f"{kind} tie scene incoherent rays", kind, ties, "closest",
+               (o, d, None))
+        yield (f"{kind} tie scene segments, max_t 1", kind, ties, "any",
+               (o, segs, 1.0, dead, kind == "grid"))
+        soup = build_scene(soup_scene(), device=dev, accel=accel)
+        yield (f"{kind} soup incoherent rays, dead slots", kind, soup,
+               "closest", (o, d, dead))
+        yield (f"{kind} soup segments, max_t 1", kind, soup, "any",
+               (o, segs, 1.0, dead, False))
+        yield (f"{kind} soup axis-parallel rays in a box face", kind, soup,
+               "closest", (ao, ad, None))
+        yield (f"{kind} soup axis-parallel segments in a box face, max_t "
+               "1e+30", kind, soup, "any", (ao, ad * 3.0, C.BIG, None,
+                                            False))
+        del ties, soup
+    corner, co, cd = corner_grid_scene(dev)
+    yield ("grid corner diagonal rays (exit-axis ties)", "grid", corner,
+           "closest", (co, cd, None))
+    yield ("grid corner diagonal segments, max_t 1e+30", "grid", corner,
+           "any", (co, cd, C.BIG, None, False))
+
+
+def perray_work(kind, query, scene, args):
+    """(GFLOP, MB, bound ms, bound by, live) of one per-ray launch on
+    ``args``, by the BVH walk's convention (bvh_work): the work the kernel
+    counts itself (its counted instantiation: node box tests, each
+    NODE_TEST, or DDA cell steps, each PERRAY_DDA_STEP; primitive tests by
+    where each ended, BRUTE_STAGE_OPS; plane and box tests), the live
+    rays' inputs, every slot's answer and dead byte, and the tables (the
+    tree's or grid's arrays, the primitive rows and the plane ids) once."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+
+    o, dead = args[0], dead_of(query, args)
+    R = o.shape[0]
+    counts = torch.zeros((R, kernels.WORK_COUNTS), dtype=torch.int32,
+                         device=o.device)
+    perray_run(kind, query, scene, args, counts=counts)
+    c = counts.sum(dim=0, dtype=torch.int64).tolist()
+    steps, stages, planes, boxes = c[0], c[1:7], c[7], c[8]
+    flops = (steps * (NODE_TEST if kind == "bvh" else PERRAY_DDA_STEP)
+             + planes * PLANE_TEST + boxes * BOX_TEST
+             + sum(n * ops for n, ops in zip(stages, BRUTE_STAGE_OPS)))
+    accel = scene.bvh if kind == "bvh" else scene.grid
+    tables = [v for v in vars(accel).values() if isinstance(v, torch.Tensor)]
+    n_bytes = (sum(x.numel() * x.element_size() for x in tables)
+               + 64 * scene.prims.params.shape[0])
+    live = live_of(dead, R)
+    n_bytes += 24 * live + (8 if query == "closest" else 1) * R
+    if dead is not None:
+        n_bytes += R
+    ms, by = bound(flops, n_bytes)
+    per = max(live, 1)
+    print(f"  work: {live} live of {R} slots; "
+          f"{steps / per:.3f} {'node box tests' if kind == 'bvh' else 'cell steps'}, "
+          f"{sum(stages[:4]) / per:.3f} triangle, {sum(stages[4:]) / per:.3f} "
+          f"sphere, {planes / per:.3f} plane and {boxes / per:.3f} box tests "
+          f"a live slot; {flops / 1e9:.4f} GFLOP, {n_bytes / 1e6:.4f} MB; "
+          f"bound {ms:.5f} ms ({by})")
+    return flops, n_bytes, ms, by, live
+
+
+# ---------------------------------------------------------------------------
 # Gradients (phases 26-29): models/whitted_megakernel.WhittedTrace, the
 # Whitted kernel's autograd.Function, and parallel/dist.py's train steps
 
@@ -1680,6 +1961,21 @@ def replay_launches(fn, kernels_):
         raise AssertionError(f"the wrappers launched {eager} in a call "
                              "that should replay a CUDA graph")
     return out, n
+
+
+def replay_launch_reads(fn, kernels_, calls=3):
+    """replay_launches over ``calls`` calls of ``fn``, each counted in its
+    own profiler session: (the last output, each kernel's largest count,
+    every call's counts). The profiler can drop a kernel's record, which
+    only lowers a count (phase 34 once read 3 closest-hit launches of a
+    sweep frame whose graph had read 4 in phase 24), so the largest count
+    over identical replays is the call's; a launch missing from the graph
+    is missing from every read."""
+    reads = []
+    for _ in range(calls):
+        out, n = replay_launches(fn, kernels_)
+        reads.append(n)
+    return out, {k: max(r[k] for r in reads) for k in reads[0]}, reads
 
 
 def frame_times(fn, frames=SHARD_FRAMES, warmup=3):
@@ -2368,13 +2664,14 @@ def graph_path(label, compiled, eager, inputs, xs, card, counted,
     mem1 = torch.cuda.max_memory_allocated(dev) / 2**20
     [graph] = graphs.CACHE.graphs.values()
     why = (check or replay_agreement)(compiled, eager, inputs)
-    _, n = replay_launches(lambda: compiled(xs[0], generator(dev, 998)),
-                           counted)
+    _, n, reads = replay_launch_reads(
+        lambda: compiled(xs[0], generator(dev, 998)), counted)
     launches = {k: v for k, v in n.items() if v}
     rec = {"label": label, "first_call_ms": first_ms,
            "capture_ms": graph.capture_ms, "pool_mib": graph.pool_mib,
            "max_allocated_mib": (mem0, mem1), "agreement": why,
-           "launches": launches}
+           "launches": launches,
+           "launch_reads": [{k: r[k] for k in launches} for r in reads]}
     for mode, fn in (("compiled", compiled), ("eager", eager)):
         def call(i, fn=fn):
             return fn(xs[i % len(xs)], generator(dev, 1000 + i))
@@ -2391,7 +2688,8 @@ def graph_path(label, compiled, eager, inputs, xs, card, counted,
     c, e = rec["compiled"], rec["eager"]
     print(f"34 {label}: agreement {'ok' if not why else why}; captures "
           f"{rec['captures']} over {graph.replays} replays; launches a "
-          f"compiled call {launches}; launch calls a call (profiler) "
+          f"compiled call {launches} (the most of three counted calls: "
+          f"{rec['launch_reads']}); launch calls a call (profiler) "
           f"compiled {c['profile'].get('launch_calls')} + "
           f"{c['profile'].get('graph_launches')} graph, eager "
           f"{e['profile'].get('launch_calls')}; device idle compiled "
@@ -2406,11 +2704,11 @@ def graph_path(label, compiled, eager, inputs, xs, card, counted,
     return rec
 
 
-def graph_phase(dev, card, dscene, dcfg, field, field_nb):
+def graph_phase(dev, card, dscene, dcfg, field, field_nb, g_field):
     """Phase 34 (see the module docstring): the compiled programs at the
-    headline sizes, on phase 17's distribution scene and config and the
-    BVH and brute fields of phases 10 and 13; raises on a failed check and
-    returns the summary it prints."""
+    headline sizes, on phase 17's distribution scene and config, the BVH
+    and brute fields of phases 10 and 13 and the grid field of phase 25;
+    raises on a failed check and returns the summary it prints."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
         build_scene,
@@ -2445,11 +2743,17 @@ def graph_phase(dev, card, dscene, dcfg, field, field_nb):
     n_sub = max(dcfg.spp, 1) ** 2 if dcfg.anti_aliasing else 1
     counted34 = (kernels.bvh_closest, kernels.bvh_any,
                  kernels.brute_closest, kernels.brute_any,
-                 kernels.whitted_megakernel, kernels.pt_megakernel)
+                 kernels.whitted_megakernel, kernels.pt_megakernel,
+                 *perray_kernels())
+    cfg_pr = RenderConfig(accel_impl="perray")
+    cfg_if = RenderConfig(accel_impl="perray",
+                          reference_grid_shadow_initfail=True)
 
     mount34 = build_scene(scenes.mount_scene(res=RES), device=dev)
     walk12 = {"bvh_closest": 4, "bvh_any": 8}
     brute12 = {"brute_closest": 4, "brute_any": 8}
+    median12 = {"perray_bvh_closest": 4, "perray_bvh_any": 8}
+    dda12 = {"grid_closest": 4, "grid_any": 8}
     graph_recs, expected = {}, {}
     for label, gscene, gcfg, want in (
             ("mount_low megakernel", mount34, cfg_mk,
@@ -2459,7 +2763,11 @@ def graph_phase(dev, card, dscene, dcfg, field, field_nb):
             ("BVH field sweep", field, cfg_bvh, walk12),
             ("BVH field wavefront (W1)", field, cfg_wf, walk12),
             ("brute field sweep", field_nb, cfg_bvh, brute12),
-            ("brute field wavefront (W2)", field_nb, cfg_wf, brute12)):
+            ("brute field wavefront (W2)", field_nb, cfg_wf, brute12),
+            ("P1 perray median BVH field", field, cfg_pr, median12),
+            ("P2 perray grid DDA field", g_field, cfg_pr, dda12),
+            ("P2q grid DDA field, reference_grid_shadow_initfail", g_field,
+             cfg_if, dda12)):
         xs = [drifted_scene(gscene, i) for i in range(16)]
         graph_recs[label] = graph_path(label, *whitted_path(gscene, gcfg),
                                        xs, card, counted34)
@@ -2480,6 +2788,23 @@ def graph_phase(dev, card, dscene, dcfg, field, field_nb):
         [(cam, generator(dev, 1)), (cam, pt_adv),
          (dof_cam, generator(dev, 3))], [cam], card, counted34)
     expected["glsl_world path tracer"] = {"pt_megakernel": 1}
+
+    def ptp_compiled(c, g):
+        return ptk.make_render_frame(world, c, pt_cfg, "plain")(g)
+
+    def ptp_eager(c, g):
+        return pt.render_frame(world, c, pt_cfg, g)
+
+    ptp_adv = generator(dev, 2)
+    ptp_eager(cam, ptp_adv)
+    # the plain engine's frame is device-bound at ~0.19 s: fewer timed
+    # frames (still 20 or more replays of its one capture)
+    graph_recs["glsl_world path tracer, plain engine"] = graph_path(
+        "glsl_world path tracer, plain engine", ptp_compiled, ptp_eager,
+        [(cam, generator(dev, 1)), (cam, ptp_adv),
+         (dof_cam, generator(dev, 3))], [cam], card, counted34, frames=3,
+        profiled=2, loop=(1, 4, 2))
+    expected["glsl_world path tracer, plain engine"] = {}
     for engine, want in (("megakernel", {"whitted_megakernel": 1}),
                          ("wavefront", {})):
         start, target, tcfg, lr, sc = train_setup(dev, engine)
@@ -2621,7 +2946,7 @@ def main() -> int:
 
     # 2. build, one nvcc per source, all started together
     names = ("whitted_megakernel", "pt_megakernel", "bvh_walk",
-             "brute_intersect", "probes")
+             "brute_intersect", "probes", "perray_traverse")
 
     def timed_build(name):
         t0 = time.perf_counter()
@@ -3484,30 +3809,62 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s")
 
     graphs.CACHE.clear()  # the graphs so far and their memory pools
-    # 24. P1, the per-ray median BVH (accel_impl="perray", batched PyTorch)
+    # 24-25. the per-ray traversals (csrc/perray_traverse.cu): each kernel
+    # against its plain version (accel/traverse.py's *_plain) on the same
+    # rays, written into poisoned outputs
     t_perray = time.perf_counter()
-    cfg_pr = RenderConfig(accel_impl="perray")
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import traverse
 
-    def perray_frame(label, scene, cfg):
-        """One frame's image, host wall time, and the traversals' queries,
-        iterations and host syncs in it."""
-        before = dict(traverse.stats)
+    perray_err = {f"{k} {q}": 0.0 for k in PERRAY_KINDS
+                  for q in ("closest", "any")}
+    for label, kind, pscene, query, args in perray_cases(dev):
+        got = perray_run(kind, query, pscene, args, poison=True)
+        want = perray_run(kind, query, pscene, args, kernel=False)
+        torch.cuda.synchronize()
+        reading = perray_agreement(query, got, want, dead_of(query, args))
+        print(f"compare perray {label} ({kind} {query}): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in reading.items()))
+        if rejects(reading, PERRAY_LIMITS):
+            raise AssertionError(f"{label}: the per-ray kernel and its plain "
+                                 f"version disagree beyond {PERRAY_LIMITS}")
+        perray_err[f"{kind} {query}"] = max(perray_err[f"{kind} {query}"],
+                                            reading["err"])
+        del got, want, pscene, args
+    print(f"per-ray kernels against plain {time.perf_counter() - t_perray:.1f}"
+          " s")
+
+    # 24. P1: the field under accel_impl="perray" (the median BVH's walk,
+    # one compiled frame), its launches counted on the device
+    cfg_pr = RenderConfig(accel_impl="perray")
+    cfg_if = RenderConfig(accel_impl="perray",
+                          reference_grid_shadow_initfail=True)
+    bvh_pr = (kernels.perray_bvh_closest, kernels.perray_bvh_any)
+    grid_pr = (kernels.grid_closest, kernels.grid_any)
+
+    def perray_frame(label, scene, cfg, wrappers):
+        """One compiled frame (the capture first): its image, launches
+        counted on the device, and the first call's host wall time."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        image = render_image(scene, cfg)
+        render_image(scene, cfg)  # the capture
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        st = {k: traverse.stats[k] - before[k] for k in before}
-        print(f"{label}: one frame {wall:.3f} s (host wall), {st['queries']} "
-              f"queries, {st['iterations'] / max(st['queries'], 1):.1f} "
-              f"iterations and {st['syncs'] / max(st['queries'], 1):.1f} "
-              f"host syncs a query (one every {traverse.CHECK_EVERY} "
-              f"iterations), {card}")
-        return image, wall, st
+        first = time.perf_counter() - t0
+        image, n, reads = replay_launch_reads(
+            lambda: render_image(scene, cfg), wrappers)
+        print(f"{label}: first call (warm-up and capture) {first:.3f} s "
+              f"(host wall), launches a compiled frame {n} (the most of "
+              f"three counted frames: {reads}), {card}")
+        want = {wrappers[0].__name__: 4, wrappers[1].__name__: 8}
+        if n != want:
+            raise AssertionError(f"{label}: launches {n}, want {want}")
+        if image.shape != (scene.camera.res_y, scene.camera.res_x, 3) or \
+                not bool(torch.isfinite(image).all()):
+            raise AssertionError(f"{label}: bad image {tuple(image.shape)}")
+        return image, n, first
 
     p_res, p_field, p_walk = RES, field, img
-    p1, p1_wall, p1_stats = perray_frame(
-        f"P1 perray field{FIELD_SIDE} {RES}x{RES}", field, cfg_pr)
+    p1, p1_launches, p1_wall = perray_frame(
+        f"P1 perray field{FIELD_SIDE} {RES}x{RES}", field, cfg_pr, bvh_pr)
     if p1_wall > PERRAY_CUT_S:
         p_res = PERRAY_CUT_RES
         print(f"P1/P2: a {RES}x{RES} frame took {p1_wall:.1f} s, over "
@@ -3515,8 +3872,9 @@ def main() -> int:
         p_field = build_scene(scenes.sphere_field_scene(
             n_side=FIELD_SIDE, res=p_res), device=dev)
         p_walk = render_image(p_field, cfg_bvh)
-        p1, p1_wall, p1_stats = perray_frame(
-            f"P1 perray field{FIELD_SIDE} {p_res}x{p_res}", p_field, cfg_pr)
+        p1, p1_launches, p1_wall = perray_frame(
+            f"P1 perray field{FIELD_SIDE} {p_res}x{p_res}", p_field, cfg_pr,
+            bvh_pr)
     p1_bad, _, p1_err = check_pt(f"P1 perray field{FIELD_SIDE} {p_res}x{p_res}"
                                  " against the walk", p1, p_walk,
                                  WHITTED_LIMITS["exact"])
@@ -3531,23 +3889,25 @@ def main() -> int:
     if bool((differ & ~tie).any()):
         raise AssertionError("P1: a level-0 hit id differs from the walk's "
                              "at another t")
-    p_px, p_py = pixel_grid(p_res, p_res, dev)
-    p1_ms = cuda_ms(render_tile, [(p_field, p_px + 0.37 * i, p_py, cfg_pr)
-                                  for i in range(3)], warmup=1)
-    print(f"frame perray BVH: {p1_ms:.2f} ms (walk sweep {bvh_ms:.4f} ms at "
-          f"{RES}x{RES}), field{FIELD_SIDE} {p_res}x{p_res} depth 4, {card}")
 
     # 25. P2, the grid DDA: the field under ACCEL_GRID with
-    # accel_impl="perray", and with reference_grid_shadow_initfail
+    # accel_impl="perray", and with reference_grid_shadow_initfail (P2q)
     g_field = build_scene(scenes.sphere_field_scene(
         n_side=FIELD_SIDE, res=p_res, accel=C.ACCEL_GRID), device=dev)
     g = g_field.grid
     print(f"grid: {g.nx}x{g.ny}x{g.nz} cells, {g.max_per_cell} items a cell")
-    p2, p2_wall, p2_stats = perray_frame(
-        f"P2 grid DDA field{FIELD_SIDE} {p_res}x{p_res}", g_field, cfg_pr)
+    p2, p2_launches, _ = perray_frame(
+        f"P2 grid DDA field{FIELD_SIDE} {p_res}x{p_res}", g_field, cfg_pr,
+        grid_pr)
     p2_bad, _, p2_err = check_pt(f"P2 grid DDA field{FIELD_SIDE} "
                                  f"{p_res}x{p_res} against the walk", p2,
                                  p_walk, WHITTED_LIMITS["exact"])
+    p2q, p2q_launches, _ = perray_frame(
+        f"P2q grid DDA with reference_grid_shadow_initfail field{FIELD_SIDE} "
+        f"{p_res}x{p_res}", g_field, cfg_if, grid_pr)
+    # the share of shadow rays whose grid entry failed, counted on an eager
+    # frame (the plain setup reads the host; the compiled frame reads
+    # nothing), which must equal the compiled one
     entry = [0, 0]
     grid_any_hit = traverse.grid_any_hit
 
@@ -3560,30 +3920,73 @@ def main() -> int:
         return grid_any_hit(grid, prims, rays, max_t, dead,
                             init_fail_occludes)
 
-    cfg_if = RenderConfig(accel_impl="perray",
-                          reference_grid_shadow_initfail=True)
+    p_px, p_py = pixel_grid(p_res, p_res, dev)
     traverse.grid_any_hit = counting
     try:
-        p2q, p2q_wall, _ = perray_frame(
-            f"P2 grid DDA with reference_grid_shadow_initfail "
-            f"field{FIELD_SIDE} {p_res}x{p_res}", g_field, cfg_if)
+        p2q_eager = render_tile(g_field, p_px, p_py, cfg_if).reshape(
+            p_res, p_res, 3)
     finally:
         traverse.grid_any_hit = grid_any_hit
-    print(f"P2 reference_grid_shadow_initfail: {entry[0]} of {entry[1]} "
+    print(f"P2q reference_grid_shadow_initfail: {entry[0]} of {entry[1]} "
           f"shadow rays ({100 * entry[0] / max(entry[1], 1):.3f}%) failed "
           f"their grid entry and read occluded; image mean "
-          f"{float(p2q.mean()):.5f} (physical {float(p2.mean()):.5f})")
-    if not bool(torch.isfinite(p2q).all()):
-        raise AssertionError("P2: the initfail image is not finite")
-    p2_ms = cuda_ms(render_tile, [(g_field, p_px + 0.37 * i, p_py, cfg_pr)
-                                  for i in range(3)], warmup=1)
-    p2q_ms = cuda_ms(render_tile, [(g_field, p_px + 0.37 * i, p_py, cfg_if)
-                                   for i in range(3)], warmup=1)
-    print(f"frame grid DDA: {p2_ms:.2f} ms, with the initfail quirk "
-          f"{p2q_ms:.2f} ms, field{FIELD_SIDE} {p_res}x{p_res} depth 4, "
-          f"{card}")
+          f"{float(p2q.mean()):.5f} (physical {float(p2.mean()):.5f}); the "
+          f"eager frame bit-equal {torch.equal(p2q_eager, p2q)}")
+    if not torch.equal(p2q_eager, p2q):
+        raise AssertionError("P2q: the compiled frame differs from the "
+                             "eager one")
+
+    # the kernels on the frames' own queries (frame_queries) of seven
+    # drifting frames, queued as the walk's are (phase 11), each against its
+    # plain version and its bound (perray_work: the kernel's own counters)
+    perray_times, perray_frame_ms = {}, {}
+    for kind, pscene in (("bvh", p_field), ("grid", g_field)):
+        inputs = [frame_queries(pscene, *camera_rays(pscene, 0.37 * i),
+                                cfg_pr) for i in range(7)]
+        levels = len(inputs[0][0])
+        n_l = len(inputs[0][1]) // levels
+        timed = ([(f"closest, level {lvl}", "closest",
+                   lambda x, lvl=lvl: (*x[0][lvl],)) for lvl in range(levels)]
+                 + [(f"any, level {lvl}, light {li}", "any",
+                     lambda x, k=lvl * n_l + li: (*x[1][k], False))
+                    for lvl in range(levels) for li in range(n_l)])
+        times = perray_times[kind] = {}
+        for label, query, pick in timed:
+            args = [pick(x) for x in inputs]
+
+            def run(*a, query=query, kind=kind, pscene=pscene, **kw):
+                return perray_run(kind, query, pscene, a, **kw)
+
+            k_ms = queued_ms(run, args)
+            p_ms = (cuda_ms(lambda *a: run(*a, kernel=False), args[:2],
+                            warmup=1) if label.endswith("level 0")
+                    or label.endswith("level 0, light 0") else None)
+            print(f"perray {kind} {label}: kernel {k_ms:.4f} ms on the device"
+                  + (f", plain {p_ms:.4f} ms" if p_ms is not None else "")
+                  + f" ({args[0][0].shape[0]} slots, field{FIELD_SIDE} "
+                  f"{p_res}x{p_res}, {card})")
+            times[label] = (k_ms, p_ms, perray_work(kind, query, pscene,
+                                                    args[0]))
+        for query, n in (("closest", levels), ("any", levels * n_l)):
+            rows = [v for k, v in times.items() if k.startswith(query)]
+            times[query] = {"launches": n, "ms": sum(v[0] for v in rows),
+                            "bound_ms": sum(v[2][2] for v in rows),
+                            "by_launch_ms": [v[0] for v in rows]}
+        print(f"perray {kind}: the frame's {levels} closest and "
+              f"{levels * n_l} any-hit launches {times['closest']['ms']:.4f} "
+              f"+ {times['any']['ms']:.4f} ms on the device against a bound "
+              f"of {times['closest']['bound_ms'] + times['any']['bound_ms']:.5f}"
+              f" ms ({card})")
+        del inputs
+    for label, pscene, cfg in (("P1 perray BVH", p_field, cfg_pr),
+                               ("P2 grid DDA", g_field, cfg_pr),
+                               ("P2q grid DDA initfail", g_field, cfg_if)):
+        perray_frame_ms[label] = frame_ms(pscene, cfg)
+        print(f"frame {label}: {perray_frame_ms[label]:.4f} ms compiled "
+              f"(walk sweep {bvh_ms:.4f} ms at {RES}x{RES}), "
+              f"field{FIELD_SIDE} {p_res}x{p_res} depth 4, {card}")
     dv_grid = dv.grid(dev)
-    del p1, p2, p2q, g_field
+    del p1, p2, p2q, p2q_eager
     print(f"per-ray phases {time.perf_counter() - t_perray:.1f} s; all "
           f"{time.perf_counter() - t_start:.1f} s")
 
@@ -3760,7 +4163,7 @@ def main() -> int:
     print(f"all {time.perf_counter() - t_start:.1f} s")
 
     # 34. the compiled programs (utils/graphs.py) at the headline sizes
-    graph_phase(dev, card, dscene, dcfg, field, field_nb)
+    graph34 = graph_phase(dev, card, dscene, dcfg, field, field_nb, g_field)
     print(f"all {time.perf_counter() - t_start:.1f} s")
     wave_bvh = {
         "scene": f"field{FIELD_SIDE} {RES}x{RES} depth 4, engine=wavefront",
@@ -3805,8 +4208,27 @@ def main() -> int:
                 "wavefront_frame": wave_brute,
                 "gradient_frame": field_grads["brute force"], **extra}
 
+    def perray_entry(name, kind, query, replaces, launches):
+        label = ("closest, level 0" if query == "closest"
+                 else "any, level 0, light 0")
+        k_ms, p_ms, (_, _, b_ms, b_by, live) = perray_times[kind][label]
+        frames = {k: v for k, v in perray_frame_ms.items()
+                  if k.startswith("P1" if kind == "bvh" else "P2")}
+        return {"name": name, "route": "cuda",
+                "source": src + "perray_traverse.cu",
+                "replaces": tr_src + replaces,
+                "entry": ("median_bvh" if kind == "bvh" else "grid")
+                + f"_{query}_launch",
+                "timed_on": label, "live": live, "launches": launches,
+                "max_abs_err": perray_err[f"{kind} {query}"], "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "frame": perray_times[kind][query],
+                "compiled_frame_ms": frames,
+                "scene": f"field{FIELD_SIDE} {p_res}x{p_res} depth 4"}
+
     src = "u_4a_2s_p3d_raytracer_template2_tpu_torch/csrc/"
     pk_src = "u_4a_2s_p3d_raytracer_template2_tpu/accel/packets.py"
+    tr_src = "u_4a_2s_p3d_raytracer_template2_tpu/accel/traverse.py"
     pi_src = "u_4a_2s_p3d_raytracer_template2_tpu/ops/pallas_intersect.py"
     print(json.dumps({"kernels": [{
         "name": "whitted_megakernel",
@@ -3890,6 +4312,14 @@ def main() -> int:
                     "any, level 0, light 0, soup triangles (K4d)", ":553"),
         brute_entry("brute_intersect closest, triangles (K4e)", "closest",
                     "closest, level 0, soup triangles (K4e)", ":590"),
+        perray_entry("perray_bvh closest", "bvh", "closest", ":70",
+                     p1_launches["perray_bvh_closest"]),
+        perray_entry("perray_bvh any", "bvh", "any", ":70",
+                     p1_launches["perray_bvh_any"]),
+        perray_entry("grid_dda closest", "grid", "closest", ":206",
+                     p2_launches["grid_closest"]),
+        perray_entry("grid_dda any", "grid", "any", ":287",
+                     p2_launches["grid_any"]),
     {
         "name": "probes op_rate (T1)", "route": "cuda",
         "source": src + "probes.cu",

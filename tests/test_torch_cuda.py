@@ -602,6 +602,105 @@ def test_perray_traversal_on_the_card_equals_the_cpu(accel):
     assert torch.allclose(out[0][0], out[1][0], rtol=1e-6)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", chip_smoke.PERRAY_KINDS)
+def test_perray_kernels_match_plain(kind):
+    """chip_smoke.perray_cases at 64x64 (a 256-sphere field), 8,192 rays:
+    each per-ray kernel of ``kind`` against its plain version under
+    chip_smoke.PERRAY_LIMITS, writing into poisoned outputs: the frame's
+    primaries, its level-1 rays and shadow segments with their dead masks,
+    the initfail segments, the tie scene, the four-type soup and the
+    corner grid's exit-axis ties."""
+    dev = _cuda()
+    n = 0
+    for label, k, scene, query, args in chip_smoke.perray_cases(
+            dev, res=64, n_side=16, n_rays=8192):
+        if k != kind:
+            continue
+        got = chip_smoke.perray_run(k, query, scene, args, poison=True)
+        want = chip_smoke.perray_run(k, query, scene, args, kernel=False)
+        reading = chip_smoke.perray_agreement(query, got, want,
+                                              chip_smoke.dead_of(query, args))
+        assert not chip_smoke.rejects(reading, chip_smoke.PERRAY_LIMITS), (
+            label, reading)
+        n += 1
+    assert n >= 12
+
+
+@pytest.mark.cuda
+def test_perray_kernels_count_and_refuse_cpu_and_grad_tensors():
+    """Each dispatcher launches its kernel once on CUDA tensors; the
+    wrappers refuse CPU tensors (ValueError) and grad tensors
+    (NotImplementedError)."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.accel import traverse
+
+    dev = _cuda()
+    o = torch.zeros(64, 3, device=dev)
+    d = torch.nn.functional.normalize(torch.randn(
+        64, 3, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            4)), dim=-1)
+    rays = Rays.make(o, d)
+    for accel, closest, any_hit in (
+            (2, kernels.perray_bvh_closest, kernels.perray_bvh_any),
+            (1, kernels.grid_closest, kernels.grid_any)):
+        scene = build_scene(sphere_field_scene(n_side=8, res=16,
+                                               accel=accel), device=dev)
+        tables = scene.bvh if accel == 2 else scene.grid
+        rows = kernels.perray_rows(scene.prims)
+        before = closest.launches, any_hit.launches
+        if accel == 2:
+            traverse.bvh_closest_hit(tables, scene.prims, rays)
+            traverse.bvh_any_hit(tables, scene.prims, rays, 1.0)
+        else:
+            traverse.grid_closest_hit(tables, scene.prims, rays)
+            traverse.grid_any_hit(tables, scene.prims, rays, 1.0,
+                                  init_fail_occludes=True)
+        assert (closest.launches - before[0],
+                any_hit.launches - before[1]) == (1, 1)
+        with pytest.raises(ValueError):
+            closest(tables, rows, o.cpu(), d.cpu())
+        with pytest.raises(ValueError):
+            any_hit(tables, rows, o, d.cpu(), 1.0)
+        with pytest.raises(ValueError):
+            closest(tables, rows.cpu(), o, d)
+        with pytest.raises(NotImplementedError):
+            closest(tables, rows, o.requires_grad_(), d)
+        with pytest.raises(NotImplementedError):
+            any_hit(tables, rows, o, d, 1.0)
+        o = o.detach()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["P1", "P2", "P2q"])
+def test_perray_compiled_frame_equals_eager(path):
+    """render_image under accel_impl="perray" on a 258-sphere field (P1
+    the median BVH, P2 the grid DDA, P2q P2 under
+    reference_grid_shadow_initfail) at 64x64, depth 4: one capture, each
+    replay equal to the eager render_tile bit for bit, 4 closest and 8
+    any-hit launches of the per-ray kernels a replay, counted on the
+    device."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+
+    dev = _cuda()
+    accel = 2 if path == "P1" else 1
+    scene = build_scene(sphere_field_scene(n_side=16, res=64, accel=accel),
+                        device=dev)
+    cfg = RenderConfig(accel_impl="perray",
+                       reference_grid_shadow_initfail=path == "P2q")
+    graphs.CACHE.clear()
+    n0 = graphs.CACHE.captures
+    compiled, eager, inputs = chip_smoke.whitted_path(scene, cfg)
+    why = chip_smoke.replay_agreement(compiled, eager, inputs)
+    assert not why and graphs.CACHE.captures == n0 + 1, why
+    closest, any_hit = ((kernels.perray_bvh_closest, kernels.perray_bvh_any)
+                        if accel == 2 else
+                        (kernels.grid_closest, kernels.grid_any))
+    _, n = chip_smoke.replay_launches(
+        lambda: render_image(scene, cfg), (closest, any_hit))
+    assert n == {closest.__name__: 4, any_hit.__name__: 8}
+    graphs.CACHE.clear()
+
+
 # ---------------------------------------------------------------------------
 # gradients: the Whitted kernel's autograd.Function and grad-carrying rays
 
@@ -652,7 +751,8 @@ def test_train_step_on_the_megakernel_launches_only_forward():
 @pytest.mark.parametrize("accel, impl, used", [
     (2, "auto", ("bvh_closest", "bvh_any")),
     (0, "auto", ("brute_closest", "brute_any")),
-    (2, "perray", ()), (1, "perray", ())],
+    (2, "perray", ("perray_bvh_closest", "perray_bvh_any")),
+    (1, "perray", ("grid_closest", "grid_any"))],
     ids=["walk", "brute", "median_bvh", "grid"])
 def test_grad_carrying_rays_through_every_traversal_on_the_card(accel, impl,
                                                                 used):

@@ -208,16 +208,21 @@ def test_each_wrapper_names_a_device_kernel_of_its_source():
         r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)", src))
     wrappers = [f for f in vars(kernels).values()
                 if callable(f) and hasattr(f, "launches")]
-    assert len(wrappers) == 10
+    assert len(wrappers) == 14
     assert {w.device_kernel for w in wrappers} <= defined
+    assert len({w.device_kernel for w in wrappers}) == 13  # any, multi: one
     names = ["void closest_kernel<true>(float const*, float const*, int)",
              "brute_closest_sweep(float const*, int)",
              "void at::native::vectorized_elementwise_kernel<4>(int)",
              "void any_kernel<false>(float const*)",
-             "void whitted_kernel<4>(Params)", "pt_kernel(Params)"]
+             "void whitted_kernel<4>(Params)", "pt_kernel(Params)",
+             "void median_bvh_closest_kernel<false>(float const*, Bvh)",
+             "void grid_any_kernel<false>(float const*, Grid)"]
     assert [launched(names, k) for k in (
         "closest_kernel", "brute_closest_sweep", "any_kernel",
-        "whitted_kernel", "pt_kernel", "elementwise")] == [1, 1, 1, 1, 1, 0]
+        "whitted_kernel", "pt_kernel", "elementwise",
+        "median_bvh_closest_kernel", "grid_any_kernel")] == [
+            1, 1, 1, 1, 1, 0, 1, 1]
 
 
 def test_capture_failure_names_the_program():
@@ -333,6 +338,21 @@ def test_compiled_path_tracer_frames_progress(fake):
     assert fake.captures == 1
 
 
+def test_compiled_plain_path_tracer_frames_progress(fake):
+    """The plain engine's frame (``make_render_frame(..., "plain")``, JAX's
+    jitted ``pathtracer.render_frame``) is compiled too: four progressive
+    frames equal four eager ``render_frame`` calls bit for bit, in one
+    capture, the generator advanced frame to frame."""
+    scene = glsl_world(device=CPU)
+    cam = glsl_camera(RES, RES, device=CPU)
+    cfg = pt.PTConfig(max_bounces=3)
+    frame = ptk.make_render_frame(scene, cam, cfg, "plain")
+    got = pt.render_progressive(scene, cam, cfg, _gen(9), 4, frame_fn=frame)
+    want = pt.render_progressive(scene, cam, cfg, _gen(9), 4)
+    assert torch.equal(got.sum_linear, want.sum_linear)
+    assert fake.captures == 1
+
+
 def _light_fit(engine):
     scene = _mount()
     cfg = RenderConfig(max_depth=2, engine=engine)
@@ -395,16 +415,24 @@ def test_compiled_callables_on_cpu_tensors_are_the_eager_functions():
 
 
 def test_perray_frames_are_not_captured(fake):
-    """The per-ray traversals read the host every few iterations: their
-    frames run eagerly from render_image, and render_tile_compiled
-    refuses them."""
+    """The per-ray traversals read nothing back to the host on the card
+    (csrc/perray_traverse.cu), so their frames are compiled like every
+    other: render_image and render_tile_compiled capture one program under
+    accel_impl="perray", and under reference_grid_shadow_initfail on a
+    grid scene, each replay equal to the eager frame."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
 
-    scene = build_scene(mount_scene(res=RES, accel=C.ACCEL_BVH), device=CPU)
-    cfg = RenderConfig(max_depth=2, accel_impl="perray")
-    assert not whitted.capturable(scene, cfg)
-    img = whitted.render_image(scene, cfg)
-    assert img.shape == (RES, RES, 3) and fake.captures == 0
     px, py = whitted.pixel_grid(RES, RES, CPU)
-    with pytest.raises(NotImplementedError, match="perray"):
-        whitted.render_tile_compiled(scene, px, py, cfg)
+    for accel, cfg in (
+            (C.ACCEL_BVH, RenderConfig(max_depth=2, accel_impl="perray")),
+            (C.ACCEL_GRID, RenderConfig(max_depth=2,
+                                        reference_grid_shadow_initfail=True))):
+        scene = build_scene(mount_scene(res=RES, accel=accel), device=CPU)
+        n0 = fake.captures
+        want = whitted.render_tile(scene, px, py, cfg)
+        img = whitted.render_image(scene, cfg)
+        assert img.shape == (RES, RES, 3) and fake.captures == n0 + 1
+        assert torch.equal(img.reshape(-1, 3), want)
+        assert torch.equal(whitted.render_tile_compiled(scene, px, py, cfg),
+                           want)
+        assert fake.captures == n0 + 1

@@ -118,7 +118,9 @@ _PLANTED = (
        for n, a, b in chip_faults.BRUTE_FAULTS]
     + [("brute_intersect", n, list(e))
        for n, e in chip_faults.BRUTE_CONTROLS]
-    + [("probes", n, [(a, b)]) for n, a, b in chip_faults.PROBE_FAULTS])
+    + [("probes", n, [(a, b)]) for n, a, b in chip_faults.PROBE_FAULTS]
+    + [("perray_traverse", n, [(a, b)])
+       for n, a, b in chip_faults.PERRAY_FAULTS])
 
 
 @pytest.mark.parametrize("source,name,edits", _PLANTED,

@@ -1,9 +1,8 @@
 """The reference's per-ray accelerator traversals: the stack walk of the
-spatial-median BVH and the Amanatides–Woo DDA of the uniform grid, as
-batched PyTorch over the flat arrays of accel/bvh.py and accel/grid.py; the
-counterpart of ``u_4a_2s_p3d_raytracer_template2_tpu/accel/traverse.py``
-(lines 70-365 there: vmapped ``lax.while_loop`` programs, XLA code, not
-Pallas).
+spatial-median BVH and the Amanatides–Woo DDA of the uniform grid over the
+flat arrays of accel/bvh.py and accel/grid.py; the counterpart of
+``u_4a_2s_p3d_raytracer_template2_tpu/accel/traverse.py`` (lines 70-365
+there: vmapped ``lax.while_loop`` programs, XLA code, not Pallas).
 
 Reference semantics: BVH::Traverse (bvh.cpp:252-416): ordered two-child
 descent with a (node, t) stack of ``STACK`` entries, a child's entry
@@ -19,17 +18,27 @@ which have no box, are tested beside the tree or grid
 (``_unbounded_closest``). Within a leaf or a cell the first object at the
 smallest t wins, as the reference's ascending strict ``<`` scan.
 
-Every live ray takes one step of its walk an iteration, as a handful of
-[n]-wide tensor ops on whatever device the rays are on (a CUDA kernel of
-its own waits for a benchmark cell that needs it; ROADMAP.md). Every
-``CHECK_EVERY`` iterations the host reads which rays are still live (one
-sync), stops when none is, and otherwise carries on with those rays only,
-so rays that finished early cost nothing more. ``stats`` counts queries,
-iterations and those syncs. ``dead`` [R] bool marks rays the caller masks
-downstream: they are not traced and read (BIG, -1), or occluded, as in
-the port's other traversals. The traversals are discrete: the entry points
-read the rays detached and run without autograd, so their answers carry no
-gradient (the shading re-derives t from the winner, ``per_ray_t``).
+``bvh_closest_hit``, ``bvh_any_hit``, ``grid_closest_hit`` and
+``grid_any_hit`` dispatch by device: CUDA tensors launch the hand-written
+kernels of ``csrc/perray_traverse.cu`` (``kernels.perray_bvh_closest``,
+``perray_bvh_any``, ``grid_closest``, ``grid_any``: one thread a ray, its
+loop on the device, the primitives read from ``kernels.perray_rows``'
+table, packed from the rays' primitives in every call), which read
+nothing back to the host, so a frame of them is one CUDA graph; CPU
+tensors run the ``*_plain`` functions below, their plain version, which
+the kernels answer bit for bit. There is no fallback from one to the
+other.
+
+The plain version steps every live ray once an iteration, as a handful of
+[n]-wide tensor ops. Every ``CHECK_EVERY`` iterations the host reads which
+rays are still live (one sync), stops when none is, and otherwise carries
+on with those rays only, so rays that finished early cost nothing more.
+``stats`` counts its queries, iterations and those syncs. ``dead`` [R] bool
+marks rays the caller masks downstream: they are not traced and read
+(BIG, -1), or occluded, as in the port's other traversals. The traversals
+are discrete: the entry points read the rays detached and run without
+autograd, so their answers carry no gradient (the shading re-derives t
+from the winner, ``per_ray_t``).
 """
 from __future__ import annotations
 
@@ -224,8 +233,8 @@ def _bvh_walk(bvh: BvhArrays, prims: Primitives, rays: Rays, dead,
 
 
 @torch.no_grad()
-def bvh_closest_hit(bvh: BvhArrays, prims: Primitives, rays: Rays,
-                    dead=None):
+def bvh_closest_plain(bvh: BvhArrays, prims: Primitives, rays: Rays,
+                      dead=None):
     """Closest hit through the median BVH and the planes beside it: (t [R],
     obj_id [R] int32), -1 on a miss."""
     t_tree, id_tree = _bvh_walk(bvh, prims, rays, dead)
@@ -235,8 +244,8 @@ def bvh_closest_hit(bvh: BvhArrays, prims: Primitives, rays: Rays,
 
 
 @torch.no_grad()
-def bvh_any_hit(bvh: BvhArrays, prims: Primitives, rays: Rays, max_t,
-                dead=None):
+def bvh_any_plain(bvh: BvhArrays, prims: Primitives, rays: Rays, max_t,
+                  dead=None):
     """Occlusion [R] bool of segments ``rays`` (t < max_t): the walk stops
     at its first hit before ``max_t`` (BVH::Traverse(Ray&),
     bvh.cpp:348-416); the planes are tested beside it."""
@@ -345,8 +354,8 @@ def _grid_walk(grid: GridArrays, prims: Primitives, rays: Rays, dead,
 
 
 @torch.no_grad()
-def grid_closest_hit(grid: GridArrays, prims: Primitives, rays: Rays,
-                     dead=None):
+def grid_closest_plain(grid: GridArrays, prims: Primitives, rays: Rays,
+                       dead=None):
     """Closest hit through the grid DDA and the planes beside it: (t [R],
     obj_id [R] int32), -1 on a miss."""
     t_g, id_g = _grid_walk(grid, prims, rays, dead)
@@ -356,8 +365,8 @@ def grid_closest_hit(grid: GridArrays, prims: Primitives, rays: Rays,
 
 
 @torch.no_grad()
-def grid_any_hit(grid: GridArrays, prims: Primitives, rays: Rays, max_t,
-                 dead=None, init_fail_occludes: bool = False):
+def grid_any_plain(grid: GridArrays, prims: Primitives, rays: Rays, max_t,
+                   dead=None, init_fail_occludes: bool = False):
     """Occlusion [R] bool through the shadow DDA and the planes.
     ``init_fail_occludes=True`` is the reference's grid.cpp:326-328 quirk:
     a ray whose grid entry fails is occluded
@@ -368,3 +377,67 @@ def grid_any_hit(grid: GridArrays, prims: Primitives, rays: Rays, max_t,
     t_unb, _ = _unbounded_closest(prims, grid.unbounded_ids, rays.origin,
                                   rays.direction)
     return _occluded(occ, t_unb, max_t, dead)
+
+
+# ---------------------------------------------------------------------------
+# dispatch: the plain version on CPU tensors, the kernels on CUDA tensors
+
+
+def _kernel_args(prims: Primitives, rays: Rays, dead):
+    from ..kernels import perray_rows
+
+    return (perray_rows(prims), rays.origin.detach().contiguous(),
+            rays.direction.detach().contiguous(),
+            None if dead is None else dead.contiguous())
+
+
+def bvh_closest_hit(bvh: BvhArrays, prims: Primitives, rays: Rays,
+                    dead=None):
+    """Closest hit through the median BVH and the planes beside it: (t [R],
+    obj_id [R] int32), -1 on a miss; ``dead`` slots read (BIG, -1)."""
+    if rays.origin.device.type == "cpu":
+        return bvh_closest_plain(bvh, prims, rays, dead)
+    from ..kernels import perray_bvh_closest
+
+    return perray_bvh_closest(bvh, *_kernel_args(prims, rays, dead))
+
+
+def bvh_any_hit(bvh: BvhArrays, prims: Primitives, rays: Rays, max_t,
+                dead=None):
+    """Occlusion [R] bool of segments ``rays`` (t < max_t) through the
+    median BVH, whose walk stops at its first hit before ``max_t``
+    (BVH::Traverse(Ray&), bvh.cpp:348-416), and the planes; ``dead`` slots
+    read occluded."""
+    if rays.origin.device.type == "cpu":
+        return bvh_any_plain(bvh, prims, rays, max_t, dead)
+    from ..kernels import perray_bvh_any
+
+    rows, o, d, dead = _kernel_args(prims, rays, dead)
+    return perray_bvh_any(bvh, rows, o, d, float(max_t), dead)
+
+
+def grid_closest_hit(grid: GridArrays, prims: Primitives, rays: Rays,
+                     dead=None):
+    """Closest hit through the grid DDA and the planes beside it: (t [R],
+    obj_id [R] int32), -1 on a miss; ``dead`` slots read (BIG, -1)."""
+    if rays.origin.device.type == "cpu":
+        return grid_closest_plain(grid, prims, rays, dead)
+    from ..kernels import grid_closest
+
+    return grid_closest(grid, *_kernel_args(prims, rays, dead))
+
+
+def grid_any_hit(grid: GridArrays, prims: Primitives, rays: Rays, max_t,
+                 dead=None, init_fail_occludes: bool = False):
+    """Occlusion [R] bool through the shadow DDA and the planes.
+    ``init_fail_occludes=True`` is the reference's grid.cpp:326-328 quirk:
+    a ray whose grid entry fails is occluded
+    (RenderConfig.reference_grid_shadow_initfail)."""
+    if rays.origin.device.type == "cpu":
+        return grid_any_plain(grid, prims, rays, max_t, dead,
+                              init_fail_occludes)
+    from ..kernels import grid_any
+
+    rows, o, d, dead = _kernel_args(prims, rays, dead)
+    return grid_any(grid, rows, o, d, float(max_t), dead,
+                    init_fail_occludes)

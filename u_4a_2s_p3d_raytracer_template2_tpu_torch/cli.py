@@ -567,7 +567,8 @@ def _scene_args(p) -> None:
                    help="BVH- and grid-mode traversal: auto, packets and "
                    "clusters walk the BVH (the CUDA walk on a CUDA device), "
                    "brute tests every primitive, perray walks the "
-                   "reference's median BVH or grid DDA (batched PyTorch)")
+                   "reference's median BVH or grid DDA (its CUDA kernels on "
+                   "a CUDA device)")
     p.add_argument("--res", type=int, default=None,
                    help="square resolution (default: scene's)")
     p.add_argument("--spp", type=int, default=None,

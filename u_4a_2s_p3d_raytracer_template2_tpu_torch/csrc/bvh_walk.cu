@@ -30,7 +30,8 @@
 //   * live slots only, packed inside the walk's own launch: a block takes
 //     kThreads slots, writes each dead slot's answer ((kBig, -1), or
 //     occluded), and packs its live slots in slot order into its first
-//     threads (a ballot and a prefix in shared memory, packing.cuh); the
+//     threads (a ballot and a prefix in shared memory, packing.cuh's
+//     for_live_slots, which the per-ray traversals share); the
 //     warps left without a live slot end at once, so a dead slot costs its
 //     mask byte and its answer, and no warp runs as long as its slowest
 //     lane for lanes that have nothing to walk. No other launch runs and
@@ -56,7 +57,8 @@
 //   * the primitive tests are the brute-force formulas of ops/intersect.py
 //     (direct (o-c) sphere form, Moller-Trumbore with |det| > eps and
 //     t > eps, shared with brute_intersect.cu in prim_tests.cuh; slab
-//     boxes, planes), and ties resolve as brute force does:
+//     boxes, planes; a row's test, row_t, shared with the per-ray
+//     traversals in prim_rows.cuh), and ties resolve as brute force does:
 //     the smallest t, then type order triangle, sphere, plane, box, then the
 //     lowest object id; planes, which have no box, are tested first, beside
 //     the tree;
@@ -78,84 +80,18 @@
 #include <stdint.h>
 
 #include "packing.cuh"
-#include "prim_tests.cuh"
+#include "prim_rows.cuh"
 
 namespace {
 
 constexpr int kStack = 64;      // accel/packets.STACK_DEPTH
 constexpr int kWidth = 4;       // accel/packets.WIDTH: children a node
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 // A child as one int: its reference << kLeafBits | its leaf row count (0
 // for an inner node); node 0, the root, is the walk's first item.
 constexpr int kLeafBits = 3;
 constexpr int kLeafMask = (1 << kLeafBits) - 1;
 constexpr int kLeafRows = 4;    // accel/packets.LEAF_SIZE, at most kLeafMask
-
-// type codes (core/constants.py)
-constexpr int kPlane = 0;
-constexpr int kTri = 1;
-constexpr int kSph = 2;
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-  float a;  // d.d
-};
-
-struct Work {
-  int nodes, tri[kTriStages], sph[kSphStages], planes, boxes;
-};
-constexpr int kWorkCounts = 3 + kTriStages + kSphStages;
-
-template <int N>
-__device__ __forceinline__ void tally(int (&c)[N], int stage) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) c[k] += stage == k;
-}
-
-__device__ __forceinline__ float safe_inv(float c) {
-  if (fabsf(c) < 1e-30f) return c < 0.f ? -1e30f : 1e30f;
-  return 1.f / c;
-}
-
-__device__ __forceinline__ Ray make_ray(const float* o, const float* d) {
-  Ray r;
-  r.ox = o[0]; r.oy = o[1]; r.oz = o[2];
-  r.dx = d[0]; r.dy = d[1]; r.dz = d[2];
-  r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
-  r.a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
-  return r;
-}
-
-// ops/intersect._plane_t_one: p = (normal, d)
-__device__ __forceinline__ float plane_t(float4 p, const Ray& r) {
-  float denom = r.dx * p.x + r.dy * p.y + r.dz * p.z;
-  if (!(fabsf(denom) > kEps)) return kBig;
-  float t = -(r.ox * p.x + r.oy * p.y + r.oz * p.z + p.w) / denom;
-  return t > 0.f ? t : kBig;
-}
-
-__device__ __forceinline__ void slab_axis(float lo_b, float hi_b, float o,
-                                          float inv, float& tmin,
-                                          float& tmax) {
-  float lo = (lo_b - o) * inv;
-  float hi = (hi_b - o) * inv;
-  bool pos = inv >= 0.f;
-  tmin = pos ? lo : hi;
-  tmax = pos ? hi : lo;
-}
-
-// ops/intersect._box_t_one: rows (min, max)
-__device__ __forceinline__ float box_t(float4 p0, float4 p1, const Ray& r) {
-  float a0, b0, a1, b1, a2, b2;
-  slab_axis(p0.x, p0.w, r.ox, r.ix, a0, b0);
-  slab_axis(p0.y, p1.x, r.oy, r.iy, a1, b1);
-  slab_axis(p0.z, p1.y, r.oz, r.iz, a2, b2);
-  float t_in = fmaxf(fmaxf(a0, a1), a2);
-  float t_out = fminf(fminf(b0, b1), b2);
-  if (!(t_in < t_out && t_out > kEps)) return kBig;
-  return t_in > kEps ? t_in : t_out;
-}
 
 // The hit children of node n, nearest first: their codes and entry t in
 // code[0, hits) and key[0, hits); returns hits. A child is hit when the
@@ -212,40 +148,6 @@ __device__ __forceinline__ int visit(const float4* __restrict__ nodes, int n,
     }
   }
   return hits;
-}
-
-// Test primitive row i, whose type and id (its fourth float4) and first
-// float4 the caller has read: returns its t (kBig on a miss) and sets its
-// tie rank and object id.
-template <bool COUNT>
-__device__ __forceinline__ float row_t(const float4* __restrict__ rows, int i,
-                                       float4 m, float4 p0, const Ray& r,
-                                       int& rank, int& id, Work& w) {
-  const float4* p = rows + 4 * i;
-  int type = __float_as_int(m.x);
-  id = __float_as_int(m.y);
-  int stage;
-  if (type == kSph) {
-    rank = 1;
-    const float t = sphere_t(p0, r, stage);
-    if (COUNT) tally(w.sph, stage);
-    return t;
-  }
-  float4 p1 = __ldg(p + 1);
-  if (type == kTri) {
-    rank = 0;
-    const float t = triangle_t(p0, p1, __ldg(p + 2), r, stage);
-    if (COUNT) tally(w.tri, stage);
-    return t;
-  }
-  if (type == kPlane) {
-    rank = 2;
-    if (COUNT) ++w.planes;
-    return plane_t(p0, r);
-  }
-  rank = 3;
-  if (COUNT) ++w.boxes;
-  return box_t(p0, p1, r);
 }
 
 // The rows of leaf m (first row, count): each row's type and id and its
@@ -376,52 +278,12 @@ __device__ bool walk_any(const Tables& T, const Ray& r, float max_t,
 }
 
 template <bool COUNT>
-__device__ __forceinline__ void add_work(int* counts, int r, const Work& w) {
-  if (COUNT) {
-    int* c = counts + kWorkCounts * r;
-    atomicAdd(c, w.nodes);
-#pragma unroll
-    for (int k = 0; k < kTriStages; ++k) atomicAdd(c + 1 + k, w.tri[k]);
-#pragma unroll
-    for (int k = 0; k < kSphStages; ++k)
-      atomicAdd(c + 1 + kTriStages + k, w.sph[k]);
-    atomicAdd(c + 1 + kTriStages + kSphStages, w.planes);
-    atomicAdd(c + 2 + kTriStages + kSphStages, w.boxes);
-  }
-}
-
-// Calls on_dead(slot) for each slot of the block's kThreads slots that
-// `dead` marks (none when it is null), and on_live(slot) for each other
-// slot, the live slots packed in slot order into the block's first threads
-// (a ballot and a prefix, packing.cuh); the warps left without a slot end
-// at once.
-template <class Dead, class Live>
-__device__ __forceinline__ void for_live_slots(int n_slots,
-                                               const uint8_t* __restrict__ dead,
-                                               Dead on_dead, Live on_live) {
-  __shared__ int s_queue[kThreads];
-  __shared__ int s_count[kWarps];
-  const int mine = blockIdx.x * kThreads + threadIdx.x;
-  const bool in = mine < n_slots;
-  const bool live = in && !(dead && dead[mine]);
-  if (in && !live) on_dead(mine);
-  int queued;
-  const int at = block_prefix<kWarps>(live, s_count, queued);
-  if (live) s_queue[at] = mine;
-  __syncthreads();
-  if (threadIdx.x < queued) {
-    const int slot = s_queue[threadIdx.x];
-    on_live(slot);
-  }
-}
-
-template <bool COUNT>
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                int n_rays, const uint8_t* __restrict__ dead, Tables T,
                float* __restrict__ out_t, int* __restrict__ out_id,
                int* __restrict__ counts) {
-  for_live_slots(
+  for_live_slots<kThreads>(
       n_rays, dead,
       [&](int slot) {  // a dead slot: no hit
         out_t[slot] = kBig;
@@ -447,7 +309,7 @@ any_kernel(const float* __restrict__ o, const float* __restrict__ dirs,
            int n_sets, int n_rays, float max_t,
            const uint8_t* __restrict__ dead, Tables T,
            uint8_t* __restrict__ out, int* __restrict__ counts) {
-  for_live_slots(
+  for_live_slots<kThreads>(
       n_sets * n_rays, dead,
       [&](int k) { out[k] = 1; },  // a dead pair reports occluded
       [&](int k) {

@@ -7,9 +7,10 @@ so a run can show that it went through the kernel; a launch that a CUDA
 graph's capture records counts there too. A graph's replays run the kernel
 without its wrapper: they are counted on the device, from the profiler's
 kernel events named ``.device_kernel`` (``utils/profiling.device_launches``).
-Nothing here runs on the
-CPU: the dispatch between a kernel and its plain version lives beside the
-plain version (models/, accel/packets.py, ops/intersect.py); the device
+No kernel runs on the CPU (``perray_rows``, the per-ray kernels' table,
+is packed with PyTorch ops on any device): the dispatch between a kernel
+and its plain version lives beside the plain version (models/,
+accel/packets.py, accel/traverse.py, ops/intersect.py); the device
 probes' plain versions are in tools/, and the probes have no dispatch.
 """
 from __future__ import annotations
@@ -19,6 +20,7 @@ import functools
 
 import torch
 
+from ..core.types import GridArrays
 from ..models.pathtracer import N_UNIFORMS
 from ..models.pt_megakernel import ROW_W
 from ..models.whitted_megakernel import TBL_W, layout_of
@@ -471,6 +473,213 @@ def brute_any(tables, o, d, max_t: float, dead=None, out=None):
 brute_any.launches = 0
 brute_any.device_kernel = "brute_any_sweep"
 
+
+
+# ---------------------------------------------------------------------------
+# the reference's per-ray traversals (csrc/perray_traverse.cu): the median
+# BVH's stack walk and the grid DDA over accel/bvh.py's and accel/grid.py's
+# tables, the primitives read from perray_rows' table
+
+
+def perray_rows(prims) -> torch.Tensor:
+    """The per-ray traversals' primitive table [N, 16] f32, row i object i
+    in the BVH walk's row layout (accel/packets.py): the 12 parameters of
+    ``prims.params``, then its type code and id as int32 bits, and 2 pad
+    floats. Made on the primitives' device from their tensors (detached),
+    with no host copy, so a compiled frame packs it from its inputs on
+    every replay."""
+    params = prims.params.detach()
+    n = params.shape[0]
+    rows = torch.zeros((n, 16), dtype=torch.float32, device=params.device)
+    rows[:, :12] = params
+    bits = rows.view(torch.int32)
+    bits[:, 12] = prims.ptype
+    bits[:, 13] = torch.arange(n, dtype=torch.int32, device=params.device)
+    return rows
+
+
+@functools.cache
+def _perray_entry(name: str):
+    fn = getattr(load("perray_traverse"), name)
+    fn.restype = ctypes.c_int
+    head = ([ctypes.c_void_p]                          # stream
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int])  # o, d, R
+    if name.endswith("any_launch"):
+        head += [ctypes.c_float]                       # max_t
+    if name == "grid_any_launch":
+        head += [ctypes.c_int]                         # init_fail_occludes
+    head += [ctypes.c_void_p]                          # dead
+    if name.startswith("median_bvh"):
+        accel = ([ctypes.c_void_p] * 5 + [ctypes.c_int]  # boxes .. n_objs, K
+                 + [ctypes.c_void_p, ctypes.c_int])       # order, its length
+    else:
+        accel = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4  # box, items, n, m
+    prims = [ctypes.c_void_p] * 2 + [ctypes.c_int]     # rows, planes, Kp
+    out = ([ctypes.c_void_p] * 3 if name.endswith("closest_launch")
+           else [ctypes.c_void_p] * 2)                 # t, id | occ; counts
+    fn.argtypes = head + accel + prims + out
+    return fn
+
+
+def _perray_args(what, accel, rows, o, d, dead, counts):
+    """Check a per-ray query's rays, dead mask, counter buffer and tables;
+    returns the device, the ray count and the C entry point's table
+    arguments (the accelerator's, then the primitives')."""
+    if o.device.type != "cuda":
+        raise ValueError(f"the {what} runs on CUDA tensors, not {o.device}")
+    dev = o.device
+    R = o.shape[0]
+    if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
+        raise ValueError(f"rays: want o, d of shape [R,3], got "
+                         f"{tuple(o.shape)} and {tuple(d.shape)}")
+    _check("o", o, dev)
+    _check("d", d, dev)
+    if dead is not None:
+        _check("dead", dead, dev, R, torch.bool)
+    if counts is not None:
+        _check("counts", counts, dev, WORK_COUNTS * R, torch.int32)
+    _check("rows", rows, dev)
+    if rows.dim() != 2 or rows.shape[1] != 16 or rows.data_ptr() % 16:
+        raise ValueError(f"rows: want 16-byte aligned rows of 16 floats "
+                         f"(perray_rows), got {tuple(rows.shape)}")
+    _check("unbounded_ids", accel.unbounded_ids, dev, dtype=torch.int32)
+    _check("bbox_min", accel.bbox_min, dev)
+    _check("bbox_max", accel.bbox_max, dev)
+    if isinstance(accel, GridArrays):
+        items = accel.cell_items
+        _check("cell_items", items, dev, dtype=torch.int32)
+        if accel.bbox_min.numel() != 3 or accel.bbox_max.numel() != 3:
+            raise ValueError("the grid's box: want [3] min and max")
+        if (items.dim() != 2
+                or items.shape[0] != accel.nx * accel.ny * accel.nz):
+            raise ValueError(f"cell_items: want [nx*ny*nz, m], got "
+                             f"{tuple(items.shape)}")
+        tbl = [accel.bbox_min.data_ptr(), accel.bbox_max.data_ptr(),
+               items.data_ptr(), accel.nx, accel.ny, accel.nz,
+               items.shape[1]]
+    else:
+        K = accel.leaf.shape[0]
+        _check("leaf", accel.leaf, dev, K, torch.bool)
+        for name, t in (("index", accel.index), ("n_objs", accel.n_objs)):
+            _check(name, t, dev, K, torch.int32)
+        _check("order", accel.order, dev, dtype=torch.int32)
+        if accel.bbox_min.shape != (K, 3) or accel.bbox_max.shape != (K, 3):
+            raise ValueError(f"node boxes: want [{K}, 3]")
+        tbl = [accel.bbox_min.data_ptr(), accel.bbox_max.data_ptr(),
+               accel.leaf.data_ptr(), accel.index.data_ptr(),
+               accel.n_objs.data_ptr(), K, accel.order.data_ptr(),
+               accel.order.numel()]
+    return dev, R, tbl + [rows.data_ptr(), accel.unbounded_ids.data_ptr(),
+                          accel.unbounded_ids.numel()]
+
+
+def _perray_closest(name, what, accel, rows, o, d, dead, counts, out):
+    dev, R, tbl = _perray_args(what, accel, rows, o, d, dead, counts)
+    if out is None:
+        out = (torch.empty(R, dtype=torch.float32, device=dev),
+               torch.empty(R, dtype=torch.int32, device=dev))
+    t, obj = out
+    _check("t", t, dev, R)
+    _check("obj_id", obj, dev, R, torch.int32)
+    if R == 0:
+        return out, False
+    with torch.cuda.device(dev):
+        rc = _perray_entry(name)(
+            torch.cuda.current_stream(dev).cuda_stream, o.data_ptr(),
+            d.data_ptr(), R, _ptr(dead), *tbl, t.data_ptr(), obj.data_ptr(),
+            _ptr(counts))
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+    return out, True
+
+
+def _perray_any(name, what, accel, rows, o, d, max_t, flags, dead, counts,
+                out):
+    dev, R, tbl = _perray_args(what, accel, rows, o, d, dead, counts)
+    if out is None:
+        out = torch.empty(R, dtype=torch.bool, device=dev)
+    _check("out", out, dev, R, torch.bool)
+    if R == 0:
+        return out, False
+    with torch.cuda.device(dev):
+        rc = _perray_entry(name)(
+            torch.cuda.current_stream(dev).cuda_stream, o.data_ptr(),
+            d.data_ptr(), R, float(max_t), *flags, _ptr(dead), *tbl,
+            out.data_ptr(), _ptr(counts))
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+    return out, True
+
+
+def perray_bvh_closest(bvh, rows, o, d, dead=None, counts=None, out=None):
+    """(t [R], obj_id [R] int32, -1 on a miss) of rays (o, d) [R,3] through
+    the median BVH ``bvh`` (``core.types.BvhArrays``) and the planes beside
+    it, on the card (csrc/perray_traverse.cu); ``rows`` is
+    ``perray_rows(prims)``. ``dead`` [R] bool slots are not traced and read
+    (BIG, -1). ``counts``, an optional int32 [R, WORK_COUNTS] of zeros,
+    receives each ray's node box tests and primitive tests (bvh_closest's
+    columns); ``out`` the (t, obj_id) tensors to write into."""
+    got, launched = _perray_closest("median_bvh_closest_launch",
+                                    "median BVH walk", bvh, rows, o, d, dead,
+                                    counts, out)
+    perray_bvh_closest.launches += launched
+    return got
+
+
+perray_bvh_closest.launches = 0
+perray_bvh_closest.device_kernel = "median_bvh_closest_kernel"
+
+
+def perray_bvh_any(bvh, rows, o, d, max_t: float, dead=None, counts=None,
+                   out=None):
+    """Occlusion [R] bool of segments o + t·d, t < ``max_t``, through the
+    median BVH (its walk stops at the first such hit) and the planes, on
+    the card; ``dead`` [R] bool slots report occluded without a walk.
+    ``counts`` and ``out`` (an [R] bool tensor) as for
+    ``perray_bvh_closest``."""
+    got, launched = _perray_any("median_bvh_any_launch", "median BVH walk",
+                                bvh, rows, o, d, max_t, (), dead, counts,
+                                out)
+    perray_bvh_any.launches += launched
+    return got
+
+
+perray_bvh_any.launches = 0
+perray_bvh_any.device_kernel = "median_bvh_any_kernel"
+
+
+def grid_closest(grid, rows, o, d, dead=None, counts=None, out=None):
+    """(t [R], obj_id [R] int32, -1 on a miss) of rays (o, d) [R,3] through
+    the DDA of the uniform grid ``grid`` (``core.types.GridArrays``) and the
+    planes beside it, on the card (csrc/perray_traverse.cu); ``rows``,
+    ``dead``, ``counts`` (column 0: the cells stepped through) and ``out``
+    as for ``perray_bvh_closest``."""
+    got, launched = _perray_closest("grid_closest_launch", "grid DDA", grid,
+                                    rows, o, d, dead, counts, out)
+    grid_closest.launches += launched
+    return got
+
+
+grid_closest.launches = 0
+grid_closest.device_kernel = "grid_closest_kernel"
+
+
+def grid_any(grid, rows, o, d, max_t: float, dead=None,
+             init_fail_occludes: bool = False, counts=None, out=None):
+    """Occlusion [R] bool of segments o + t·d, t < ``max_t``, through the
+    shadow DDA of ``grid`` (it stops at the first such object) and the
+    planes, on the card. ``init_fail_occludes``: a ray whose grid entry
+    fails is occluded (the reference's grid.cpp:326-328 quirk). ``dead``,
+    ``counts`` and ``out`` as for ``perray_bvh_any``."""
+    got, launched = _perray_any("grid_any_launch", "grid DDA", grid, rows,
+                                o, d, max_t, (int(init_fail_occludes),),
+                                dead, counts, out)
+    grid_any.launches += launched
+    return got
+
+
+grid_any.launches = 0
+grid_any.device_kernel = "grid_any_kernel"
 
 # T1's instruction classes, in csrc/probes.cu's order
 PROBE_OPS = ("fma", "cheap", "div", "rsqrt", "select")

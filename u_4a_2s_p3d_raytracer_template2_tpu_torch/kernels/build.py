@@ -40,11 +40,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # one for one. Its slab tests have
 # no multiply-add to contract. The brute-force kernels answer the same
 # question with the same sphere and triangle tests, and are built the same
-# way for the same reason. The device probes measure what the card retires
-# under those flags, and their chains then round as their plain versions do
-# except where they call fmaf.
+# way for the same reason, and so are the per-ray traversals, which test
+# primitives with the walk's row test (csrc/prim_rows.cuh) and step their
+# DDA by the plain version's f32 sums. The device probes measure what the
+# card retires under those flags, and their chains then round as their
+# plain versions do except where they call fmaf.
 NO_CONTRACTION = ("whitted_megakernel", "bvh_walk", "brute_intersect",
-                  "probes")
+                  "probes", "perray_traverse")
 
 
 def flags(name: str) -> tuple[str, ...]:

@@ -29,7 +29,7 @@ import math
 import torch
 
 from ..core import constants as C
-from ..core.types import Camera, Rays, dot, normalize
+from ..core.types import Camera, Rays, dot, filled, normalize
 from ..ops.camera import thin_lens_rays
 from ..ops.sampling import (
     sample_unit_disk,
@@ -349,7 +349,7 @@ def _bounce(scene: PTScene, cfg: PTConfig, u, state):
 
     # background (P3D_RT.glsl:274-279)
     tt = 0.8 * (rays.direction[:, 1] + 1.0)
-    top = torch.tensor(_SKY_TOP, dtype=col.dtype, device=col.device)
+    top = filled(_SKY_TOP, col.dtype, col.device)
     sky = (1.0 - tt)[:, None] + tt[:, None] * top
     miss = active & ~hit.hit
     col = col + torch.where(miss[:, None], throughput * sky, 0.0)
@@ -383,12 +383,17 @@ def ray_color_presampled(scene: PTScene, cfg: PTConfig, rays: Rays,
     (draw_uniforms), B bounces at most.
 
     The plain version of the path-tracer kernel: fed the same uniforms, the
-    two give the same image up to f32 reassociation."""
+    two give the same image up to f32 reassociation. On CPU tensors the
+    loop ends when every path is dead; on CUDA tensors it runs every
+    bounce, reading nothing back to the host, so that a frame can be
+    captured as a CUDA graph (``pt_megakernel.make_render_frame``): a dead
+    path adds +0.0 to its color, so the image is the same."""
     R = rays.origin.shape[0]
     state = (rays, rays.origin.new_ones((R, 3)), rays.origin.new_zeros((R, 3)),
              torch.ones(R, dtype=torch.bool, device=rays.origin.device))
+    on_cpu = rays.origin.device.type == "cpu"
     for i in range(uni.shape[0]):
-        if not bool(state[3].any()):  # a dead path adds nothing
+        if on_cpu and not bool(state[3].any()):  # a dead path adds nothing
             break
         state = _bounce(scene, cfg, uni[i], state)
     return state[2]

@@ -206,15 +206,28 @@ def make_render_frame(scene: PTScene, cam: Camera, cfg: PTConfig,
     ``engine="plain"`` is ``pathtracer.render_frame``. ``"megakernel"``
     draws the frame's samples as it does and traces them with
     ``trace_rays_megakernel``, so one seed gives elementwise-comparable
-    frames from both engines: on CUDA tensors as one compiled program (a
-    replay of the CUDA graph of ``render_frame_megakernel``, captured at
-    the first frame of its config, camera shape and tables;
-    ``utils/graphs.py``), the camera copied in and the generator advanced
-    as the eager frame advances it; on CPU tensors the eager frame."""
+    frames from both engines. On CUDA tensors either engine's frame is one
+    compiled program (JAX jits both, ``models/pathtracer.py:447, 477``
+    there): a replay of the CUDA graph of ``render_frame_megakernel``,
+    captured at the first frame of its config, camera shape and tables, or
+    of ``pathtracer.render_frame``, captured at the first frame of its
+    config and the scene's and camera's shapes (``utils/graphs.py``), the
+    camera (and the plain engine's scene) copied in and the generator
+    advanced as the eager frame advances it; on CPU tensors the eager
+    frame."""
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r}: want one of {ENGINES}")
     if engine == "plain":
-        return functools.partial(render_frame, scene, cam, cfg)
+        if not graphs.on_card(scene.device):
+            return functools.partial(render_frame, scene, cam, cfg)
+
+        def plain_frame(generator: torch.Generator) -> torch.Tensor:
+            return graphs.CACHE.call(
+                "pathtracer.frame",
+                lambda s, c, g: render_frame(s, c, cfg, g), (scene, cam),
+                generator, static=(cfg,))
+
+        return plain_frame
     tables = pt_tables(scene)
     _check_supported(tables)
     if not graphs.on_card(scene.device):

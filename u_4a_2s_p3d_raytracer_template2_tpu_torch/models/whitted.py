@@ -21,7 +21,8 @@ which shares ``_level_step`` with the sweep. In a BVH or grid scene the
 closest-hit and shadow queries walk the scene's BVH tables
 (accel/packets.py: the CUDA walk on CUDA tensors, its plain version on CPU
 tensors), or under ``accel_impl="perray"`` the reference's median BVH or
-grid DDA (accel/traverse.py, batched PyTorch on either device); in a
+grid DDA (accel/traverse.py: the CUDA kernels of csrc/perray_traverse.cu
+on CUDA tensors, their plain version on CPU tensors); in a
 brute-force scene (or under ``accel_impl="brute"``) they test every
 primitive (ops/intersect.py: above 48 primitives the CUDA brute-force
 kernels on CUDA tensors, their plain version on CPU tensors).
@@ -535,16 +536,6 @@ def pixel_grid(res_x: int, res_y: int, device) -> tuple[torch.Tensor,
 SCENE_TABLES = frozenset({"skybox", "packets", "bvh", "grid", "brute"})
 
 
-def capturable(scene: Scene, cfg: RenderConfig) -> bool:
-    """Whether a frame of ``cfg`` on ``scene`` can be captured as a CUDA
-    graph: every engine and traversal except the per-ray ones
-    (``accel_impl="perray"``, and a grid scene's shadows under
-    ``reference_grid_shadow_initfail``), whose loops read a host sync every
-    ``accel/traverse.CHECK_EVERY`` iterations; those frames run eagerly."""
-    return (_accel(scene, cfg) not in ("bvh", "grid")
-            and not _grid_initfail(scene, cfg))
-
-
 def _tiles(scene: Scene, px, py, cfg: RenderConfig, tile: int,
            generator) -> torch.Tensor:
     """``render_tile`` over consecutive tiles of ``tile`` pixels, drawing
@@ -566,8 +557,7 @@ def render_tile_compiled(scene: Scene, px: torch.Tensor, py: torch.Tensor,
     and pixels are the graph's inputs, copied in each call; the draws come
     from ``generator`` (one seeded 0 when it is None and the config draws),
     which the call advances as the eager function would (a config that
-    draws nothing leaves it untouched). Raises for a config that cannot be
-    captured (``capturable``)."""
+    draws nothing leaves it untouched)."""
     n = px.shape[0]
     tile = n if tile <= 0 or tile > n else tile
     if not stochastic(scene, cfg):
@@ -576,11 +566,6 @@ def render_tile_compiled(scene: Scene, px: torch.Tensor, py: torch.Tensor,
         generator = torch.Generator(device=scene.device).manual_seed(0)
     if not graphs.on_card(scene.device):
         return _tiles(scene, px, py, cfg, tile, generator)
-    if not capturable(scene, cfg):
-        raise NotImplementedError(
-            f"accel_impl={cfg.accel_impl!r} on this scene runs the per-ray "
-            "traversals, which read the host every few iterations and cannot "
-            "be captured; render_tile runs them eagerly")
     return graphs.CACHE.call(
         "whitted.tiles",
         lambda s, x, y, g: _tiles(s, x, y, cfg, tile, g),
@@ -612,8 +597,8 @@ def render_image(scene: Scene, cfg: RenderConfig, generator=None, *,
 
     On CUDA tensors the frame is one compiled program
     (``render_tile_compiled``: one CUDA graph a frame, all tiles), except a
-    per-ray traversal's (``capturable``) or a scene whose tensors require
-    grad, which run the eager tile loop as CPU tensors do.
+    scene whose tensors require grad, which runs the eager tile loop as CPU
+    tensors do.
 
     Row y=0 is the bottom scanline, as in the reference's framebuffer
     (main.cpp:749-805 fills bottom-up).
@@ -624,8 +609,7 @@ def render_image(scene: Scene, cfg: RenderConfig, generator=None, *,
     if generator is None and stochastic(scene, cfg):
         generator = torch.Generator(device=scene.device).manual_seed(0)
     tile = n if tile_rows <= 0 else tile_rows * cam.res_x
-    if (graphs.on_card(scene.device) and capturable(scene, cfg)
-            and not _needs_grad(scene)):
+    if graphs.on_card(scene.device) and not _needs_grad(scene):
         img = render_tile_compiled(scene, px, py, cfg, generator, tile=tile)
     else:
         img = _tiles(scene, px, py, cfg, tile, generator)

@@ -6,7 +6,8 @@ there): a distribution-mode frame (spp 4, so 16 AA+DoF samples a pixel)
 with a 6x2048x2048 u8 skybox on the megakernel engine.
 
 Its "grid" section is the JAX tool's (tools/device_validate.py:554-600
-there): the per-ray grid DDA (accel/traverse.py, batched PyTorch) against
+there): the per-ray grid DDA (accel/traverse.py: the kernel of
+csrc/perray_traverse.cu on the card, its plain version off it) against
 the BVH walk's kernel on a grid scene's primary rays, with both times, the
 hit ids' agreement and the two images' agreement. mount_high.p3f is not in
 the repo, so the scene is the 7,396-sphere field
@@ -262,8 +263,10 @@ def grid(device="cuda", res: int = 256, n_side: int = 86) -> dict:
     """The grid section: the field of ``n_side``² spheres built with
     ACCEL_GRID at ``res``²; the closest hits of its primary rays through
     the grid DDA and through the walk (ms each, CUDA events, median of 3
-    drifting frames; not measured off the card), the DDA's iterations and
-    host syncs on one frame's rays, the share of equal hit ids, and the
+    drifting frames; not measured off the card), the plain DDA's
+    iterations and host syncs on one frame's rays (0 on the card, where
+    the kernel of csrc/perray_traverse.cu runs and reads nothing back to
+    the host), the share of equal hit ids, and the
     depth-4 images
     under ``accel_impl="perray"`` and the walk (pixels beyond 2e-3, max
     abs difference)."""

@@ -101,16 +101,10 @@ def loop_ms(step, n_lo: int = 2, n_hi: int = 12, reps: int = 3) -> float:
 def frame_ms(scene: Scene, cfg: RenderConfig, *, frames: int = 21,
              warmup: int = 3) -> float:
     """Median ms of a full frame as ``render_image`` runs it on the card
-    (``render_tile_compiled``, one graph replay; the eager ``render_tile``
-    for a per-ray traversal, ``whitted.capturable``) over ``frames``
-    frames, the sample draws of a distribution-mode frame included (each
-    frame's generator is made before the timed calls)."""
-    from ..models.whitted import (
-        capturable,
-        pixel_grid,
-        render_tile,
-        render_tile_compiled,
-    )
+    (``render_tile_compiled``, one graph replay) over ``frames`` frames, the
+    sample draws of a distribution-mode frame included (each frame's
+    generator is made before the timed calls)."""
+    from ..models.whitted import pixel_grid, render_tile_compiled
 
     if scene.device.type != "cuda":
         raise RuntimeError(f"frame timing needs a scene on a CUDA device, "
@@ -120,8 +114,7 @@ def frame_ms(scene: Scene, cfg: RenderConfig, *, frames: int = 21,
     args = [(scene, px + 0.37 * i, py, cfg,
              torch.Generator(device=scene.device).manual_seed(1000 + i))
             for i in range(frames)]
-    fn = render_tile_compiled if capturable(scene, cfg) else render_tile
-    return cuda_ms(fn, args, warmup=warmup)
+    return cuda_ms(render_tile_compiled, args, warmup=warmup)
 
 
 def mrays_per_s(scene: Scene, frame_time_ms: float,
