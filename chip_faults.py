@@ -57,11 +57,16 @@ versions on the same inputs:
     the sound WhittedTrace must pass chip_smoke.function_cases under
     chip_smoke.GRAD_LIMIT, and a backward planted to drop o's and d's
     gradient must be rejected in every case (function_verdicts);
-  * the sharded paths (phase 30 of chip_smoke.py, shard_verdicts): two
-    gloo ranks rendering mount_low and taking one light-recovery step must
-    pass chip_smoke.sharded_rejects when sound and be rejected with rank 1
-    writing its slice one pixel early and with the gradient all-reduce
-    skipped (chip_smoke.SHARD_FAULTS); only this check runs with
+  * the sharded paths (phases 30-32 and 35 of chip_smoke.py,
+    shard_verdicts): two gloo ranks rendering mount_low, taking one
+    light-recovery step and tracing glsl_world, each eager and compiled,
+    must pass chip_smoke.sharded_rejects when sound and be rejected with
+    rank 1 writing its slice one pixel early, with the gradient all-reduce
+    skipped, with the rank generator seeded once at capture, with rank
+    1's slice placed one row early in the all-gather and with the last
+    rank tracing its path-tracer slice one row early
+    (chip_smoke.SHARD_FAULTS); on two or more cards so must NCCL ranks,
+    one a card, under the last four; only this check runs with
     ``python3 -c "import chip_faults, torch;
     chip_faults.shard_verdicts(torch.device('cuda', 0))"``;
   * the compiled programs (phase 34 of chip_smoke.py, graph_verdicts):
@@ -849,27 +854,53 @@ def function_verdicts(dev):
     return failed
 
 
-def shard_verdicts(dev):
-    """Names of the sharded paths' variants that phase 30's checks
-    (chip_smoke.sharded_rejects) judge wrongly: two gloo ranks on the
-    card rendering mount_low and taking one light-recovery step must pass
-    when sound and be rejected under each of chip_smoke.SHARD_FAULTS (rank
-    1 writing its slice one pixel early; the gradient all-reduce skipped,
-    so each rank steps on its half of the gradient)."""
+def shard_verdicts(dev, backends=("gloo", "nccl")):
+    """Names of the sharded paths' variants that the sharded checks
+    (chip_smoke.sharded_rejects) judge wrongly. Two gloo ranks on the card
+    (phase 30) must pass when sound, every path eager and compiled, and be
+    rejected under each of chip_smoke.SHARD_FAULTS on the parts it touches
+    (chip_smoke.SHARD_FAULT_PARTS): rank 1 writing its slice one pixel
+    early into the all_reduce; the gradient all-reduce skipped, so each
+    rank steps on its share of the gradient; the rank generator seeded
+    once at capture, so every replay draws the capture's values; rank 1's
+    slice placed one row early in the all-gather (gloo ranks check the
+    all-gather on CPU copies of their slices); the last rank tracing its
+    path-tracer slice one row early (only the whole frame's PT_LIMITS
+    check reads it). On a box with two or more cards the NCCL ranks of
+    phase 35 (one a card, up to 4) must pass too and reject the last four
+    (the first is the all_reduce form's, which NCCL does not take). ``backends`` names the runs to make. Prints the
+    readings that rejected each."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import launch
 
-    refs = chip_smoke.sharded_refs(dev)
+    # light_step's target is mount_low's compiled frame (phase 4's image)
+    refs, _ = chip_smoke.shard_refs(dev, chip_smoke.light_step(dev)[1])
+    every = ("mount", "train", "pt")
+    runs = [] if "gloo" not in backends else [
+        ("gloo", chip_smoke.SHARD_RANKS, None, every)] + [
+        ("gloo", chip_smoke.SHARD_RANKS, f, parts)
+        for f, parts in zip(chip_smoke.SHARD_FAULTS,
+                            chip_smoke.SHARD_FAULT_PARTS)]
+    cards = torch.cuda.device_count()
+    if "nccl" in backends and cards >= 2:
+        n = min(cards, chip_smoke.SHARD_MAX_CARDS)
+        runs += [("nccl", n, None, every)] + [
+            ("nccl", n, f, parts)
+            for f, parts in zip(chip_smoke.SHARD_FAULTS[1:],
+                                chip_smoke.SHARD_FAULT_PARTS[1:])]
+    elif "nccl" in backends:
+        print(f"sharded faults on NCCL across cards: not run (this box has "
+              f"{cards} card)")
     failed = []
-    for fault in (None, *chip_smoke.SHARD_FAULTS):
-        results = launch.run(chip_smoke.sharded_rank, chip_smoke.SHARD_RANKS,
-                             ("mount", "train"), fault, backend="gloo",
+    for backend, n, fault, parts in runs:
+        results = launch.run(chip_smoke.sharded_rank, n, parts, fault,
+                             backend=backend,
                              timeout_s=chip_smoke.SHARD_TIMEOUT_S)
         why = chip_smoke.sharded_rejects(results, refs)
         name = fault or "sound"
-        print(f"{name} | sharded mount_low and light step: "
+        print(f"{name} | sharded {'/'.join(parts)}, {n} {backend} ranks: "
               f"{'; '.join(why) or 'passed'}")
         if (fault is None) == bool(why):
-            failed.append(f"sharding: {name}")
+            failed.append(f"sharding ({backend}): {name}")
     return failed
 
 
@@ -913,8 +944,8 @@ def plant_graph_fault(fault):
     if fault == chip_smoke.GRAPH_FAULTS[0]:
         sound_capture = graphs.CudaGraphs.capture
 
-        def unregistered(self, device, run, generator):
-            return sound_capture(self, device, run, None)
+        def unregistered(self, device, run, generator, mode="global"):
+            return sound_capture(self, device, run, None, mode)
 
         patch(graphs.CudaGraphs, "capture", unregistered)
     elif fault == chip_smoke.GRAPH_FAULTS[1]:
@@ -962,7 +993,7 @@ def plant_graph_fault(fault):
         sound_call = graphs.GraphCache.call
 
         def update_lost(self, name, fn, args, generator=None, **kw):
-            if not name.startswith("dist."):
+            if name not in ("dist.train_step", "dist.train_step_full"):
                 return sound_call(self, name, fn, args, generator, **kw)
 
             def given(scene, target, g):

@@ -188,27 +188,41 @@ Phases, each raising on failure:
      megakernel engine, each printing falling offsets.
   Sharding (parallel/dist.py, ranks started by parallel/launch.py) and the
   front end:
-  30. two gloo ranks on cuda:0 (the box has one card; NCCL refuses two
-     ranks on one device), each with its launch counters set to 0 just
-     before and read just after each path: render_image_sharded of
-     mount_low 512x512, depth 4, on the megakernel engine (one K1 launch a
-     rank, the gathered image bit-equal to phase 4's) and of the BVH field
-     (4 closest and 8 any-hit walk launches a rank, bit-equal to phase
-     10's); one train_step_full of the light recovery at LIGHT_LR (one K1
-     launch a rank, the loss and light positions within SHARD_RTOL of the
-     single process's step, the replicas equal); the sharded frame and
-     step timed on each rank (CUDA events and host wall, medians) beside
-     the single process's (sharded_rejects holds the checks;
+  30. two gloo ranks on cuda:0 (NCCL refuses two ranks on one device),
+     each path driven eagerly (render_image_sharded_eager, the eager
+     step) with its launch counters set to 0 just before and read just
+     after, and compiled (a CUDA graph a rank: the render or the step's
+     loss and gradients, gloo's collective eager after the replay):
+     render_image_sharded of mount_low 512x512, depth 4, on the megakernel
+     engine (one K1 launch a rank, the gathered image bit-equal to phase
+     4's) and of the BVH field (4 closest and 8 any-hit walk launches a
+     rank, bit-equal to phase 10's); one train_step_full of the light
+     recovery at LIGHT_LR (one K1 launch a rank, the loss and light
+     positions within SHARD_RTOL of the single process's step, the
+     replicas equal); the compiled frames bit-equal to the eager ones, two
+     chained compiled steps within GRAD_LIMIT of the eager ones
+     (step_agreement) and within SHARD_RTOL of the single process; each
+     replay's launches counted on the card (replay_launch_reads: K1 1, the
+     walk 4 + 8), the host's launch calls, graph launches and collective
+     events a call (host_calls), the slices all-gathered again on the CPU
+     (the NCCL form) equal to the frame; the frames and steps timed on
+     each rank, compiled and eager (CUDA events and host wall, medians),
+     beside the single process's (sharded_rejects holds the checks;
      chip_faults.py plants SHARD_FAULTS);
   31. in the same ranks, glsl_world's path-traced frame at 512x512, 10
      bounces (one K3 launch a rank), each rank's slice against the plain
-     version on that rank's rays and uniforms under PT_LIMITS["glsl"], the
-     frame's mean beside a single-process frame's;
-  32. one NCCL rank in a child process: the sharded render and step with
-     their collectives issued, against the single process's bit for bit
-     (the step so where the single-process step repeats bit for bit, else
-     within SHARD_RTOL), and NCCL's version; NCCL across cards is not
-     measured (one card);
+     version on that rank's rays and uniforms, the whole frame of slices
+     under PT_LIMITS["glsl"] (pt_frame_agreement: the limit is a 512x512
+     frame's), the frame's mean beside a single-process frame's; two
+     compiled frames of
+     one generator bit-equal to two eager ones (the second drawn anew, the
+     generator left where eager leaves it), K3 1 a replay;
+  32. one NCCL rank in a child process: every path of 30-31 with its
+     collective captured inside the graph, the same checks, one graph
+     launch and no collective from the host a compiled call, the eager
+     render and step against the single process's bit for bit (the step
+     so where the single-process step repeats bit for bit, else within
+     SHARD_RTOL), and NCCL's version;
   33. cli orbit, view and live (keys "aw  a q", an 80-column preview) as
      subprocesses at 512x512 on the megakernel engine: exit 0, their PNGs,
      their FPS lines, live's accumulation counts and the captures each
@@ -218,10 +232,12 @@ Phases, each raising on failure:
   tile, make_render_frame and make_train_step on the card are CUDA graphs,
   captured at a first call and replayed; every main-path phase above
   makes that first call, then sets the wrappers' counts to 0 and drives
-  the path as a replay under torch.profiler: its launches are the device
-  kernel events of each kernel (utils/profiling.device_launches), and the
-  wrappers' counts must stay 0, since a replay launches from no wrapper,
-  replay_launches):
+  the path as a replay under torch.profiler: its launches are the
+  kernel nodes of the graphs it replayed (utils/profiling.graph_kernels),
+  each seen running on the card among the profiler's device kernel
+  events (utils/profiling.device_launches; the profiler drops records),
+  and the wrappers' counts must stay 0, since a replay launches from no
+  wrapper, replay_launches):
   34. for mount_low 512x512 on the megakernel engine, the distribution
      frame of phase 17, the BVH field on the sweep and on the wavefront,
      the brute field on the sweep and on the wavefront, P1, P2 and P2q
@@ -247,6 +263,10 @@ Phases, each raising on failure:
      16 progressive path-tracer frames bit-equal to 16 eager ones.
      chip_faults.py plants GRAPH_FAULTS under graph_checks, the same
      checks at 128x128.
+  35. on a box with two or more cards, one NCCL rank a card over every
+     card up to 4 (rank r on cuda:r): phase 30's paths and checks against
+     the single process, each rank's compiled and eager times and NCCL's
+     version; on a box with one card one line says it did not run.
 On a card, brute-force queries of more than 48 primitives go through the
 brute-force kernels, so the plain sweep that phase 3 holds the Whitted
 kernel against runs them on its 66-primitive field, and phase 10's 128x128
@@ -260,6 +280,7 @@ phases 30-31); the last line is the JSON device record.
 """
 import concurrent.futures
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1909,25 +1930,49 @@ def offsets_printed(stdout, what):
             if what in line]
 
 
-# Phases 30-32: the sharded paths (parallel/dist.py) on ranks started by
-# parallel/launch.py. The box has one card, so phases 30-31 run two gloo
-# ranks on cuda:0 (NCCL refuses two ranks on one device) and phase 32 one
-# NCCL rank.
+# Phases 30-32 and 35: the sharded paths (parallel/dist.py) on ranks started
+# by parallel/launch.py, each path eager (the reference) and compiled (a CUDA
+# graph a rank: on NCCL with the collective inside it, on gloo with the
+# collective after the replay). Phases 30-31 run two gloo ranks on cuda:0
+# (NCCL refuses two ranks on one device), phase 32 one NCCL rank, phase 35
+# one NCCL rank a card on a box with two or more cards (up to 4).
 SHARD_RANKS = 2
+SHARD_MAX_CARDS = 4
 SHARD_TIMEOUT_S = 300.0
 SHARD_FRAMES = 21      # timed frames (medians), after 3 warm-up frames
+SHARD_STEPS = 5        # timed train steps (medians), after 1 warm-up step
 SHARD_RTOL = 1e-6      # the sharded train step against the single process's
 SHARD_PARTS = ("mount", "field", "train", "pt")
-# planted faults the phase-30 checks must reject (chip_faults.py)
+SHARD_PT_SEED = 7      # the path tracer's compiled frames draw from it
+# planted faults the phase-30 checks must reject (chip_faults.py), and the
+# parts each is run on there
 SHARD_FAULTS = ("rank 1 writes its slice one pixel early",
-                "the gradient all-reduce skipped")
+                "the gradient all-reduce skipped",
+                "the rank generator seeded once at capture, so every replay "
+                "draws the capture's values",
+                "rank 1's slice placed one row early in the all-gather path",
+                "the last rank traces its path-tracer slice one row early")
+SHARD_FAULT_PARTS = (("mount",), ("train",), ("pt",), ("mount",), ("pt",))
+# profiler reads of a replay before the last one stands (replay_launches),
+# and the reads that saw fewer runs than the replayed graphs hold
+LAUNCH_READS = 4
+LOST_READS = []
+# the host's profiler events of a collective issued eagerly
+COLLECTIVE_EVENT = re.compile(r"^(nccl|gloo):|^c10d::")
 
 
 def shard_setup():
-    """The card for a rank: cuda:0, f32 throughout."""
+    """The card for a rank: ``cuda:LOCAL_RANK`` on NCCL (one rank a card,
+    dist.rank_device), cuda:0 on gloo (the ranks share it); f32
+    throughout."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    if dist.backend_of() == "nccl":
+        dev = dist.rank_device(None, "nccl")
+    else:
+        dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     return dev
 
@@ -1944,38 +1989,83 @@ def counted(fn, kernels_):
 
 def replay_launches(fn, kernels_):
     """fn()'s result and each kernel's launches in it, for a compiled call
-    whose graph is captured: the wrappers' counts set to 0 just before and
-    read just after must stay 0 (a replay runs the kernels without their
-    wrappers: a call that ran eagerly raises), and the launches are the
-    card's runs of each kernel, counted from the profiler's device kernel
-    events (utils/profiling.device_launches)."""
+    whose graph is captured. The wrappers' counts, set to 0 just before
+    and read just after, must stay 0 (a replay runs the kernels without
+    their wrappers: a call that ran eagerly raises). The launches are the
+    kernel nodes of the graphs the call replayed (CUDA's own node list of
+    each graph, utils/profiling.graph_kernels, times its replays in the
+    call), and the profiler's device kernel events
+    (utils/profiling.device_launches) must show each such kernel running
+    on the card, and none more often than the graphs hold it. The profiler
+    drops device records (late in a long process it read 3 of the 4
+    closest-hit nodes of a sweep frame's graph in every read), so a read
+    that misses a kernel altogether is taken again, up to LAUNCH_READS
+    reads, and every read short of the graphs' count is noted in
+    LOST_READS. If no read shows every kernel, the profiler's last read is
+    returned, for the caller's check to reject."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.profiling import (
         device_launches,
+        graph_kernels,
+        mangled,
     )
 
-    for k in kernels_:
-        k.launches = 0
-    out, n = device_launches(fn, kernels_)
-    eager = {k.__name__: k.launches for k in kernels_ if k.launches}
-    if eager:
-        raise AssertionError(f"the wrappers launched {eager} in a call "
-                             "that should replay a CUDA graph")
-    return out, n
+    for _ in range(LAUNCH_READS):
+        before = {id(g): g.replays for g in graphs.CACHE.graphs.values()}
+        for k in kernels_:
+            k.launches = 0
+        out, seen = device_launches(fn, kernels_)
+        eager = {k.__name__: k.launches for k in kernels_ if k.launches}
+        if eager:
+            raise AssertionError(f"the wrappers launched {eager} in a call "
+                                 "that should replay a CUDA graph")
+        held = dict.fromkeys(seen, 0)
+        for g in graphs.CACHE.graphs.values():
+            times = g.replays - before.get(id(g), 0)
+            if times:
+                names = graph_kernels(g.graph)
+                for k in kernels_:
+                    held[k.__name__] += times * mangled(names,
+                                                        k.device_kernel)
+        if seen != held:
+            LOST_READS.append({"seen": seen, "held": held})
+        if all((seen[k] > 0) == (held[k] > 0) and seen[k] <= held[k]
+               for k in held):
+            return out, held
+    return out, seen
 
 
 def replay_launch_reads(fn, kernels_, calls=3):
     """replay_launches over ``calls`` calls of ``fn``, each counted in its
     own profiler session: (the last output, each kernel's largest count,
-    every call's counts). The profiler can drop a kernel's record, which
-    only lowers a count (phase 34 once read 3 closest-hit launches of a
-    sweep frame whose graph had read 4 in phase 24), so the largest count
-    over identical replays is the call's; a launch missing from the graph
-    is missing from every read."""
+    every call's counts)."""
     reads = []
     for _ in range(calls):
         out, n = replay_launches(fn, kernels_)
         reads.append(n)
     return out, {k: max(r[k] for r in reads) for k in reads[0]}, reads
+
+
+def host_calls(fn, calls=3):
+    """What the host issues a call of ``fn`` (after one call outside the
+    profiler), from torch.profiler's CPU-side events over ``calls`` calls:
+    kernel launch calls (*LaunchKernel*), graph launches (*GraphLaunch*)
+    and events of a collective issued eagerly (nccl:*, gloo:*, c10d::*)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU]
+    return {"launch_calls": sum("LaunchKernel" in n for n in names) / calls,
+            "graph_launches": sum("GraphLaunch" in n for n in names) / calls,
+            "collective_events": sum(bool(COLLECTIVE_EVENT.search(n))
+                                     for n in names) / calls}
 
 
 def frame_times(fn, frames=SHARD_FRAMES, warmup=3):
@@ -1998,10 +2088,12 @@ def frame_times(fn, frames=SHARD_FRAMES, warmup=3):
 
 def light_step(dev):
     """Phase 27's light recovery on mount_low 512x512, depth 4, on the
-    megakernel engine: (the scene, its image, and ``step()``, one
+    megakernel engine: (the scene, its image, ``step()``: one eager
     train_step_full at LIGHT_LR from light 0 moved by (1, -0.7, 0.5)
     against that image, the light positions' scale 1 and every other
-    group's 0, on this process's group)."""
+    group's 0, on this process's group; ``compiled(s, t)`` and
+    ``eager(s, t)``: the compiled step (dist.make_train_step) and the eager
+    one on any start and target; the start)."""
     from dataclasses import replace
 
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
@@ -2024,8 +2116,14 @@ def light_step(dev):
     start = replace(scene, lights=replace(scene.lights, position=moved))
     scales = dist.lr_scales(materials=0.0, light_pos=1.0, light_color=0.0,
                             camera=0.0)
-    return scene, target, lambda: dist.train_step_full(
-        start, target, cfg, LIGHT_LR, None, scales)
+
+    def eager(s, t):
+        return dist.train_step_full(s, t, cfg, LIGHT_LR, None, scales)
+
+    compiled = dist.make_train_step(dist.train_step_full, cfg, LIGHT_LR,
+                                    scales=scales)
+    return (scene, target, lambda: eager(start, target), compiled, eager,
+            start)
 
 
 def step_reading(step_out):
@@ -2035,9 +2133,10 @@ def step_reading(step_out):
 
 
 def plant_fault(fault, rank):
-    """Replace a piece of parallel/dist.py in this rank by ``fault`` (one
-    of SHARD_FAULTS)."""
+    """Replace a piece of parallel/dist.py (or the graph cache under it) in
+    this rank by ``fault`` (one of SHARD_FAULTS)."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
 
     if fault == SHARD_FAULTS[0] and rank == 1:
         sound = dist.gather_rows
@@ -2048,17 +2147,93 @@ def plant_fault(fault, rank):
         dist.gather_rows = early
     elif fault == SHARD_FAULTS[1]:
         dist.all_reduce_sum = lambda tensors, group=None: list(tensors)
+    elif fault == SHARD_FAULTS[2]:
+        sound_call = graphs.GraphCache.call
+        first = {}
+
+        def seeded_once(self, name, fn, args, generator=None, **kw):
+            if name.startswith("dist.") and generator is not None:
+                generator.set_state(first.setdefault(name,
+                                                     generator.get_state()))
+            return sound_call(self, name, fn, args, generator, **kw)
+
+        graphs.GraphCache.call = seeded_once
+    elif fault == SHARD_FAULTS[3]:
+        sound_assemble = dist._assemble
+
+        def one_row_early(blocks, n):
+            full = sound_assemble(blocks, n)
+            a, b = dist.shard_bounds(n, blocks.shape[0], 1)
+            full[a - 1:b - 1] = blocks[1, :b - a]
+            return full
+
+        dist._assemble = one_row_early
+    elif fault == SHARD_FAULTS[4]:
+        from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.whitted import (
+            pixel_grid,
+        )
+
+        sound_shard = dist._pixel_shard
+
+        def traced_one_row_early(cam, device, group):
+            px, py, n, start = sound_shard(cam, device, group)
+            rank, size = dist.world(group)
+            if rank != size - 1:
+                return px, py, n, start
+            gx, gy = pixel_grid(cam.res_x, cam.res_y, device)
+            a = start - cam.res_x
+            return gx[a:a + px.shape[0]], gy[a:a + px.shape[0]], n, start
+
+        dist._pixel_shard = traced_one_row_early
     elif fault is not None and fault not in SHARD_FAULTS:
         raise ValueError(f"unknown fault {fault!r}")
 
 
+def frame_readings(eager, compiled, kernels_, on_card, timing):
+    """A sharded frame path on this rank: the eager call's image and each
+    kernel's launches (``counted``); the compiled calls (the first
+    captures) against it, as the number of pixels that differ; the
+    kernels' launches a replay counted on the card (``on_card``: the
+    wrappers that run distinct device kernels); what the host issues a
+    call, compiled and eager; with ``timing`` both calls' frame times."""
+    img, n = counted(eager, kernels_)
+    first = compiled()
+    again, n_dev, reads = replay_launch_reads(compiled, on_card)
+    rec = {"image": img.cpu(), "launches": n,
+           "compiled_diff": [int((x != img).any(dim=-1).sum())
+                             for x in (first, again)],
+           "replay_launches": n_dev, "replay_reads": reads,
+           "calls": {"compiled": host_calls(compiled),
+                     "eager": host_calls(eager)}}
+    if timing:
+        rec["frame_ms"] = frame_times(eager)
+        rec["compiled_ms"] = frame_times(compiled)
+    return rec
+
+
+def all_gather_check(img, rank, size):
+    """On gloo: this rank's slice of the gathered image all-gathered again
+    by dist.all_gather_rows on CPU tensors (the form NCCL takes; gloo has
+    no all-gather of CUDA tensors), equal to the image or not; None on
+    NCCL, whose frames went through it."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+
+    if dist.backend_of() != "gloo":
+        return None
+    flat = img.reshape(-1, 3)
+    a, b = dist.shard_bounds(flat.shape[0], size, rank)
+    return torch.equal(dist.all_gather_rows(flat[a:b].cpu(), flat.shape[0]),
+                       flat.cpu())
+
+
 def sharded_rank(rank, size, parts=SHARD_PARTS, fault=None):
-    """One gloo rank of phases 30-31 on cuda:0: mount_low 512x512, depth 4,
-    on the megakernel engine (image, K1 launches, frame times); the BVH
-    field (image, walk launches); one train_step_full of the light
-    recovery at LIGHT_LR (loss, light positions, launches); glsl_world's
-    path-traced frame (K3 launches, this rank's slice against the plain
-    version on its own rays and uniforms, the frame's mean)."""
+    """One rank of phases 30-32 and 35 (gloo ranks on cuda:0, NCCL ranks on
+    cuda:rank), each path eager and compiled: mount_low 512x512, depth 4,
+    on the megakernel engine (K1); the BVH field (the walk); one
+    train_step_full of the light recovery at LIGHT_LR (K1; the compiled
+    step held to the eager one by step_agreement, two chained steps);
+    glsl_world's path-traced frame (K3). With "timing" in ``parts`` the
+    frames and steps are timed, compiled and eager."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
         build_scene,
@@ -2071,37 +2246,63 @@ def sharded_rank(rank, size, parts=SHARD_PARTS, fault=None):
 
     dev = shard_setup()
     plant_fault(fault, rank)
-    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+    backend = dist.backend_of()
+    out = {"rank": rank, "backend": backend, "device": str(dev),
+           "collective_in_graph": dist.collective_in_graph()}
+    if backend == "nccl":
+        out["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+    timing = "timing" in parts
     cfg_mk = RenderConfig(engine="megakernel")
     k1 = (kernels.whitted_megakernel,)
     if "mount" in parts or "train" in parts:
-        mount, _, step = light_step(dev)
+        mount, target, step, compiled, eager, start = light_step(dev)
     if "mount" in parts:
-        img, n = counted(lambda: dist.render_image_sharded(mount, cfg_mk), k1)
-        out["mount"] = {"image": img.cpu(), "launches": n}
-        if "timing" in parts:
-            out["mount"]["frame_ms"] = frame_times(
-                lambda: dist.render_image_sharded(mount, cfg_mk))
+        out["mount"] = frame_readings(
+            lambda: dist.render_image_sharded_eager(mount, cfg_mk),
+            lambda: dist.render_image_sharded(mount, cfg_mk), k1, k1, timing)
+        out["mount"]["all_gather"] = all_gather_check(out["mount"]["image"],
+                                                      rank, size)
     if "field" in parts:
         field = build_scene(scenes.sphere_field_scene(n_side=FIELD_SIDE,
                                                       res=RES), device=dev)
-        walk = (kernels.bvh_closest, kernels.bvh_any, kernels.bvh_any_multi)
-        img, n = counted(
-            lambda: dist.render_image_sharded(field, RenderConfig()), walk)
-        out["field"] = {"image": img.cpu(), "launches": n}
+        cfg = RenderConfig()
+        out["field"] = frame_readings(
+            lambda: dist.render_image_sharded_eager(field, cfg),
+            lambda: dist.render_image_sharded(field, cfg),
+            (kernels.bvh_closest, kernels.bvh_any, kernels.bvh_any_multi),
+            (kernels.bvh_closest, kernels.bvh_any), timing)
     if "train" in parts:
         got, n = counted(step, k1)
         loss, light_pos = step_reading(got)
-        out["train"] = {"loss": loss, "light_pos": light_pos, "launches": n}
-        if "timing" in parts:
-            out["train"]["step_ms"] = frame_times(step, frames=5, warmup=1)
+        agreement = step_agreement(compiled, eager, start, target)
+        c_loss, c_pos = step_reading(compiled(start, target))
+        _, n_dev, reads = replay_launch_reads(lambda: compiled(start, target),
+                                              k1)
+        out["train"] = {
+            "loss": loss, "light_pos": light_pos, "launches": n,
+            "compiled": {"agreement": agreement, "loss": c_loss,
+                         "light_pos": c_pos, "replay_launches": n_dev,
+                         "replay_reads": reads},
+            "calls": {"compiled": host_calls(lambda: compiled(start, target),
+                                             calls=2),
+                      "eager": host_calls(step, calls=2)}}
+        if timing:
+            out["train"]["step_ms"] = frame_times(step, frames=SHARD_STEPS,
+                                                  warmup=1)
+            out["train"]["compiled_ms"] = frame_times(
+                lambda: compiled(start, target), frames=SHARD_STEPS,
+                warmup=1)
     if "pt" in parts:
-        out["pt"] = sharded_pt(rank, size, dev)
+        out["pt"] = sharded_pt(rank, size, dev, timing)
     return out
 
 
-def sharded_pt(rank, size, dev):
-    """Phase 31 on one rank: glsl_world 512x512, 10 bounces."""
+def sharded_pt(rank, size, dev, timing=False):
+    """Phase 31 on one rank: glsl_world 512x512, 10 bounces. The eager
+    frame without a generator (its launches, this rank's slice against the
+    plain version on its own rays and uniforms); two compiled frames from
+    one generator against two eager ones from another in the same state;
+    K3's launches a replay counted on the card."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.models import (
         pathtracer as pt,
@@ -2118,8 +2319,9 @@ def sharded_pt(rank, size, dev):
     world = glsl_world(device=dev)
     cam = glsl_camera(RES, RES, device=dev)
     cfg = pt.PTConfig()
-    frame, n = counted(lambda: dist.pt_frame_sharded(world, cam, cfg),
-                       (kernels.pt_megakernel,))
+    k3 = (kernels.pt_megakernel,)
+    frame, n = counted(lambda: dist.pt_frame_sharded_eager(world, cam, cfg),
+                       k3)
     a, b = dist.shard_bounds(RES * RES, size, rank)
     g = (dist.rank_generator(None, rank, size, dev)
          or torch.Generator(device=dev).manual_seed(0))
@@ -2127,79 +2329,282 @@ def sharded_pt(rank, size, dev):
     rays = pt.camera_rays(cam, g, px[a:b], py[a:b])
     uni = pt.draw_uniforms(g, cfg.max_bounces, b - a)
     want = pt.ray_color_presampled(world, cfg, rays, uni)
-    return {"launches": n, "slice": (a, b), "mean": float(frame.mean()),
-            "finite": bool(torch.isfinite(frame).all()),
-            "agreement": pt_agreement(frame.reshape(-1, 3)[a:b], want)}
+    g, e = generator(dev, SHARD_PT_SEED), generator(dev, SHARD_PT_SEED)
+    got = [dist.pt_frame_sharded(world, cam, cfg, None, g) for _ in range(2)]
+    ref = [dist.pt_frame_sharded_eager(world, cam, cfg, None, e)
+           for _ in range(2)]
+    left = torch.equal(g.get_state(), e.get_state())
+    _, n_dev, reads = replay_launch_reads(
+        lambda: dist.pt_frame_sharded(world, cam, cfg, None, g), k3)
+    rec = {"launches": n, "slice": (a, b), "mean": float(frame.mean()),
+           "finite": bool(torch.isfinite(frame).all()),
+           "agreement": pt_agreement(frame.reshape(-1, 3)[a:b], want),
+           "compiled_diff": [int((x != y).any(dim=-1).sum())
+                             for x, y in zip(got, ref)],
+           "draws_anew": not torch.equal(got[0], got[1]),
+           "generator_left": left,
+           "replay_launches": n_dev, "replay_reads": reads,
+           "calls": {"compiled": host_calls(
+               lambda: dist.pt_frame_sharded(world, cam, cfg, None, g)),
+               "eager": host_calls(
+                   lambda: dist.pt_frame_sharded_eager(world, cam, cfg, None,
+                                                       e))}}
+    if timing:
+        rec["frame_ms"] = frame_times(
+            lambda: dist.pt_frame_sharded_eager(world, cam, cfg, None, e))
+        rec["compiled_ms"] = frame_times(
+            lambda: dist.pt_frame_sharded(world, cam, cfg, None, g))
+    return rec
 
 
 def sharded_rejects(results, refs):
-    """Why phase 30-31's checks reject the ranks' ``results`` against the
-    single-process ``refs`` (empty: they pass): images bit-equal, the
-    train step within SHARD_RTOL, the replicas equal, each kernel launched
-    as the single process launches it, the path tracer's slices within
-    PT_LIMITS["glsl"]."""
+    """Why the sharded checks of phases 30-32 and 35 reject the ranks'
+    ``results`` against the single-process ``refs`` (empty: they pass).
+    Eager: images bit-equal, the train step within SHARD_RTOL, the
+    replicas equal, each kernel launched as the single process launches
+    it, the path-traced frame of the ranks' slices within
+    PT_LIMITS["glsl"] (pt_frame_agreement). Compiled: every
+    replay's image bit-equal to the eager call's, the compiled step within
+    GRAD_LIMIT of the eager step (step_agreement) and within SHARD_RTOL of
+    the single process, the replicas equal, the path tracer's frames equal
+    to the eager ones from the same generator (the second drawn anew, the
+    generator left where eager leaves it), the launches a replay counted on
+    the card (K1 1, the walk 4 + 8, K3 1); one graph launch a call; on
+    NCCL no collective issued from the host in a compiled call; on gloo
+    the slices all-gathered on the CPU equal to the frame."""
     why = []
+
+    def calls_ok(rank, what, calls, nccl):
+        c = calls["compiled"]
+        if c["graph_launches"] != 1:
+            why.append(f"rank {rank}: {what} {c['graph_launches']} graph "
+                       "launches a compiled call")
+        if nccl and c["collective_events"]:
+            why.append(f"rank {rank}: {what} issued a collective from the "
+                       "host in a compiled call")
+        if not calls["eager"]["collective_events"]:
+            why.append(f"rank {rank}: {what}: the profiler saw no "
+                       "collective in the eager call, so its absence from "
+                       "a compiled call says nothing")
+
     for r in results:
-        rank = r["rank"]
+        rank, nccl = r["rank"], r["backend"] == "nccl"
         if "mount" in r:
-            if not torch.equal(r["mount"]["image"], refs["mount"]):
+            m = r["mount"]
+            if not torch.equal(m["image"], refs["mount"]):
                 why.append(f"rank {rank}: mount_low image differs")
-            if r["mount"]["launches"] != {"whitted_megakernel": 1}:
-                why.append(f"rank {rank}: K1 launches "
-                           f"{r['mount']['launches']}")
+            if m["launches"] != {"whitted_megakernel": 1}:
+                why.append(f"rank {rank}: K1 launches {m['launches']}")
+            if any(m["compiled_diff"]):
+                why.append(f"rank {rank}: mount_low compiled frames differ "
+                           f"from eager in {m['compiled_diff']} pixels")
+            if m["replay_launches"] != {"whitted_megakernel": 1}:
+                why.append(f"rank {rank}: K1 launches a replay "
+                           f"{m['replay_launches']}")
+            if m["all_gather"] is False:
+                why.append(f"rank {rank}: the all-gather of the slices "
+                           "differs from the frame")
+            calls_ok(rank, "mount_low", m["calls"], nccl)
         if "field" in r:
-            if not torch.equal(r["field"]["image"], refs["field"]):
+            f = r["field"]
+            if not torch.equal(f["image"], refs["field"]):
                 why.append(f"rank {rank}: field image differs")
-            if r["field"]["launches"] != {"bvh_closest": 4, "bvh_any": 8,
-                                          "bvh_any_multi": 0}:
-                why.append(f"rank {rank}: walk launches "
-                           f"{r['field']['launches']}")
+            if f["launches"] != {"bvh_closest": 4, "bvh_any": 8,
+                                 "bvh_any_multi": 0}:
+                why.append(f"rank {rank}: walk launches {f['launches']}")
+            if any(f["compiled_diff"]):
+                why.append(f"rank {rank}: field compiled frames differ from "
+                           f"eager in {f['compiled_diff']} pixels")
+            if f["replay_launches"] != {"bvh_closest": 4, "bvh_any": 8}:
+                why.append(f"rank {rank}: walk launches a replay "
+                           f"{f['replay_launches']}")
+            calls_ok(rank, "field", f["calls"], nccl)
         if "train" in r:
             t, (loss, pos) = r["train"], refs["train"]
-            if not np.allclose(t["loss"], loss, rtol=SHARD_RTOL, atol=0):
-                why.append(f"rank {rank}: loss {t['loss']!r} against "
-                           f"{loss!r}")
-            if not torch.allclose(t["light_pos"], pos, rtol=SHARD_RTOL,
-                                  atol=0):
-                why.append(f"rank {rank}: light positions differ by "
-                           f"{float((t['light_pos'] - pos).abs().max()):.3g}")
+            c = t["compiled"]
+            for label, (l_, p_) in (("", (t["loss"], t["light_pos"])),
+                                    ("compiled ", (c["loss"],
+                                                   c["light_pos"]))):
+                if not np.allclose(l_, loss, rtol=SHARD_RTOL, atol=0):
+                    why.append(f"rank {rank}: {label}loss {l_!r} against "
+                               f"{loss!r}")
+                if not torch.allclose(p_, pos, rtol=SHARD_RTOL, atol=0):
+                    why.append(f"rank {rank}: {label}light positions differ "
+                               f"by {float((p_ - pos).abs().max()):.3g}")
             if t["launches"] != {"whitted_megakernel": 1}:
                 why.append(f"rank {rank}: step launches {t['launches']}")
-            if not torch.equal(t["light_pos"],
-                               results[0]["train"]["light_pos"]):
+            if c["replay_launches"] != {"whitted_megakernel": 1}:
+                why.append(f"rank {rank}: step launches a replay "
+                           f"{c['replay_launches']}")
+            if c["agreement"]:
+                why.append(f"rank {rank}: compiled step against eager: "
+                           + "; ".join(c["agreement"]))
+            first = results[0]["train"]
+            if not (torch.equal(t["light_pos"], first["light_pos"])
+                    and torch.equal(c["light_pos"],
+                                    first["compiled"]["light_pos"])):
                 why.append(f"rank {rank}: the replicas' lights differ")
+            calls_ok(rank, "step", t["calls"], nccl)
         if "pt" in r:
             p = r["pt"]
-            bad, mean, _ = p["agreement"]
-            max_bad, max_mean = PT_LIMITS["glsl"]
-            if not p["finite"] or bad > max_bad or mean > max_mean:
-                why.append(f"rank {rank}: path-tracer slice {p['agreement']}")
+            if not p["finite"]:
+                why.append(f"rank {rank}: the path-traced frame is not "
+                           "finite")
             if p["launches"] != {"pt_megakernel": 1}:
                 why.append(f"rank {rank}: K3 launches {p['launches']}")
+            if (any(p["compiled_diff"]) or not p["draws_anew"]
+                    or not p["generator_left"]):
+                why.append(f"rank {rank}: compiled path-tracer frames "
+                           f"against eager: {p['compiled_diff']} pixels "
+                           f"differ, drawn anew {p['draws_anew']}, the "
+                           f"generator left as eager {p['generator_left']}")
+            if p["replay_launches"] != {"pt_megakernel": 1}:
+                why.append(f"rank {rank}: K3 launches a replay "
+                           f"{p['replay_launches']}")
+            calls_ok(rank, "path tracer", p["calls"], nccl)
+    bad, mean = pt_frame_agreement(results)
+    if bad is not None and (bad > PT_LIMITS["glsl"][0]
+                            or mean > PT_LIMITS["glsl"][1]):
+        why.append(f"path-traced frame against the plain version on the "
+                   f"ranks' own draws: {bad * 100:.4f}% pixels beyond "
+                   f"{ATOL}, mean abs diff {mean:.3g} (limits "
+                   f"{PT_LIMITS['glsl']})")
     return why
 
 
-def sharded_refs(dev):
-    """The single-process references of phase 30's checks: mount_low's
-    image and the light-recovery step's (loss, light positions)."""
-    _, target, step = light_step(dev)
-    return {"mount": target.cpu(), "train": step_reading(step())}
+def pt_frame_agreement(results):
+    """(share of pixels beyond ATOL, mean abs difference) of the whole
+    path-traced frame against the plain version, each rank's slice traced
+    by it on that rank's rays and uniforms; (None, None) without a
+    path-tracer reading. PT_LIMITS["glsl"] is the limit of a 512x512
+    frame: a slice alone has 1/size of its pixels, so the few paths whose
+    reflect/refract draw flips weigh size times more in it (one of four
+    NCCL ranks read 0.0458% of its quarter beyond ATOL, 0.0114% of the
+    frame)."""
+    pts = [r["pt"] for r in results if "pt" in r]
+    if not pts:
+        return None, None
+    sizes = [p["slice"][1] - p["slice"][0] for p in pts]
+    n = sum(sizes)
+    return (sum(p["agreement"][0] * k for p, k in zip(pts, sizes)) / n,
+            sum(p["agreement"][1] * k for p, k in zip(pts, sizes)) / n)
 
 
-def nccl_rank(rank, size):
-    """Phase 32: one NCCL rank on cuda:0, the sharded render and light
-    step with the group initialised (their collectives issued), and
-    NCCL's version."""
-    out = sharded_rank(rank, size, parts=("mount", "train"))
-    out["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
-    return out
+def shard_refs(dev, mount_img, field_img=None):
+    """The single-process references of the sharded checks: mount_low's
+    and the field's images (phases 4 and 10; the field's None where no
+    check reads it) and the light-recovery step's (loss, light positions);
+    whether that step repeats bit for bit."""
+    step = light_step(dev)[2]
+    refs = {"mount": mount_img.cpu(),
+            "field": None if field_img is None else field_img.cpu(),
+            "train": step_reading(step())}
+    again = step_reading(step())
+    return refs, (again[0] == refs["train"][0]
+                  and torch.equal(again[1], refs["train"][1]))
+
+
+def shard_line(phase, r, card):
+    """The printed readings of rank ``r``'s paths."""
+    def calls(c):
+        comp = c["compiled"]
+        return (f"launch calls a call compiled {comp['launch_calls']:g} + "
+                f"{comp['graph_launches']:g} graph, "
+                f"{comp['collective_events']:g} collective events; "
+                f"eager {c['eager']['launch_calls']:g}, "
+                f"{c['eager']['collective_events']:g} collective events")
+
+    def ms(x):
+        if "compiled_ms" not in x:
+            return ""
+        (ce, cw), (ee, ew) = x["compiled_ms"], x.get("frame_ms",
+                                                     x.get("step_ms"))
+        return (f"; compiled {ce:.4f} ms CUDA events, {cw:.4f} ms host wall; "
+                f"eager {ee:.4f} ms, {ew:.4f} ms ({card})")
+
+    head = (f"{phase} rank {r['rank']} ({r['backend']}, {r['device']}, "
+            f"collective in the graph {r['collective_in_graph']}"
+            + (f", NCCL {r['nccl']}" if "nccl" in r else "") + ")")
+    lines = []
+    if "mount" in r:
+        m = r["mount"]
+        lines.append(
+            f"{head}: mount_low {RES}x{RES} megakernel: eager launches "
+            f"{m['launches']}, compiled frames' differing pixels "
+            f"{m['compiled_diff']}, launches a replay on the card "
+            f"{m['replay_launches']} (reads {m['replay_reads']}), "
+            f"all-gather on the CPU equal {m['all_gather']}; "
+            f"{calls(m['calls'])}{ms(m)}")
+    if "field" in r:
+        f = r["field"]
+        lines.append(
+            f"{head}: field{FIELD_SIDE}: eager launches {f['launches']}, "
+            f"compiled differing pixels {f['compiled_diff']}, launches a "
+            f"replay {f['replay_launches']}; {calls(f['calls'])}{ms(f)}")
+    if "train" in r:
+        t = r["train"]
+        c = t["compiled"]
+        lines.append(
+            f"{head}: light step: eager loss {t['loss']!r}, light 0 at "
+            f"{t['light_pos'][0].tolist()}, launches {t['launches']}; "
+            f"compiled loss {c['loss']!r}, light 0 at "
+            f"{c['light_pos'][0].tolist()}, against eager "
+            f"{'; '.join(c['agreement']) or 'within GRAD_LIMIT'}, launches "
+            f"a replay {c['replay_launches']}; {calls(t['calls'])}{ms(t)}")
+    if "pt" in r:
+        p = r["pt"]
+        lines.append(
+            f"{head}: glsl_world {RES}x{RES} 10 bounces pixels "
+            f"[{p['slice'][0]}, {p['slice'][1]}), eager launches "
+            f"{p['launches']}, slice against the plain version "
+            f"{p['agreement'][0] * 100:.4f}% pixels beyond {ATOL}, mean abs "
+            f"diff {p['agreement'][1]:.3g} (limits {PT_LIMITS['glsl']}); "
+            f"compiled frames' differing pixels {p['compiled_diff']}, drawn "
+            f"anew {p['draws_anew']}, generator left as eager "
+            f"{p['generator_left']}, launches a replay "
+            f"{p['replay_launches']}; {calls(p['calls'])}{ms(p)}; frame mean "
+            f"{p['mean']:.6f}")
+    return lines
+
+
+def multicard_phase(card, refs):
+    """Phase 35: one NCCL rank a card over every card of the box, up to
+    SHARD_MAX_CARDS, rank r on cuda:r, the checks of phase 30 against the
+    single process (``refs``); each rank's compiled and eager times and
+    NCCL's version. Returns the ranks' results, or None (with one line
+    saying why) on a box with one card."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import launch
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"35 NCCL across cards: not run: this box has {cards} card "
+              "(the phase needs two or more; phases 30-32 ran the sharded "
+              "paths on it)")
+        return None
+    n = min(cards, SHARD_MAX_CARDS)
+    t0 = time.perf_counter()
+    res = launch.run(sharded_rank, n, SHARD_PARTS + ("timing",),
+                     backend="nccl", timeout_s=SHARD_TIMEOUT_S)
+    for r in res:
+        for line in shard_line("35", r, card):
+            print(line)
+    why = sharded_rejects(res, refs)
+    bad, mean = pt_frame_agreement(res)
+    print(f"35 NCCL across {n} of {cards} cards, one rank a card: the "
+          f"path-traced frame of the slices against the plain version "
+          f"{bad * 100:.4f}% pixels beyond {ATOL}, mean abs diff "
+          f"{mean:.3g}; {'; '.join(why) or 'every check passed'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if why:
+        raise AssertionError("35: " + "; ".join(why))
+    return res
 
 
 def sharding_phases(dev, card, mount_img, field_img):
     """Phases 30-33 (see the module docstring), against phase 4's mount_low
     image and phase 10's field image; returns (the ranks' results, the
     sharded summary, the single-process frame and step times, the
-    single-process path-traced frame's mean)."""
+    single-process path-traced frame's mean, the references)."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.types import (
         RenderConfig,
     )
@@ -2222,76 +2627,62 @@ def sharding_phases(dev, card, mount_img, field_img):
     cam = glsl_camera(RES, RES, device=dev)
     pt_cfg = pt.PTConfig()
     # 30-31. the sharded paths: two gloo ranks on cuda:0 (parallel/launch),
-    # mount_low and the BVH field against phases 4 and 10 bit for bit, the
-    # light-recovery step against the single process's, the frame and the
-    # step timed on each rank; glsl_world's path-traced frame
+    # each path eager and compiled (the render or the step's local part a
+    # graph, gloo's collective after the replay): mount_low and the BVH
+    # field against phases 4 and 10 bit for bit, the light-recovery step
+    # against the single process's, glsl_world's path-traced frame; the
+    # frames and steps timed on each rank
     t_shard = time.perf_counter()
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.io.image import preview_u8
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import launch
 
-    m512, _, step = light_step(dev)
-    refs = {"mount": mount_img.cpu(), "field": field_img.cpu(),
-            "train": step_reading(step())}
-    again = step_reading(step())
-    step_repeats = (again[0] == refs["train"][0]
-                    and torch.equal(again[1], refs["train"][1]))
+    m512, _, step, _, _, _ = light_step(dev)
+    refs, step_repeats = shard_refs(dev, mount_img, field_img)
     shard = launch.run(sharded_rank, SHARD_RANKS, SHARD_PARTS + ("timing",),
                        backend="gloo", timeout_s=SHARD_TIMEOUT_S)
     single_ms = frame_times(lambda: render_image(m512, cfg_mk))
-    single_step_ms = frame_times(step, frames=5, warmup=1)
+    single_step_ms = frame_times(step, frames=SHARD_STEPS, warmup=1)
     for r in shard:
-        print(f"30 rank {r['rank']} of {SHARD_RANKS} ({r['backend']}, "
-              f"cuda:0): mount_low {RES}x{RES} megakernel launches "
-              f"{r['mount']['launches']}, bit-equal to phase 4's image "
-              f"{torch.equal(r['mount']['image'], refs['mount'])}; "
-              f"field{FIELD_SIDE} launches {r['field']['launches']}, "
-              f"bit-equal to phase 10's image "
-              f"{torch.equal(r['field']['image'], refs['field'])}; light "
-              f"step loss {r['train']['loss']!r} (single process "
-              f"{refs['train'][0]!r}), light 0 at "
-              f"{r['train']['light_pos'][0].tolist()} (single process "
-              f"{refs['train'][1][0].tolist()}), launches "
-              f"{r['train']['launches']}; frame {r['mount']['frame_ms'][0]:.4f}"
-              f" ms CUDA events, {r['mount']['frame_ms'][1]:.4f} ms host "
-              f"wall (medians of {SHARD_FRAMES}); step "
-              f"{r['train']['step_ms'][0]:.4f} ms CUDA events, "
-              f"{r['train']['step_ms'][1]:.4f} ms host wall (medians of 5)")
-        p = r["pt"]
-        print(f"31 rank {r['rank']}: glsl_world {RES}x{RES} 10 bounces "
-              f"pixels [{p['slice'][0]}, {p['slice'][1]}), launches "
-              f"{p['launches']}, slice against the plain version on its "
-              f"rays and uniforms: {p['agreement'][0] * 100:.4f}% pixels "
-              f"beyond {ATOL}, mean abs diff {p['agreement'][1]:.3g} (limits "
-              f"{PT_LIMITS['glsl']}); frame mean {p['mean']:.6f}")
+        for line in shard_line("30-31", r, card):
+            print(line)
     pt_single_mean = float(ptk.make_render_frame(world, cam, pt_cfg)(
         torch.Generator(device=dev).manual_seed(0)).mean())
     print(f"30 single process: frame {single_ms[0]:.4f} ms CUDA events, "
-          f"{single_ms[1]:.4f} ms host wall; step {single_step_ms[0]:.4f} "
-          f"ms CUDA events, {single_step_ms[1]:.4f} ms host wall; the step "
-          f"repeats bit for bit {step_repeats}; 31 single-process "
-          f"path-traced frame mean {pt_single_mean:.6f} ({card})")
+          f"{single_ms[1]:.4f} ms host wall (compiled); eager step "
+          f"{single_step_ms[0]:.4f} ms CUDA events, {single_step_ms[1]:.4f} "
+          f"ms host wall; the step repeats bit for bit {step_repeats}; "
+          f"light step loss {refs['train'][0]!r}, light 0 at "
+          f"{refs['train'][1][0].tolist()}; 31 single-process path-traced "
+          f"frame mean {pt_single_mean:.6f} ({card})")
+    bad, mean = pt_frame_agreement(shard)
+    print(f"31 the ranks' path-traced frame against the plain version on "
+          f"their own draws: {bad * 100:.4f}% pixels beyond {ATOL}, mean "
+          f"abs diff {mean:.3g} (limits {PT_LIMITS['glsl']})")
     why = sharded_rejects(shard, refs)
     if why:
         raise AssertionError("30-31: " + "; ".join(why))
 
-    # 32. NCCL at world size 1 in a child process: the sharded render and
-    # step with their collectives issued, against the single process's
-    nccl = launch.run(nccl_rank, 1, backend="nccl",
-                      timeout_s=SHARD_TIMEOUT_S)[0]
+    # 32. NCCL at world size 1 in a child process: each path captured with
+    # its collective inside the graph, against the eager call and the
+    # single process's
+    nccl = launch.run(sharded_rank, 1, SHARD_PARTS + ("timing",),
+                      backend="nccl", timeout_s=SHARD_TIMEOUT_S)[0]
+    for line in shard_line("32", nccl, card):
+        print(line)
     nccl_img = torch.equal(nccl["mount"]["image"], refs["mount"])
     nccl_step = (nccl["train"]["loss"] == refs["train"][0] and torch.equal(
         nccl["train"]["light_pos"], refs["train"][1]))
-    print(f"32 NCCL {nccl['nccl']} ({nccl['backend']}), world size 1: "
-          f"render_image_sharded bit-equal {nccl_img}, launches "
-          f"{nccl['mount']['launches']}; train_step_full bit-equal "
-          f"{nccl_step} (loss {nccl['train']['loss']!r}), launches "
-          f"{nccl['train']['launches']}. NCCL across cards is not "
-          "measured: this box has one card.")
+    print(f"32 NCCL {nccl['nccl']}, world size 1: eager "
+          f"render_image_sharded bit-equal {nccl_img}; eager train_step_full "
+          f"bit-equal {nccl_step}; compiled calls one graph launch and no "
+          "collective from the host each: "
+          + str({k: nccl[k]["calls"]["compiled"] for k in SHARD_PARTS}))
     if not nccl_img or (step_repeats and not nccl_step):
         raise AssertionError("32: the NCCL rank's render or step differs "
                              "from the single process's")
-    if not step_repeats and sharded_rejects([nccl], refs):
-        raise AssertionError(f"32: {sharded_rejects([nccl], refs)}")
+    why = sharded_rejects([nccl], refs)
+    if why:
+        raise AssertionError(f"32: {why}")
 
     # 33. the front end on the card: cli orbit, view and live at 512x512
     # on the megakernel engine; preview_u8 on the card against the CPU
@@ -2347,10 +2738,16 @@ def sharding_phases(dev, card, mount_img, field_img):
     print(f"sharding and front-end phases "
           f"{time.perf_counter() - t_shard:.1f} s")
     sharded = {"ranks": SHARD_RANKS, "backend": "gloo, both on cuda:0",
-               "nccl_world_1": {"version": nccl["nccl"],
-                                "render_bit_equal": nccl_img,
-                                "step_bit_equal": nccl_step}}
-    return shard, sharded, single_ms, single_step_ms, pt_single_mean
+               "nccl_world_1": {
+                   "version": nccl["nccl"], "render_bit_equal": nccl_img,
+                   "step_bit_equal": nccl_step,
+                   "compiled_calls": {k: nccl[k]["calls"]["compiled"]
+                                      for k in SHARD_PARTS},
+                   "frame_ms": nccl["mount"]["frame_ms"],
+                   "compiled_frame_ms": nccl["mount"]["compiled_ms"],
+                   "step_ms": nccl["train"]["step_ms"],
+                   "compiled_step_ms": nccl["train"]["compiled_ms"]}}
+    return shard, sharded, single_ms, single_step_ms, pt_single_mean, refs
 
 
 # Phase 34: the compiled programs (utils/graphs.py) against the eager
@@ -4158,12 +4555,25 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s")
 
     graphs.CACHE.clear()  # the graphs so far and their memory pools
-    shard, sharded, single_ms, single_step_ms, pt_single_mean = (
+    shard, sharded, single_ms, single_step_ms, pt_single_mean, refs = (
         sharding_phases(dev, card, mount_img, field_img))
     print(f"all {time.perf_counter() - t_start:.1f} s")
 
     # 34. the compiled programs (utils/graphs.py) at the headline sizes
     graph34 = graph_phase(dev, card, dscene, dcfg, field, field_nb, g_field)
+    print(f"all {time.perf_counter() - t_start:.1f} s")
+
+    # 35. NCCL across every card of the box (up to 4), one rank a card
+    graphs.CACHE.clear()
+    multi = multicard_phase(card, refs)
+    sharded["multicard"] = None if multi is None else {
+        "ranks": len(multi), "nccl": multi[0]["nccl"],
+        "frame_ms_per_rank": [r["mount"]["frame_ms"] for r in multi],
+        "compiled_frame_ms_per_rank": [r["mount"]["compiled_ms"]
+                                       for r in multi],
+        "step_ms_per_rank": [r["train"]["step_ms"] for r in multi],
+        "compiled_step_ms_per_rank": [r["train"]["compiled_ms"]
+                                      for r in multi]}
     print(f"all {time.perf_counter() - t_start:.1f} s")
     wave_bvh = {
         "scene": f"field{FIELD_SIDE} {RES}x{RES} depth 4, engine=wavefront",
@@ -4230,6 +4640,8 @@ def main() -> int:
     pk_src = "u_4a_2s_p3d_raytracer_template2_tpu/accel/packets.py"
     tr_src = "u_4a_2s_p3d_raytracer_template2_tpu/accel/traverse.py"
     pi_src = "u_4a_2s_p3d_raytracer_template2_tpu/ops/pallas_intersect.py"
+    print(f"replays' profiler reads short of the graphs' kernel nodes (this "
+          f"process): {len(LOST_READS)} {LOST_READS}")
     print(json.dumps({"kernels": [{
         "name": "whitted_megakernel",
         "route": "cuda",
@@ -4266,9 +4678,17 @@ def main() -> int:
             sharded, scene=f"mount_low {RES}x{RES} depth 4",
             launches_per_rank=[r["mount"]["launches"] for r in shard],
             step_launches_per_rank=[r["train"]["launches"] for r in shard],
+            replay_launches_per_rank=[r["mount"]["replay_launches"]
+                                      for r in shard],
+            step_replay_launches_per_rank=[
+                r["train"]["compiled"]["replay_launches"] for r in shard],
             frame_ms_per_rank=[r["mount"]["frame_ms"] for r in shard],
+            compiled_frame_ms_per_rank=[r["mount"]["compiled_ms"]
+                                        for r in shard],
             single_frame_ms=single_ms,
             step_ms_per_rank=[r["train"]["step_ms"] for r in shard],
+            compiled_step_ms_per_rank=[r["train"]["compiled_ms"]
+                                       for r in shard],
             single_step_ms=single_step_ms),
     }, {
         "name": "pt_megakernel",
@@ -4285,6 +4705,11 @@ def main() -> int:
         "library_ms": None,
         "sharded": dict(
             sharded, launches_per_rank=[r["pt"]["launches"] for r in shard],
+            replay_launches_per_rank=[r["pt"]["replay_launches"]
+                                      for r in shard],
+            frame_ms_per_rank=[r["pt"]["frame_ms"] for r in shard],
+            compiled_frame_ms_per_rank=[r["pt"]["compiled_ms"]
+                                        for r in shard],
             agreement_per_rank=[r["pt"]["agreement"] for r in shard],
             frame_mean=shard[0]["pt"]["mean"],
             single_frame_mean=pt_single_mean),
@@ -4293,11 +4718,17 @@ def main() -> int:
                   bvh_launches[0], also_replaces=pk_src + ":843",
                   frame=walk_frame["closest"],
                   sharded_launches_per_rank=[
-                      r["field"]["launches"]["bvh_closest"] for r in shard]),
+                      r["field"]["launches"]["bvh_closest"] for r in shard],
+                  sharded_replay_launches_per_rank=[
+                      r["field"]["replay_launches"]["bvh_closest"]
+                      for r in shard]),
         bvh_entry("bvh_walk any", "any", "any, level 0, light 0",
                   ":813", bvh_launches[1], frame=walk_frame["any"],
                   sharded_launches_per_rank=[
-                      r["field"]["launches"]["bvh_any"] for r in shard]),
+                      r["field"]["launches"]["bvh_any"] for r in shard],
+                  sharded_replay_launches_per_rank=[
+                      r["field"]["replay_launches"]["bvh_any"]
+                      for r in shard]),
         bvh_entry("bvh_walk any multi", "multi",
                   "multi, level 0, both lights", ":729", multi_launches),
         brute_entry("brute_intersect closest, spheres (K4a)", "closest",

@@ -933,3 +933,41 @@ def test_capture_of_a_host_sync_raises():
     assert not cache.graphs and cache.captures == 0
     assert torch.equal(torch.ones(2, device=dev) * 2,
                        torch.full((2,), 2.0, device=dev))
+
+
+@pytest.mark.cuda
+def test_sharded_programs_compile_without_a_group():
+    """Without a process group the sharded functions are compiled on the
+    card too (the collective is absent, so each is one graph): two frames
+    of each bit-equal to the eager sharded calls, the path tracer's from
+    one generator, left where eager leaves it; the step within
+    chip_smoke.GRAD_LIMIT of the eager one."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.parallel import dist
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+
+    dev = _cuda()
+    graphs.CACHE.clear()
+    scene = build_scene(mount_scene(res=64), device=dev)
+    cfg = RenderConfig(engine="megakernel")
+    want = dist.render_image_sharded_eager(scene, cfg)
+    for _ in range(2):
+        assert torch.equal(dist.render_image_sharded(scene, cfg), want)
+    world, cam = glsl_world(device=dev), glsl_camera(64, 64, device=dev)
+    pcfg = pt.PTConfig(max_bounces=3)
+    g, e = (torch.Generator(device=dev).manual_seed(3) for _ in range(2))
+    for _ in range(2):
+        assert torch.equal(dist.pt_frame_sharded(world, cam, pcfg, None, g),
+                           dist.pt_frame_sharded_eager(world, cam, pcfg,
+                                                       None, e))
+    assert torch.equal(g.get_state(), e.get_state())
+    start, target, tcfg, lr, sc = chip_smoke.train_setup(dev, "megakernel",
+                                                         64)
+    step = dist.make_train_step(dist.train_step_full, tcfg, lr, scales=sc)
+    assert chip_smoke.step_agreement(
+        step, lambda s, t: dist.train_step_full(s, t, tcfg, lr, None, sc),
+        start, target) == []
+    names = sorted(k[0] for k in graphs.CACHE.graphs)
+    assert names.count("dist.render_image_sharded") == 1
+    assert names.count("dist.pt_frame_sharded") == 1
+    assert names.count("dist.train_step_full") == 1
+    graphs.CACHE.clear()

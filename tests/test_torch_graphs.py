@@ -61,10 +61,14 @@ def one_torch_thread():
 class FakeGraphs:
     """A stand-in for ``graphs.CudaGraphs`` on the CPU (module doc)."""
 
+    def __init__(self):
+        self.modes = []  # the capture mode of each capture
+
     def warm_up(self, device, run):
         run()
 
-    def capture(self, device, run, generator):
+    def capture(self, device, run, generator, mode="global"):
+        self.modes.append(mode)
         out = run()
         return (run, out), out
 
@@ -169,6 +173,40 @@ def test_wrappers_count_only_the_launches_they_make():
     assert g.replays == 3
 
 
+def test_captures_take_the_cache_capture_mode():
+    """Every capture runs in the cache's capture mode: global by default,
+    whatever the cache holds when the capture is made."""
+    fake_graphs = FakeGraphs()
+    cache = graphs.GraphCache(fake_graphs)
+    cache.call("a", lambda x, g: x + 1, (torch.zeros(2),))
+    cache.capture_mode = "thread_local"
+    cache.call("b", lambda x, g: x + 1, (torch.zeros(2),))
+    cache.call("a", lambda x, g: x + 1, (torch.zeros(2),))  # a replay
+    assert fake_graphs.modes == ["global", "thread_local"]
+
+
+def test_mangled_names_count_whole_identifiers():
+    """graph_kernels reads mangled names: profiling.mangled matches a
+    kernel by its length-prefixed identifier, so a kernel whose name ends
+    another's is not counted as it."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils.profiling import (
+        mangled,
+    )
+
+    names = ["_ZN44_GLOBAL__N__553bf59a_11_bvh_walk_cu_4426ee1814closest_"
+             "kernelILb0EEEvPKfS2_iPKhNS_6TablesEPfPiS7_",
+             "_ZN44_GLOBAL__N__553bf59a_11_bvh_walk_cu_4426ee1810any_kernel"
+             "ILb1EEEvPKf",
+             "_Z21median_bvh_any_kernelPKfi",
+             "_ZN2at6native29vectorized_elementwise_kernelILi4EEEviT0_",
+             "pt_kernel"]
+    assert mangled(names, "closest_kernel") == 1
+    assert mangled(names, "any_kernel") == 1
+    assert mangled(names, "median_bvh_any_kernel") == 1
+    assert mangled(names, "pt_kernel") == 1
+    assert mangled(names, "whitted_kernel") == 0
+
+
 def test_graph_cache_keeps_the_programs_called_last(monkeypatch):
     """Each program keeps its PER_PROGRAM graphs called last: a new
     signature past them drops the least recently called one, which
@@ -227,7 +265,7 @@ def test_each_wrapper_names_a_device_kernel_of_its_source():
 
 def test_capture_failure_names_the_program():
     class Refuses(FakeGraphs):
-        def capture(self, device, run, generator):
+        def capture(self, device, run, generator, mode="global"):
             raise RuntimeError("operation not permitted when stream is "
                                "capturing")
 

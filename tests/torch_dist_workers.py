@@ -152,3 +152,142 @@ def sleeping_rank(rank, size):
     import time
 
     time.sleep(60)
+
+
+# ---------------------------------------------------------------------------
+# the compiled sharded programs (tests/test_torch_dist_graphs.py)
+
+MODES = ("in_graph", "after_replay")
+GATHER_SIZES = (25, 256)
+PT_SEED = 5
+
+
+def _compiled_mode(mode):
+    """A fresh stand-in graph cache (tests/test_torch_graphs.FakeGraphs),
+    the CPU treated as the card, and the collective inside the captured
+    program (``in_graph``) or after its replay (``after_replay``)."""
+    from test_torch_graphs import FakeGraphs
+
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+
+    cache = graphs.GraphCache(FakeGraphs())
+    graphs.CACHE = cache
+    graphs.on_card = lambda device: True
+    dist.collective_in_graph = lambda group=None: mode == "in_graph"
+    return cache
+
+
+def _orbited(scene, alpha=25.0):
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.ops.camera import (
+        orbit_eye,
+        with_eye,
+    )
+
+    cam = scene.camera
+    r = float(torch.linalg.vector_norm(cam.eye))
+    return dataclasses.replace(
+        scene, camera=with_eye(cam, orbit_eye(cam, alpha, 10.0, r)))
+
+
+def _frames(scene, cfg):
+    """Two compiled calls on ``scene`` and one on it orbited, each beside
+    the eager sharded call on the same scene."""
+    moved = _orbited(scene)
+    got = [dist.render_image_sharded(s, cfg) for s in (scene, scene, moved)]
+    want = [dist.render_image_sharded_eager(s, cfg)
+            for s in (scene, scene, moved)]
+    return {"got": got, "want": want}
+
+
+def _pt_frames(engine, res, bounces):
+    """Two compiled path-traced frames from one generator beside two eager
+    ones from another in the same state, and both generators' states."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.glsl_scene import (
+        glsl_camera,
+        glsl_world,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.models.pathtracer import (
+        PTConfig,
+    )
+
+    world = glsl_world(device=CPU)
+    cam = glsl_camera(res, res, device=CPU)
+    cfg = PTConfig(max_bounces=bounces)
+    g, e = (torch.Generator().manual_seed(PT_SEED) for _ in range(2))
+    got = [dist.pt_frame_sharded(world, cam, cfg, None, g, engine)
+           for _ in range(2)]
+    want = [dist.pt_frame_sharded_eager(world, cam, cfg, None, e, engine)
+            for _ in range(2)]
+    return {"got": got, "want": want, "states": (g.get_state(),
+                                                 e.get_state())}
+
+
+def _steps(target):
+    """Two chained compiled train_step_full steps of the train case beside
+    two eager ones, and one compiled train_step beside the eager one:
+    [(loss, leaves)] each."""
+    cfg, scales = train_config(), dist.lr_scales(**TRAIN_SCALES)
+    full = dist.make_train_step(dist.train_step_full, cfg, TRAIN_LR,
+                                scales=scales)
+
+    def chain(step):
+        out, s = [], train_scene()
+        for _ in range(2):
+            s, loss = step(s, target)
+            out.append((float(loss), [x.clone() for x in
+                                      dist.tree_leaves(dist.params_of(s))]))
+        return out
+
+    mats = dist.make_train_step(dist.train_step, cfg, TRAIN_LR)
+
+    def mat_step(step):
+        s, loss = step(train_scene(), target)
+        return float(loss), [x.clone() for x in
+                             dist.tree_leaves(dist.params_of(s))]
+
+    return {"got": chain(full),
+            "want": chain(lambda s, t: dist.train_step_full(
+                s, t, cfg, TRAIN_LR, None, scales)),
+            "mat_got": mat_step(mats),
+            "mat_want": mat_step(lambda s, t: dist.train_step(s, t, cfg,
+                                                              TRAIN_LR))}
+
+
+def _gathers(rank, size):
+    """For each n of GATHER_SIZES, over this rank's slice of a seeded
+    [n, 3] tensor: the all-gather's and the all_reduce form's results, and
+    gather_rows' (the all-gather on gloo's CPU tensors)."""
+    out = {}
+    for n in GATHER_SIZES:
+        full = torch.randn(n, 3, generator=torch.Generator().manual_seed(n))
+        a, b = dist.shard_bounds(n, size, rank)
+        part = full[a:b]
+        out[n] = {"full": full, "all_gather": dist.all_gather_rows(part, n),
+                  "all_reduce": dist.all_reduce_rows(part, n, a),
+                  "gather_rows": dist.gather_rows(part, n, a)}
+    return out
+
+
+def compiled_rank(rank, size, target):
+    """Every compiled sharded program of the port in both modes (MODES)
+    on this rank, through the stand-in graphs, beside the eager sharded
+    calls; the gathers; the process's capture mode in the group; and the
+    names and replays of the graphs each mode captured."""
+    torch.set_num_threads(1)
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.utils import graphs
+
+    mount = build_scene(scenes.mount_scene(res=16), device=CPU)
+    out = {"gathers": _gathers(rank, size),
+           "capture_mode": graphs.CACHE.capture_mode}
+    for mode in MODES:
+        cache = _compiled_mode(mode)
+        out[mode] = {
+            "megakernel": _frames(mount, RenderConfig(engine="megakernel")),
+            "sweep": _frames(mount, RenderConfig()),
+            "pt": _pt_frames("megakernel", 16, 3),
+            "pt_plain": _pt_frames("plain", 8, 2),
+            "steps": _steps(target),
+            "graphs": sorted((k[0], g.replays)
+                             for k, g in cache.graphs.items()),
+            "captures": cache.captures}
+    return out

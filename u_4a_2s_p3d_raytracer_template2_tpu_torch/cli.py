@@ -49,8 +49,9 @@ one host wall-clock render, labelled as such.
 (parallel/dist.py, ``cmd_fit``), printing the loss and the offset from
 the truth a step. Under torchrun (``WORLD_SIZE`` above 1) every process
 joins the group (``dist.initialize_multihost``: gloo on the CPU, NCCL on
-``cuda:LOCAL_RANK``), the steps shard the pixels over it, and rank 0 alone
-prints.
+``cuda:LOCAL_RANK``, one process a card), the steps shard the pixels over
+it, each a CUDA graph a rank with the gradients' all_reduce inside it on
+NCCL, and rank 0 alone prints.
 
 ``pathtrace`` accumulates progressive 1-spp frames of the GLSL world,
 optionally resuming from and saving a checkpoint, and writes the
@@ -174,8 +175,9 @@ def cmd_fit(args) -> None:
     """Inverse rendering (JAX cli.py:120-222 there): the target is the
     scene's own render; the fit starts from a perturbed scene and runs
     ``--steps`` steps of parallel/dist.py's train steps (compiled by
-    ``make_train_step``: one CUDA graph replay a step on one card, eager on
-    the CPU and under torchrun), printing the loss and the distance to the
+    ``make_train_step``: one CUDA graph replay a step on each card, its
+    all_reduce inside the graph under torchrun with NCCL; eager on the
+    CPU), printing the loss and the distance to the
     truth a step. ``--fit materials``: the diffuse
     colours +0.3 (``train_step``); ``lights`` / ``all``: light 0 moved by
     (1, -0.7, 0.5), fitting its position (and with ``all`` the camera);
@@ -184,13 +186,12 @@ def cmd_fit(args) -> None:
     (an accelerator's tables keep the built geometry)."""
     import dataclasses
 
-    import torch.distributed
-
     from .core import constants as C
     from .core.build import build_scene, with_prim_params
     from .models.whitted import engine_of
     from .parallel.dist import (
         initialize_multihost,
+        leave_group,
         lr_scales,
         make_train_step,
         rank_device,
@@ -203,9 +204,10 @@ def cmd_fit(args) -> None:
     dev = torch.device(args.device)
     n_procs = int(os.environ.get("WORLD_SIZE", "1"))
     if n_procs > 1:
-        if dev.type == "cuda":
-            dev = rank_device(dev)
-        initialize_multihost(num_processes=n_procs, device=dev)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dev = rank_device(dev, backend)
+        initialize_multihost(num_processes=n_procs, device=dev,
+                             backend=backend)
     rank, size = world()
     say = print if rank == 0 else (lambda *a, **k: None)
     scene = build_scene(_scene_def(args), device=dev, accel=args.accel)
@@ -282,7 +284,7 @@ def cmd_fit(args) -> None:
         f"wall clock, {dev.type}, {size} rank(s))")
     _say_captures(say, dev)
     if n_procs > 1:
-        torch.distributed.destroy_process_group()
+        leave_group()
 
 
 def cmd_pathtrace(args) -> None:

@@ -7,9 +7,10 @@
 and runs the sharded forward render, one sharded ``train_step`` and one
 ``train_step_full`` of mount_low, and a sharded path-traced frame, all at
 16x16, checking that every rank holds the same finite results. On CUDA
-rank r uses ``cuda:(r mod the card count)``, over NCCL when every rank has
-a card of its own and over gloo when ranks share one (NCCL refuses two
-ranks on one device); on the CPU the ranks use gloo.
+the ranks run over NCCL when every rank has a card of its own, rank r on
+``cuda:r``, and over gloo on the card ``device`` names when there are more
+ranks than cards (NCCL refuses two ranks on one device;
+``parallel/dist.rank_device``); on the CPU the ranks use gloo.
 
     python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.entry [--device cpu] [--ranks 2]
 """
@@ -45,16 +46,16 @@ def entry(device="cuda"):
                      torch.Generator(device=dev).manual_seed(0))
 
 
-def _rank_device(device: str, rank: int) -> torch.device:
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        return dev
-    dev = torch.device("cuda", rank % torch.cuda.device_count())
-    torch.cuda.set_device(dev)
+def _rank_device(device: str, backend: str) -> torch.device:
+    from .parallel.dist import rank_device
+
+    dev = rank_device(device, backend)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
     return dev
 
 
-def _dryrun_rank(rank: int, size: int, device: str) -> dict:
+def _dryrun_rank(rank: int, size: int, device: str, backend: str) -> dict:
     """One rank of ``dryrun_multichip``: the readings every rank must
     share."""
     from .core.build import build_scene
@@ -64,7 +65,7 @@ def _dryrun_rank(rank: int, size: int, device: str) -> dict:
     from .models.scenes import mount_scene
     from .parallel import dist
 
-    dev = _rank_device(device, rank)
+    dev = _rank_device(device, backend)
     scene = build_scene(mount_scene(res=RES), device=dev)
     cfg = RenderConfig()
     img = dist.render_image_sharded(scene, cfg)
@@ -94,7 +95,7 @@ def dryrun_multichip(n: int, device: str = "cuda") -> dict:
         raise RuntimeError(f"--device {device}: no CUDA device is available")
     backend = ("nccl" if on_cuda and n <= torch.cuda.device_count()
                else "gloo")
-    results = launch.run(_dryrun_rank, n, device, backend=backend)
+    results = launch.run(_dryrun_rank, n, device, backend, backend=backend)
     first = results[0]
     for key, value in first.items():
         if isinstance(value, float):

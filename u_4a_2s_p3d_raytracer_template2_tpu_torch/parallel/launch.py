@@ -5,8 +5,14 @@ returns.
 forked CUDA context or threads), each of which joins a ``torch.distributed``
 group of n ranks through a ``file://`` rendezvous in a temporary directory
 (no port to collide with another run on the host), calls ``fn(rank, n,
-*args)`` and saves its result with ``torch.save``. The parent waits at most
-``timeout_s`` seconds for all of them: a rank that fails makes it kill the
+*args)`` and saves its result with ``torch.save``. Rank r gets
+``LOCAL_RANK=r``; on NCCL it runs on ``cuda:r`` (``dist.rank_device``),
+made current and bound to the group, and a run of more NCCL ranks than
+the host has cards raises before anything is spawned (NCCL refuses two
+ranks on one device); gloo ranks use whatever device ``fn`` picks. A
+rank joins through ``dist.join_group`` and leaves through
+``dist.leave_group``. The parent waits at
+most ``timeout_s`` seconds for all of them: a rank that fails makes it kill the
 others at once and raise with the rank's traceback, and a run that outlasts
 the timeout is killed and raises ``TimeoutError``; the group's own timeout
 bounds a rank that waits on a collective. ``fn`` must be importable by name
@@ -16,7 +22,6 @@ the devices they were saved from.
 """
 from __future__ import annotations
 
-import datetime
 import multiprocessing
 import multiprocessing.connection
 import os
@@ -26,7 +31,6 @@ import traceback
 from pathlib import Path
 
 import torch
-import torch.distributed as dist
 
 # how long a run may take before its ranks are killed, and the group's
 # timeout on the rendezvous and on each collective
@@ -35,13 +39,16 @@ TIMEOUT_S = 120.0
 
 def _rank_main(fn, rank: int, size: int, init_method: str, backend: str,
                timeout_s: float, out_dir: str, args: tuple) -> None:
+    from .dist import join_group, leave_group, rank_device
+
     out = Path(out_dir)
     # the ranks share one host: gloo's pairs connect over the loopback
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ["LOCAL_RANK"] = str(rank)
     try:
-        dist.init_process_group(
-            backend, init_method=init_method, rank=rank, world_size=size,
-            timeout=datetime.timedelta(seconds=timeout_s))
+        # NCCL: cuda:r; gloo: the CPU here, the card each rank's fn names
+        dev = rank_device(None, "nccl") if backend == "nccl" else "cpu"
+        join_group(backend, init_method, size, rank, dev, timeout_s)
         torch.save(fn(rank, size, *args), out / f"rank{rank}.pt")
     except BaseException:
         # written before the group closes: the other ranks' collectives
@@ -49,8 +56,7 @@ def _rank_main(fn, rank: int, size: int, init_method: str, backend: str,
         (out / f"rank{rank}.err").write_text(traceback.format_exc())
         raise SystemExit(1)
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        leave_group()
 
 
 def _failure(procs, out: Path) -> str:
@@ -74,7 +80,14 @@ def run(fn, n: int, *args, backend: str = "gloo",
     """``fn(rank, n, *args)`` on n spawned ranks of one ``backend`` group;
     returns their results in rank order. Raises ``RuntimeError`` if a rank
     fails (with its traceback) and ``TimeoutError`` if the run outlasts
-    ``timeout_s`` seconds; no rank is left running either way."""
+    ``timeout_s`` seconds; no rank is left running either way. Raises
+    ``RuntimeError`` before spawning when ``backend`` is NCCL and n exceeds
+    the host's cards."""
+    if backend == "nccl" and n > torch.cuda.device_count():
+        raise RuntimeError(
+            f"{n} NCCL ranks need {n} cards, one a rank; this host has "
+            f"{torch.cuda.device_count()} (NCCL refuses two ranks on one "
+            "device: use gloo to share a card)")
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="rt_ranks_") as tmp:
         init = f"file://{tmp}/rendezvous"

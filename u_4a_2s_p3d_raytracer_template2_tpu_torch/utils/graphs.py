@@ -39,7 +39,19 @@ on CUDA tensors and replayed on every later call:
   * **Launch counts.** The kernels' wrappers count the launches they
     make (``kernels``): the warm-up's, and the ones a capture records. A
     replay runs the graph's kernels without their wrappers; its launches
-    are counted on the device (``utils/profiling.device_launches``).
+    are counted on the device (``utils/profiling.device_launches``). A
+    graph keeps its ``cudaGraph_t`` (``keep_graph``), so the kernel nodes
+    it holds can be read (``utils/profiling.graph_kernels``).
+  * **Collectives.** A sharded program (``parallel/dist.py``) may hold an
+    NCCL collective: the warm-up runs issue it eagerly, so its
+    communicator exists before the capture. ``GraphCache.capture_mode``
+    is CUDA's capture mode of every capture: "global" by default, and
+    "thread_local" while the process is in a process group (the sharding
+    layer sets it: ``dist.join_group``), since the group's own threads
+    call CUDA while a capture is open. A replay runs the
+    collective, so every rank of the group replays its graph, as every
+    rank issues an eager collective; ``dist.leave_group`` drops the
+    graphs before the group.
   * **No fallback.** A capture that fails (a host sync in the program,
     ``cudaErrorStreamCaptureUnsupported``) raises, with the op that broke
     it in the chained traceback. The callers decide on the device alone:
@@ -157,18 +169,20 @@ class CudaGraphs:
             run()
         torch.cuda.current_stream(device).wait_stream(side)
 
-    def capture(self, device, run, generator):
+    def capture(self, device, run, generator, mode="global"):
         """(graph, outputs): ``run()`` captured on a side stream into a CUDA
         graph with a memory pool of its own, ``generator`` (or None)
-        registered with it. An error inside ``run`` propagates as it was
-        raised, after the capture is ended and the stream restored."""
-        graph = torch.cuda.CUDAGraph()
+        registered with it, in capture mode ``mode`` (``capture_error_mode``),
+        and instantiated; the graph keeps its ``cudaGraph_t``. An error
+        inside ``run`` propagates as it was raised, after the capture is
+        ended and the stream restored."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         if generator is not None:
             graph.register_generator_state(generator)
         torch.cuda.synchronize(device)
         side = torch.cuda.Stream(device)
         with torch.cuda.device(device), torch.cuda.stream(side):
-            graph.capture_begin()
+            graph.capture_begin(capture_error_mode=mode)
             try:
                 out = run()
             except BaseException:
@@ -178,6 +192,7 @@ class CudaGraphs:
                     pass  # the error being raised invalidated the capture
                 raise
             graph.capture_end()
+            graph.instantiate()
         torch.cuda.current_stream(device).wait_stream(side)
         return graph, out
 
@@ -217,7 +232,8 @@ class Graph:
         self.capture_ms = None
         self.pool_mib = None
 
-    def capture(self, leaves, generator, keep=frozenset()) -> None:
+    def capture(self, leaves, generator, keep=frozenset(),
+                mode="global") -> None:
         if not leaves:
             raise ValueError(f"{self.name}: a program without tensor inputs "
                              "has no device to capture on")
@@ -233,7 +249,7 @@ class Graph:
         try:
             self.graph, out = self.backend.capture(
                 device, lambda: self.fn(self.inputs, self.generator),
-                self.generator)
+                self.generator, mode)
         except RuntimeError as e:
             raise RuntimeError(
                 f"capturing {self.name} as a CUDA graph failed; the op that "
@@ -290,13 +306,14 @@ class Graph:
 
 class GraphCache:
     """The captured programs of a process, by static signature (the
-    ``PER_PROGRAM`` called last of each program), and how many captures
-    there were."""
+    ``PER_PROGRAM`` called last of each program), how many captures there
+    were, and the capture mode of the next ones (module doc)."""
 
     def __init__(self, backend=None):
         self.backend = CudaGraphs() if backend is None else backend
         self.graphs = {}
         self.captures = 0
+        self.capture_mode = "global"
 
     def clear(self) -> None:
         """Drop every graph and its memory pool (the count stays)."""
@@ -317,7 +334,7 @@ class GraphCache:
         if graph is None:
             graph = Graph(name, lambda xs, g: fn(*unflatten(spec, xs, kept),
                                                  g), self.backend)
-            graph.capture(leaves, generator, keep)
+            graph.capture(leaves, generator, keep, self.capture_mode)
             self.captures += 1
             self._evict(name)
         # the entry holds ``kept`` (through fn), so no id in a key is reused

@@ -7,7 +7,8 @@ CUDA activity, and writes it as a Chrome trace (``trace.json`` in its
 directory, for chrome://tracing or Perfetto), in place of JAX's
 ``xla_trace``. ``device_launches`` counts the hand-written kernels' runs on
 the card from the same profiler's kernel events, a CUDA graph's replays
-included. JAX's ``enable_compilation_cache`` has no counterpart: it
+included; ``graph_kernels`` reads the kernel nodes a captured graph holds
+from the CUDA driver. JAX's ``enable_compilation_cache`` has no counterpart: it
 kept XLA's compiled programs across processes, and the port compiles no
 programs at run time except its CUDA kernels, which ``kernels/build.py``
 keeps in ``build/kernels/`` by the hash of their sources.
@@ -82,12 +83,25 @@ def trace(log_dir: Optional[str]):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+# CUgraphNodeType of a kernel node (cuda.h)
+_KERNEL_NODE = 0
+
+
 def launched(names, kernel: str) -> int:
     """How many of the device kernel events ``names`` ran the ``__global__``
     function ``kernel`` (a whole word of the demangled name, template
     arguments and signature aside: "void closest_kernel<true>(...)")."""
     word = re.compile(rf"(?<![A-Za-z0-9_]){re.escape(kernel)}(?![A-Za-z0-9_])")
     return sum(bool(word.search(n)) for n in names)
+
+
+def mangled(names, kernel: str) -> int:
+    """How many of the mangled function names ``names`` are the
+    ``__global__`` function ``kernel``: its identifier after its length
+    ("_ZN..14closest_kernelILb0EEEv..."), or the name itself (extern
+    "C")."""
+    tag = f"{len(kernel)}{kernel}"
+    return sum(n == kernel or tag in n for n in names)
 
 
 def device_launches(fn, wrappers) -> tuple:
@@ -119,6 +133,53 @@ def device_launches(fn, wrappers) -> tuple:
                            "runs cannot be counted")
     return out, {w.__name__: launched(names, w.device_kernel)
                  for w in wrappers}
+
+
+def graph_kernels(graph) -> list:
+    """The ``__global__`` function of each kernel node of ``graph``, a
+    ``torch.cuda.CUDAGraph`` that keeps its ``cudaGraph_t`` (made with
+    ``keep_graph=True``, as ``utils/graphs.CudaGraphs`` makes them), by its
+    mangled name: what every replay of the graph launches, read from the
+    CUDA driver (cuGraphGetNodes, cuGraphNodeGetType,
+    cuGraphKernelNodeGetParams, cuFuncGetName or cuKernelGetName); "" for
+    a kernel node it cannot name."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} returned CUresult {rc}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)),
+          "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)),
+          "cuGraphGetNodes")
+    kind, name = ctypes.c_int(), ctypes.c_char_p()
+    # CUDA_KERNEL_NODE_PARAMS_v2 (72 bytes): func at word 0, kern at word 7
+    params = (ctypes.c_uint64 * 16)()
+    names = []
+    for node in nodes[:n.value]:
+        node = ctypes.c_void_p(node)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != _KERNEL_NODE:
+            continue
+        check(cu.cuGraphKernelNodeGetParams_v2(node, params),
+              "cuGraphKernelNodeGetParams")
+        if params[0]:
+            rc = cu.cuFuncGetName(ctypes.byref(name),
+                                  ctypes.c_void_p(params[0]))
+        else:
+            rc = cu.cuKernelGetName(ctypes.byref(name),
+                                    ctypes.c_void_p(params[7]))
+        # a node whose function CUDA cannot name (a library's) is no
+        # kernel of the port's
+        names.append(name.value.decode() if rc == 0 and name.value else "")
+    return names
 
 
 def ray_count(res_x: int, res_y: int, n_lights: int, spp: int = 0,
