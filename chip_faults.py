@@ -41,7 +41,11 @@ versions on the same inputs:
     slots', judged by chip_smoke.PERRAY_LIMITS (PERRAY_FAULTS: the inside
     box's entry of 0 dropped, a leaf's tie taking the last object, the
     DDA's exit-axis tie taken z first, a dead slot traced, the initfail
-    quirk ignored);
+    quirk ignored, a node record's child boxes read swapped, the walk's
+    stack cut to 16 entries, which the deep tree's rays overflow); only
+    this check runs with
+    ``python3 -c "import chip_faults, torch;
+    chip_faults.perray_only(torch.device('cuda', 0))"``;
   * the brute-force kernels' (chip_smoke.brute_cases) with the same
     readings over the live slots and the share of dead slots whose answer
     is wrong (chip_smoke.live_agreement, the kernel writing into poisoned
@@ -343,6 +347,15 @@ PERRAY_FAULTS = (
     ("init_fail_occludes ignored",
      "        if (init_fail_occludes && misses) occ = true;  "
      "// grid.cpp:326-328\n", ""),
+    ("a node record's child boxes swapped",
+     "r, lhit,\n                ldist, lin);\n"
+     "      box_enter(q[1].z, q[1].w, q[2].x, q[2].y, q[2].z, q[2].w, r, rhit,\n"
+     "                rdist, rin);",
+     "r, rhit,\n                rdist, rin);\n"
+     "      box_enter(q[1].z, q[1].w, q[2].x, q[2].y, q[2].z, q[2].w, r, lhit,\n"
+     "                ldist, lin);"),
+    ("the walk's stack cut to 16 entries",
+     "constexpr int kStack = 64;", "constexpr int kStack = 16;"),
 )
 
 
@@ -1120,6 +1133,31 @@ def gather_control(dev):
               f"relative difference {err:.3g}")
         if not same:
             failed.append(f"gather control {engine}")
+    return failed
+
+
+def perray_only(dev) -> list:
+    """perray_verdicts alone: the sound per-ray kernels and a copy with
+    each of PERRAY_FAULTS (one nvcc each, started together); returns the
+    names the limits judge wrongly."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.kernels import build as kb
+
+    names = ("median_bvh_closest_launch", "median_bvh_any_launch",
+             "grid_closest_launch", "grid_any_launch")
+    with concurrent.futures.ThreadPoolExecutor(
+            len(PERRAY_FAULTS) + 1) as pool:
+        sound = pool.submit(lambda: {n: kernels._perray_entry(n)
+                                     for n in names})
+        libs = list(pool.map(lambda j: kb.build_copy(
+            "perray_traverse", f"fault{j[0]}", [j[1][1:]]),
+            enumerate(PERRAY_FAULTS)))
+    failed = perray_verdicts(dev, kernels, sound.result(),
+                             [(f[0], lib) for f, lib in zip(PERRAY_FAULTS,
+                                                            libs)])
+    print("per-ray faults: " + (
+        "the limits pass the sound kernels and reject every fault"
+        if not failed else f"wrong verdict for: {', '.join(failed)}"))
     return failed
 
 

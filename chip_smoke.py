@@ -145,9 +145,12 @@ Phases, each raising on failure:
      outputs): the field's own frame queries as a BVH and as a grid scene
      (primaries, level-1 rays and shadow segments with the sweep's dead
      masks, unbounded, under init_fail_occludes), segments most of which
-     miss the grid, twinned primitives, the four-type soup and the corner
-     grid whose exit-axis ties decide the answer; then P1: render_image
-     of the field under accel_impl="perray" (the median BVH's walk) as a
+     miss the grid, the field's grid cut to its fullest cell (a
+     max_per_cell that is no multiple of 4), twinned primitives, the
+     four-type soup, the corner grid whose exit-axis ties decide the
+     answer, and a 26-level chain whose rays push an entry at every level
+     and hit the 21st pushed (deep_tree_scene); then P1: render_image of
+     the field under accel_impl="perray" (the median BVH's walk) as a
      compiled frame, its launches counted on the card (4 closest, 8 any
      hit), against the walk's image under WHITTED_LIMITS; level-0 hit ids
      against the walk kernel's (only ties may differ);
@@ -156,9 +159,11 @@ Phases, each raising on failure:
      counted on the card, P2 against the walk's image, P2q bit-equal to an
      eager frame that counts the shadow rays whose grid entry failed; each
      kernel on the frames' own queries of seven drifting frames, queued
-     (utils/timing.queued_ms), beside its plain version and its bound
-     (perray_work: the kernel's own counts of node box tests or cell steps
-     and primitive tests); the compiled frames' times; the grid section of
+     (utils/timing.queued_ms, the primitive table packed once a scene, as
+     a frame's 12 queries share one pack), beside its plain version and its bound (perray_work:
+     the kernel's own counts of node box tests or cell steps and primitive
+     tests, and each launch's live rays with their mean and largest node
+     visits or cell steps); the compiled frames' times; the grid section of
      tools/device_validate. A first compiled frame over PERRAY_CUT_S
      seconds moves both phases to PERRAY_CUT_RES, with the reason
      printed.
@@ -1562,6 +1567,10 @@ PERRAY_LIMITS = {"ids": 1e-4, "ids_other_t": 0.0, "t_rel": 1e-5,
 PERRAY_DDA_STEP = 12
 PERRAY_KINDS = ("bvh", "grid")
 PERRAY_CORNER_RAYS = 4096
+# deep_tree_scene: its spheres (a chain of DEEP_SPHERES - 2 inner levels)
+# and the one its rays hit, whose stack entry a stack shorter than the
+# chain would overwrite
+DEEP_SPHERES, DEEP_HIT = 28, 8
 
 
 def perray_kernels():
@@ -1594,17 +1603,16 @@ def perray_run(kind, query, scene, args, kernel=True, poison=False,
             rest = rest[:2]
         return fn(accel, scene.prims, Rays.make(o, d), *rest)
     out = {"out": poisoned_outputs(query, args)} if poison else {}
-    rows = kernels.perray_rows(scene.prims)
     if query == "closest":
         fn = (kernels.perray_bvh_closest if kind == "bvh"
               else kernels.grid_closest)
-        return fn(accel, rows, o, d, rest[0], counts=counts, **out)
+        return fn(accel, scene.prims, o, d, rest[0], counts=counts, **out)
     max_t, dead, init_fail = rest
     if kind == "bvh":
-        return kernels.perray_bvh_any(accel, rows, o, d, max_t, dead,
+        return kernels.perray_bvh_any(accel, scene.prims, o, d, max_t, dead,
                                       counts=counts, **out)
-    return kernels.grid_any(accel, rows, o, d, max_t, dead, init_fail,
-                            counts=counts, **out)
+    return kernels.grid_any(accel, scene.prims, o, d, max_t, dead,
+                            init_fail, counts=counts, **out)
 
 
 def perray_agreement(query, got, want, dead):
@@ -1669,6 +1677,56 @@ def corner_grid_scene(dev, n=PERRAY_CORNER_RAYS, seed=7):
             torch.from_numpy(np.ascontiguousarray(d)).to(dev))
 
 
+def deep_tree_scene(dev, n=PERRAY_CORNER_RAYS, seed=9):
+    """(scene, o, d): a BVH scene of DEEP_SPHERES spheres k = 1, 2, ...
+    at x = 2^k, radius 2^k / 4, whose spatial-median tree is a chain (each
+    node's right child the sphere of largest x, a leaf), DEEP_SPHERES - 2
+    inner levels; and ``n`` rays along +x from x = -10 within 0.01 of the
+    x axis. Sphere DEEP_HIT lies on the axis; each other sphere's centre
+    sits 0.8 r off it in y and in z, so the rays pass through its box and
+    miss it. A ray descends the chain to its bottom leaf and pushes every
+    level's sphere, nearest last: its hit is the pushed entry of sphere
+    DEEP_HIT, the 21st pushed. A stack of 21 entries or fewer writes the
+    pushes past its top into its top slot, loses that entry, and answers
+    a miss; the walk's 64 entries hold them all."""
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
+        build_scene,
+    )
+    from u_4a_2s_p3d_raytracer_template2_tpu_torch.io.p3f import SceneDef
+
+    sd = SceneDef()
+    sd.accel_type = C.ACCEL_BVH
+    sd.set_camera(eye=[-10, 0, 0], at=[0, 0, 0], up=[0, 1, 0], fov=45,
+                  hither=0.01, res_x=16, res_y=16, aperture_ratio=0,
+                  focal_ratio=1)
+    m = sd.add_material([0.7, 0.7, 0.7], 1.0, [1, 1, 1], 0.1, 20, 0, 1)
+    for k in range(1, DEEP_SPHERES + 1):
+        r = 0.25 * 2.0 ** k
+        off = 0.0 if k == DEEP_HIT else 0.8 * r
+        sd.add_sphere([2.0 ** k, off, off], r, m)
+    sd.add_light([0, 100, 0], [1, 1, 1])
+    scene = build_scene(sd, device=dev)
+    rng = np.random.default_rng(seed)
+    o = np.stack([np.full(n, -10.0), rng.uniform(-0.01, 0.01, n),
+                  rng.uniform(-0.01, 0.01, n)], 1).astype(np.float32)
+    d = np.broadcast_to(np.array([1.0, 0.0, 0.0], np.float32), (n, 3))
+    return (scene, torch.from_numpy(o).to(dev),
+            torch.from_numpy(np.ascontiguousarray(d)).to(dev))
+
+
+def cut_grid(scene):
+    """``scene`` with its grid's item table cut to its fullest cell's
+    count, so that max_per_cell is the largest count (no multiple of 8,
+    as accel/grid.build_grid pads it)."""
+    import dataclasses
+
+    g = scene.grid
+    m = max(1, int(g.cell_count.max()))
+    return dataclasses.replace(scene, grid=dataclasses.replace(
+        g, cell_items=g.cell_items[:, :m].contiguous(), max_per_cell=m))
+
+
 def perray_cases(dev, res=RES, n_side=FIELD_SIDE, n_rays=65536):
     """The per-ray kernels' kernel-against-plain cases as (label, kind,
     scene, query, args) (perray_run's arguments): on the field of n_side^2
@@ -1681,8 +1739,10 @@ def perray_cases(dev, res=RES, n_side=FIELD_SIDE, n_rays=65536):
     quirk; tie_scene (twinned primitives, where only the tie rule decides)
     and the four-type soup (a plane, a box, triangles and spheres) as both
     with ``n_rays`` incoherent rays, segments with a dead mask and
-    axis-parallel rays in the box's face; and corner_grid_scene's diagonal
-    rays."""
+    axis-parallel rays in the box's face; corner_grid_scene's diagonal
+    rays; the field's grid cut to its fullest cell (cut_grid) under the
+    level-0 shadow segments and primaries; and deep_tree_scene's rays and
+    segments."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core import constants as C
     from u_4a_2s_p3d_raytracer_template2_tpu_torch.core.build import (
         build_scene,
@@ -1719,6 +1779,14 @@ def perray_cases(dev, res=RES, n_side=FIELD_SIDE, n_rays=65536):
             yield (f"{tag} shadow segments, level 0, light 0, max_t 1, "
                    "init_fail_occludes", kind, scene, "any",
                    (so, sd, 1.0, dead, True))
+            cut = cut_grid(scene)
+            m = cut.grid.max_per_cell
+            yield (f"{tag} primary rays, the grid cut to max_per_cell {m}",
+                   kind, cut, "closest", closest[0])
+            yield (f"{tag} shadow segments, level 0, light 0, max_t 1, the "
+                   f"grid cut to max_per_cell {m}", kind, cut, "any",
+                   (so, sd, 1.0, dead, False))
+            del cut
             lo, hi = scene.grid.bbox_min.cpu().numpy(), \
                 scene.grid.bbox_max.cpu().numpy()
             n = n_rays
@@ -1766,6 +1834,11 @@ def perray_cases(dev, res=RES, n_side=FIELD_SIDE, n_rays=65536):
            "closest", (co, cd, None))
     yield ("grid corner diagonal segments, max_t 1e+30", "grid", corner,
            "any", (co, cd, C.BIG, None, False))
+    deep, do, dd = deep_tree_scene(dev)
+    yield (f"bvh deep tree ({DEEP_SPHERES} spheres in a chain) rays", "bvh",
+           deep, "closest", (do, dd, None))
+    yield (f"bvh deep tree ({DEEP_SPHERES} spheres in a chain) segments, "
+           "max_t 1e+30", "bvh", deep, "any", (do, dd, C.BIG, None, False))
 
 
 def perray_work(kind, query, scene, args):
@@ -1775,7 +1848,10 @@ def perray_work(kind, query, scene, args):
     NODE_TEST, or DDA cell steps, each PERRAY_DDA_STEP; primitive tests by
     where each ended, BRUTE_STAGE_OPS; plane and box tests), the live
     rays' inputs, every slot's answer and dead byte, and the tables (the
-    tree's or grid's arrays, the primitive rows and the plane ids) once."""
+    tree's or grid's arrays, the primitive rows and the plane ids) once.
+    Prints the launch's live rays and their mean and largest inner-node
+    visits (a visit reads one record and tests two boxes) or cell steps,
+    which pace a launch of few live rays."""
     from u_4a_2s_p3d_raytracer_template2_tpu_torch import kernels
 
     o, dead = args[0], dead_of(query, args)
@@ -1785,6 +1861,17 @@ def perray_work(kind, query, scene, args):
     perray_run(kind, query, scene, args, counts=counts)
     c = counts.sum(dim=0, dtype=torch.int64).tolist()
     steps, stages, planes, boxes = c[0], c[1:7], c[7], c[8]
+    per_ray = counts[:, 0].long()
+    if dead is not None:
+        per_ray = per_ray[~dead]
+    if kind == "bvh":  # the root's box test, then two a visited inner node
+        per_ray = (per_ray - 1).clamp(min=0) // 2
+    if per_ray.numel():
+        print(f"  walk: {per_ray.numel()} live rays, "
+              f"{float(per_ray.double().mean()):.3f} mean and "
+              f"{int(per_ray.max())} most "
+              + ("inner-node visits" if kind == "bvh" else "cell steps")
+              + " a ray")
     flops = (steps * (NODE_TEST if kind == "bvh" else PERRAY_DDA_STEP)
              + planes * PLANE_TEST + boxes * BOX_TEST
              + sum(n * ops for n, ops in zip(stages, BRUTE_STAGE_OPS)))

@@ -6,6 +6,8 @@ Needs no JAX, so that it runs on a machine with a card and without JAX:
 
 Without a card the tests skip.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -646,7 +648,9 @@ def test_perray_kernels_count_and_refuse_cpu_and_grad_tensors():
         scene = build_scene(sphere_field_scene(n_side=8, res=16,
                                                accel=accel), device=dev)
         tables = scene.bvh if accel == 2 else scene.grid
-        rows = kernels.perray_rows(scene.prims)
+        prims = scene.prims
+        cpu_prims = dataclasses.replace(prims, params=prims.params.cpu(),
+                                        ptype=prims.ptype.cpu())
         before = closest.launches, any_hit.launches
         if accel == 2:
             traverse.bvh_closest_hit(tables, scene.prims, rays)
@@ -658,16 +662,88 @@ def test_perray_kernels_count_and_refuse_cpu_and_grad_tensors():
         assert (closest.launches - before[0],
                 any_hit.launches - before[1]) == (1, 1)
         with pytest.raises(ValueError):
-            closest(tables, rows, o.cpu(), d.cpu())
+            closest(tables, prims, o.cpu(), d.cpu())
         with pytest.raises(ValueError):
-            any_hit(tables, rows, o, d.cpu(), 1.0)
+            any_hit(tables, prims, o, d.cpu(), 1.0)
         with pytest.raises(ValueError):
-            closest(tables, rows.cpu(), o, d)
+            closest(tables, cpu_prims, o, d)
         with pytest.raises(NotImplementedError):
-            closest(tables, rows, o.requires_grad_(), d)
+            closest(tables, prims, o.requires_grad_(), d)
         with pytest.raises(NotImplementedError):
-            any_hit(tables, rows, o, d, 1.0)
+            any_hit(tables, prims, o, d, 1.0)
         o = o.detach()
+
+
+def _perray_bit_for_bit(kind, scene, o, d, dead=None, max_t=1.0,
+                        quirk=False):
+    """The per-ray kernels of ``kind`` against their plain version on the
+    card, bit for bit: the closest hit's (t, id) on rays (o, d) and the any
+    hit's occlusion on the segments (o, 3 d)."""
+    for query, args in (("closest", (o, d, dead)),
+                        ("any", (o, 3.0 * d, max_t, dead, quirk))):
+        got = chip_smoke.perray_run(kind, query, scene, args, poison=True)
+        want = chip_smoke.perray_run(kind, query, scene, args, kernel=False)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (kind, query)
+
+
+@pytest.mark.cuda
+def test_perray_bvh_kernels_take_the_long_stack_on_a_deep_tree():
+    """chip_smoke.deep_tree_scene, a 26-level chain: both median-BVH
+    kernels, on their 64-entry stack, answer as the plain version, bit for
+    bit, every ray hitting sphere DEEP_HIT, whose entry (the 21st pushed)
+    a stack of 21 entries or fewer would lose."""
+    dev = _cuda()
+    scene, o, d = chip_smoke.deep_tree_scene(dev, n=2048)
+    _perray_bit_for_bit("bvh", scene, o, d, max_t=1e30)
+    _, oid = chip_smoke.perray_run("bvh", "closest", scene, (o, d, None))
+    assert bool((oid == chip_smoke.DEEP_HIT - 1).all())
+
+
+@pytest.mark.cuda
+def test_perray_grid_kernels_on_a_max_per_cell_of_no_multiple_of_4():
+    """The field's grid cut to its fullest cell (chip_smoke.cut_grid: 6
+    items, padded to 8 in the kernels' table): both DDA kernels answer as
+    the plain version, bit for bit, with and without a dead mask."""
+    dev = _cuda()
+    scene = chip_smoke.cut_grid(build_scene(
+        sphere_field_scene(n_side=16, res=64, accel=1), device=dev))
+    assert scene.grid.max_per_cell % 4 != 0
+    assert kernels.perray_grid_table(scene.grid).items.shape[1] % 4 == 0
+    o, d = chip_smoke.camera_rays(scene)
+    dead = torch.arange(o.shape[0], device=dev) % 3 == 0
+    _perray_bit_for_bit("grid", scene, o, d)
+    _perray_bit_for_bit("grid", scene, o, d, dead, quirk=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", chip_smoke.PERRAY_KINDS)
+def test_perray_tables_follow_a_switch_of_scenes(kind):
+    """A frame of the field, of the four-type soup, of the field again, and
+    of the field's tree or grid rebuilt (dataclasses.replace): each scene's
+    packed tables are its own, and every answer is the plain version's,
+    bit for bit."""
+    import dataclasses
+
+    dev = _cuda()
+    accel = 2 if kind == "bvh" else 1
+    field = build_scene(sphere_field_scene(n_side=16, res=32, accel=accel),
+                        device=dev)
+    soup = build_scene(chip_smoke.soup_scene(), device=dev, accel=accel)
+    table = (kernels.perray_bvh_table if kind == "bvh"
+             else kernels.perray_grid_table)
+    name = "bvh" if kind == "bvh" else "grid"
+    rebuilt = dataclasses.replace(field, **{name: dataclasses.replace(
+        getattr(field, name))})
+    seen = []
+    for scene in (field, soup, field, rebuilt):
+        o, d = chip_smoke.camera_rays(scene)
+        _perray_bit_for_bit(kind, scene, o, d)
+        seen.append(table(getattr(scene, name)))
+    assert seen[0] is seen[2] and seen[1] is not seen[0]
+    assert seen[3] is not seen[0]
 
 
 @pytest.mark.cuda

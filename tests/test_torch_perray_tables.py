@@ -150,7 +150,7 @@ def test_corner_grid_case_is_decided_by_the_exit_axis_tie():
 
 
 def test_chip_smoke_perray_cases_on_the_cpu():
-    """chip_smoke.perray_cases at a small size on CPU tensors: all 31
+    """chip_smoke.perray_cases at a small size on CPU tensors: all 35
     cases run through the plain version, the closest-hit cases hit, and
     perray_agreement reads 0 on a plain answer against itself."""
     n_cases = 0
@@ -163,7 +163,7 @@ def test_chip_smoke_perray_cases_on_the_cpu():
         if query == "closest":
             assert bool((want[1] >= 0).any()), label
         n_cases += 1
-    assert n_cases == 31
+    assert n_cases == 35
 
 
 def _jax_fn(fn, o, d):

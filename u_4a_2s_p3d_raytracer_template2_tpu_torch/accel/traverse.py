@@ -22,12 +22,14 @@ smallest t wins, as the reference's ascending strict ``<`` scan.
 ``grid_any_hit`` dispatch by device: CUDA tensors launch the hand-written
 kernels of ``csrc/perray_traverse.cu`` (``kernels.perray_bvh_closest``,
 ``perray_bvh_any``, ``grid_closest``, ``grid_any``: one thread a ray, its
-loop on the device, the primitives read from ``kernels.perray_rows``'
-table, packed from the rays' primitives in every call), which read
-nothing back to the host, so a frame of them is one CUDA graph; CPU
-tensors run the ``*_plain`` functions below, their plain version, which
-the kernels answer bit for bit. There is no fallback from one to the
-other.
+loop on the device, the tree or grid packed once for the kernels and
+kept on it (``kernels.perray_bvh_table``, ``perray_grid_table``; the
+tree's pack reads the host), the primitives' table packed once a
+``Primitives`` object, ``kernels._prims_rows``),
+which read nothing back to the host after a tree's first query, so a
+frame of them is one CUDA graph; CPU tensors run the ``*_plain``
+functions below, their plain version, which the kernels answer bit for
+bit. There is no fallback from one to the other.
 
 The plain version steps every live ray once an iteration, as a handful of
 [n]-wide tensor ops. Every ``CHECK_EVERY`` iterations the host reads which
@@ -383,10 +385,8 @@ def grid_any_plain(grid: GridArrays, prims: Primitives, rays: Rays, max_t,
 # dispatch: the plain version on CPU tensors, the kernels on CUDA tensors
 
 
-def _kernel_args(prims: Primitives, rays: Rays, dead):
-    from ..kernels import perray_rows
-
-    return (perray_rows(prims), rays.origin.detach().contiguous(),
+def _kernel_args(rays: Rays, dead):
+    return (rays.origin.detach().contiguous(),
             rays.direction.detach().contiguous(),
             None if dead is None else dead.contiguous())
 
@@ -399,7 +399,7 @@ def bvh_closest_hit(bvh: BvhArrays, prims: Primitives, rays: Rays,
         return bvh_closest_plain(bvh, prims, rays, dead)
     from ..kernels import perray_bvh_closest
 
-    return perray_bvh_closest(bvh, *_kernel_args(prims, rays, dead))
+    return perray_bvh_closest(bvh, prims, *_kernel_args(rays, dead))
 
 
 def bvh_any_hit(bvh: BvhArrays, prims: Primitives, rays: Rays, max_t,
@@ -412,8 +412,8 @@ def bvh_any_hit(bvh: BvhArrays, prims: Primitives, rays: Rays, max_t,
         return bvh_any_plain(bvh, prims, rays, max_t, dead)
     from ..kernels import perray_bvh_any
 
-    rows, o, d, dead = _kernel_args(prims, rays, dead)
-    return perray_bvh_any(bvh, rows, o, d, float(max_t), dead)
+    o, d, dead = _kernel_args(rays, dead)
+    return perray_bvh_any(bvh, prims, o, d, float(max_t), dead)
 
 
 def grid_closest_hit(grid: GridArrays, prims: Primitives, rays: Rays,
@@ -424,7 +424,7 @@ def grid_closest_hit(grid: GridArrays, prims: Primitives, rays: Rays,
         return grid_closest_plain(grid, prims, rays, dead)
     from ..kernels import grid_closest
 
-    return grid_closest(grid, *_kernel_args(prims, rays, dead))
+    return grid_closest(grid, prims, *_kernel_args(rays, dead))
 
 
 def grid_any_hit(grid: GridArrays, prims: Primitives, rays: Rays, max_t,
@@ -438,6 +438,6 @@ def grid_any_hit(grid: GridArrays, prims: Primitives, rays: Rays, max_t,
                               init_fail_occludes)
     from ..kernels import grid_any
 
-    rows, o, d, dead = _kernel_args(prims, rays, dead)
-    return grid_any(grid, rows, o, d, float(max_t), dead,
+    o, d, dead = _kernel_args(rays, dead)
+    return grid_any(grid, prims, o, d, float(max_t), dead,
                     init_fail_occludes)

@@ -53,7 +53,9 @@ class Lights:
 class Primitives:
     """Unified primitive table padded to a multiple of 8, plus type-grouped
     views. ``*_ids`` map view rows back to global object indices (-1 =
-    padding)."""
+    padding). Its tensors are not edited in place once built: the per-ray
+    kernels read a table packed from them once and kept on this object
+    (``kernels._prims_rows``), unless ``params`` requires grad."""
 
     params: torch.Tensor   # [N, 12] f32
     ptype: torch.Tensor    # [N] i32
@@ -101,6 +103,11 @@ class BvhArrays:
     the first object (in ``order``) for leaves; children are contiguous
     pairs. Unbounded primitives (planes, scene.h:75) cannot live in the
     tree and are tested beside it via ``unbounded_ids``.
+
+    Its tensors are not edited in place once built: the per-ray kernels
+    read a table packed from them once and kept on this object
+    (``kernels.perray_bvh_table``); a changed tree is a new object
+    (``dataclasses.replace``).
     """
 
     bbox_min: torch.Tensor       # [K, 3]
@@ -117,7 +124,8 @@ class BvhArrays:
 @dataclasses.dataclass(frozen=True)
 class GridArrays:
     """Uniform grid (reference: grid.cpp:30-98) in a dense padded layout,
-    as JAX ``core/types.py:149-160``."""
+    as JAX ``core/types.py:149-160``. Its tensors are not edited in place
+    once built, as ``BvhArrays``' (``kernels.perray_grid_table``)."""
 
     bbox_min: torch.Tensor       # [3]
     bbox_max: torch.Tensor       # [3]

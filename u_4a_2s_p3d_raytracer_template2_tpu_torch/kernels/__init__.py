@@ -7,8 +7,9 @@ so a run can show that it went through the kernel; a launch that a CUDA
 graph's capture records counts there too. A graph's replays run the kernel
 without its wrapper: they are counted on the device, from the profiler's
 kernel events named ``.device_kernel`` (``utils/profiling.device_launches``).
-No kernel runs on the CPU (``perray_rows``, the per-ray kernels' table,
-is packed with PyTorch ops on any device): the dispatch between a kernel
+No kernel runs on the CPU (the per-ray kernels' tables are packed on any
+device: ``perray_rows`` and ``perray_grid_table`` with PyTorch ops,
+``perray_bvh_table`` on the host): the dispatch between a kernel
 and its plain version lives beside the plain version (models/,
 accel/packets.py, accel/traverse.py, ops/intersect.py); the device
 probes' plain versions are in tools/, and the probes have no dispatch.
@@ -17,7 +18,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.types import GridArrays
@@ -478,7 +481,10 @@ brute_any.device_kernel = "brute_any_sweep"
 # ---------------------------------------------------------------------------
 # the reference's per-ray traversals (csrc/perray_traverse.cu): the median
 # BVH's stack walk and the grid DDA over accel/bvh.py's and accel/grid.py's
-# tables, the primitives read from perray_rows' table
+# tables, packed once a tree or grid for the kernels (perray_bvh_table,
+# perray_grid_table), and the primitives' table, packed once a Primitives
+# object (_prims_rows: perray_bvh_rows in the tree's order, perray_rows by
+# object id)
 
 
 def perray_rows(prims) -> torch.Tensor:
@@ -487,15 +493,182 @@ def perray_rows(prims) -> torch.Tensor:
     ``prims.params``, then its type code and id as int32 bits, and 2 pad
     floats. Made on the primitives' device from their tensors (detached),
     with no host copy, so a compiled frame packs it from its inputs on
-    every replay."""
+    every replay: three device ops."""
     params = prims.params.detach()
     n = params.shape[0]
-    rows = torch.zeros((n, 16), dtype=torch.float32, device=params.device)
-    rows[:, :12] = params
-    bits = rows.view(torch.int32)
-    bits[:, 12] = prims.ptype
-    bits[:, 13] = torch.arange(n, dtype=torch.int32, device=params.device)
-    return rows
+    ids = torch.arange(n, dtype=torch.int32, device=params.device)
+    return torch.cat([params, prims.ptype.view(torch.float32)[:, None],
+                      ids.view(torch.float32)[:, None],
+                      params.new_zeros((n, 2))], dim=1)
+
+
+class PerrayBvhTable(NamedTuple):
+    """The median BVH as csrc/perray_traverse.cu walks it."""
+
+    # [1 + inner nodes, 16] f32, one 64 B record a row: record 0 holds the
+    # root's box (columns 0-5) and reference (int32 bits in columns 12 and
+    # 14); record r >= 1 the inner node node_ids[r], breadth first: its
+    # left and right child's boxes (0-5, 6-11), then as int32 bits each
+    # child's index (12, 13: an inner child's record, a leaf's first row)
+    # and meta (14, 15: -1 for an inner child, a leaf's object count)
+    nodes: torch.Tensor
+    # [order + planes] int32: the object of each row of the walk's
+    # primitive table (perray_bvh_rows): the tree's order, so a leaf's
+    # objects are consecutive rows, then the planes' ids; -1 pads
+    objects: torch.Tensor
+    # [order + planes] int64: objects with its pads at 0, the rows'
+    # gather; and [order + planes, 3] f32: each row's tail after its type
+    # code, its object id as int32 bits and two zero pads
+    rows_at: torch.Tensor
+    rows_tail: torch.Tensor
+    # [1 + inner nodes] int64, on the host: the BvhArrays node of each
+    # record (record 0: the root, node 0)
+    node_ids: torch.Tensor
+    n_order: int
+
+
+def _packed(accel, pack):
+    """``pack(accel)`` made once for the tree or grid ``accel`` and kept on
+    it, outside its dataclass fields (not part of its value, and
+    ``dataclasses.replace`` starts anew; the arrays are not edited in place
+    once built, core/types.py). A compiled frame's capture keeps the
+    scene's tree and grid whole (utils/graphs.py), so its warm-up packs
+    them and the capture and replays find them packed."""
+    table = accel.__dict__.get("_perray_table")
+    if table is None:
+        table = pack(accel)
+        object.__setattr__(accel, "_perray_table", table)
+    return table
+
+
+def perray_bvh_table(bvh) -> PerrayBvhTable:
+    """The median BVH ``bvh`` (``core.types.BvhArrays``) packed for the
+    kernels, once a tree (``_packed``; the pack reads the tree on the
+    host). Raises ValueError where a child or a leaf's first row is out of
+    range."""
+    return _packed(bvh, _pack_bvh)
+
+
+def _pack_bvh(bvh) -> PerrayBvhTable:
+    leaf = bvh.leaf.cpu().numpy().astype(bool)
+    index = bvh.index.cpu().numpy().astype(np.int64)
+    n_objs = bvh.n_objs.cpu().numpy().astype(np.int64)
+    lo = bvh.bbox_min.cpu().numpy().astype(np.float32)
+    hi = bvh.bbox_max.cpu().numpy().astype(np.float32)
+    K = leaf.shape[0]
+    # the inner nodes breadth first from the root, each once
+    seen = np.zeros(K, bool)
+    seen[0] = True
+    levels = []
+    frontier = np.zeros(0 if leaf[0] else 1, np.int64)
+    while frontier.size:
+        levels.append(frontier)
+        left = index[frontier]
+        kids = np.stack([left, np.minimum(left + 1, K - 1)], 1).reshape(-1)
+        if ((kids < 0) | (kids >= K)).any():
+            raise ValueError("median BVH: a child index out of range")
+        _, first = np.unique(kids, return_index=True)
+        fresh = kids[np.sort(first)]
+        fresh = fresh[~seen[fresh]]
+        seen[fresh] = True
+        frontier = fresh[~leaf[fresh]]
+    node_ids = np.concatenate([np.zeros(1, np.int64), *levels])
+    leaves = seen & leaf
+    if ((index[leaves] < 0) | (index[leaves] >= 1 << 28)).any():
+        raise ValueError("median BVH: a leaf's first object out of range")
+    rec = np.zeros(K, np.int64)
+    rec[node_ids[1:]] = np.arange(1, node_ids.size)
+
+    def ref(ch):  # (index, meta) of the children ch
+        return (np.where(leaf[ch], index[ch], rec[ch]),
+                np.where(leaf[ch], np.maximum(n_objs[ch], 0), -1))
+
+    nodes = np.zeros((node_ids.size, 16), np.float32)
+    bits = nodes.view(np.int32)
+    nodes[0, 0:3], nodes[0, 3:6] = lo[0], hi[0]
+    (bits[0, 12],), (bits[0, 14],) = ref(np.zeros(1, np.int64))
+    bits[0, 15] = -1
+    left = index[node_ids[1:]]
+    right = np.minimum(left + 1, K - 1)
+    nodes[1:, 0:3], nodes[1:, 3:6] = lo[left], hi[left]
+    nodes[1:, 6:9], nodes[1:, 9:12] = lo[right], hi[right]
+    bits[1:, 12], bits[1:, 14] = ref(left)
+    bits[1:, 13], bits[1:, 15] = ref(right)
+    dev = bvh.order.device
+    objects = torch.cat([bvh.order, bvh.unbounded_ids]).to(torch.int32)
+    tail = torch.zeros((objects.numel(), 3), device=dev)
+    tail.view(torch.int32)[:, 0] = objects
+    return PerrayBvhTable(
+        nodes=torch.from_numpy(nodes).to(dev), objects=objects,
+        rows_at=objects.clamp(min=0).long(), rows_tail=tail,
+        node_ids=torch.from_numpy(node_ids), n_order=bvh.order.numel())
+
+
+def perray_bvh_rows(bvh, prims) -> torch.Tensor:
+    """The median BVH walk's primitive table: ``perray_rows``' layout in
+    the tree's object order, then the planes (``perray_bvh_table(bvh)
+    .objects``), a row's id -1 (a row no walk tests) where the object is
+    a pad. Packed from the primitives like ``perray_rows``, with one
+    gather: three device ops."""
+    t = perray_bvh_table(bvh)
+    return torch.cat([prims.params.detach()[t.rows_at],
+                      prims.ptype[t.rows_at].view(torch.float32)[:, None],
+                      t.rows_tail], dim=1)
+
+
+def _prims_rows(prims, bvh=None) -> torch.Tensor:
+    """The primitive table a per-ray kernel reads: ``perray_bvh_rows(bvh,
+    prims)`` for the median BVH's walk, ``perray_rows(prims)`` for the
+    DDA (``bvh`` None). Packed once a ``Primitives`` object and kept on it
+    (outside its fields, as ``_packed`` keeps the tree's), so a frame's 12
+    queries read one pack; a compiled frame's warm-up and capture rebuild
+    the primitives (utils/graphs.py), so its graph packs once a replay,
+    from its inputs. Primitives whose params require grad (a train step's)
+    are packed on every call, as the megakernel's tables are
+    (models/whitted_megakernel.scene_tables)."""
+    def pack():
+        return perray_rows(prims) if bvh is None else perray_bvh_rows(
+            bvh, prims)
+
+    if prims.params.requires_grad:
+        return pack()
+    kept = prims.__dict__.get("_perray_rows")
+    if kept is None or kept[0] is not bvh:
+        kept = (bvh, pack())
+        object.__setattr__(prims, "_perray_rows", kept)
+    return kept[1]
+
+
+class PerrayGridTable(NamedTuple):
+    """The uniform grid's items as csrc/perray_traverse.cu's DDA reads
+    them."""
+
+    # [cells, 4 * ceil(max_per_cell / 4)] int32: each cell's items in their
+    # order in cell_items, -1 padded, read as int4
+    items: torch.Tensor
+    count: torch.Tensor  # [cells] int32: each cell's items
+
+
+def perray_grid_table(grid) -> PerrayGridTable:
+    """The grid ``grid`` (``core.types.GridArrays``) packed for the
+    kernels, once a grid (``_packed``), on its device with no host read:
+    each cell's items (its non-negative ``cell_items``, in order) and
+    their count."""
+    return _packed(grid, _pack_grid)
+
+
+def _pack_grid(grid) -> PerrayGridTable:
+    items = grid.cell_items
+    n, m = items.shape
+    valid = items >= 0
+    order = torch.sort((~valid).to(torch.uint8), dim=1, stable=True).indices
+    count = valid.sum(dim=1, dtype=torch.int32)
+    slots = torch.arange(m, device=items.device)
+    packed = torch.full((n, 4 * -(-max(m, 1) // 4)), -1, dtype=torch.int32,
+                        device=items.device)
+    packed[:, :m] = torch.where(slots < count[:, None],
+                                items.gather(1, order), -1)
+    return PerrayGridTable(packed, count)
 
 
 @functools.cache
@@ -510,21 +683,26 @@ def _perray_entry(name: str):
         head += [ctypes.c_int]                         # init_fail_occludes
     head += [ctypes.c_void_p]                          # dead
     if name.startswith("median_bvh"):
-        accel = ([ctypes.c_void_p] * 5 + [ctypes.c_int]  # boxes .. n_objs, K
-                 + [ctypes.c_void_p, ctypes.c_int])       # order, its length
+        # nodes, records; rows, order's rows, planes
+        accel = [ctypes.c_void_p, ctypes.c_int]
+        prims = [ctypes.c_void_p] + [ctypes.c_int] * 2
     else:
-        accel = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4  # box, items, n, m
-    prims = [ctypes.c_void_p] * 2 + [ctypes.c_int]     # rows, planes, Kp
+        # box min, max, items, count, nx, ny, nz, w4; rows, planes' ids, Kp
+        accel = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        prims = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     out = ([ctypes.c_void_p] * 3 if name.endswith("closest_launch")
            else [ctypes.c_void_p] * 2)                 # t, id | occ; counts
     fn.argtypes = head + accel + prims + out
     return fn
 
 
-def _perray_args(what, accel, rows, o, d, dead, counts):
-    """Check a per-ray query's rays, dead mask, counter buffer and tables;
-    returns the device, the ray count and the C entry point's table
-    arguments (the accelerator's, then the primitives')."""
+def _perray_args(what, accel, prims, o, d, dead, counts):
+    """Check a per-ray query's rays, dead mask, counter buffer and tables,
+    and find its primitive table (``_prims_rows``: the tree's walk reads
+    its rows in the tree's order, the DDA by object id); returns the
+    device, the ray count, the table (held until the launch) and the C
+    entry point's table arguments (the accelerator's, then the
+    primitives')."""
     if o.device.type != "cuda":
         raise ValueError(f"the {what} runs on CUDA tensors, not {o.device}")
     dev = o.device
@@ -538,43 +716,42 @@ def _perray_args(what, accel, rows, o, d, dead, counts):
         _check("dead", dead, dev, R, torch.bool)
     if counts is not None:
         _check("counts", counts, dev, WORK_COUNTS * R, torch.int32)
-    _check("rows", rows, dev)
-    if rows.dim() != 2 or rows.shape[1] != 16 or rows.data_ptr() % 16:
-        raise ValueError(f"rows: want 16-byte aligned rows of 16 floats "
-                         f"(perray_rows), got {tuple(rows.shape)}")
+    if prims.params.device != dev or prims.ptype.device != dev:
+        raise ValueError(f"the primitives: want them on {dev}, got "
+                         f"{prims.params.device}")
+    if prims.params.dim() != 2 or prims.params.shape[1] != 12:
+        raise ValueError(f"the primitives: want [N, 12] params, got "
+                         f"{tuple(prims.params.shape)}")
     _check("unbounded_ids", accel.unbounded_ids, dev, dtype=torch.int32)
-    _check("bbox_min", accel.bbox_min, dev)
-    _check("bbox_max", accel.bbox_max, dev)
     if isinstance(accel, GridArrays):
-        items = accel.cell_items
-        _check("cell_items", items, dev, dtype=torch.int32)
-        if accel.bbox_min.numel() != 3 or accel.bbox_max.numel() != 3:
-            raise ValueError("the grid's box: want [3] min and max")
-        if (items.dim() != 2
-                or items.shape[0] != accel.nx * accel.ny * accel.nz):
+        _check("bbox_min", accel.bbox_min, dev, 3)
+        _check("bbox_max", accel.bbox_max, dev, 3)
+        if (accel.cell_items.dim() != 2 or accel.cell_items.shape[0]
+                != accel.nx * accel.ny * accel.nz):
             raise ValueError(f"cell_items: want [nx*ny*nz, m], got "
-                             f"{tuple(items.shape)}")
-        tbl = [accel.bbox_min.data_ptr(), accel.bbox_max.data_ptr(),
-               items.data_ptr(), accel.nx, accel.ny, accel.nz,
-               items.shape[1]]
-    else:
-        K = accel.leaf.shape[0]
-        _check("leaf", accel.leaf, dev, K, torch.bool)
-        for name, t in (("index", accel.index), ("n_objs", accel.n_objs)):
-            _check(name, t, dev, K, torch.int32)
-        _check("order", accel.order, dev, dtype=torch.int32)
-        if accel.bbox_min.shape != (K, 3) or accel.bbox_max.shape != (K, 3):
-            raise ValueError(f"node boxes: want [{K}, 3]")
-        tbl = [accel.bbox_min.data_ptr(), accel.bbox_max.data_ptr(),
-               accel.leaf.data_ptr(), accel.index.data_ptr(),
-               accel.n_objs.data_ptr(), K, accel.order.data_ptr(),
-               accel.order.numel()]
-    return dev, R, tbl + [rows.data_ptr(), accel.unbounded_ids.data_ptr(),
-                          accel.unbounded_ids.numel()]
+                             f"{tuple(accel.cell_items.shape)}")
+        _check("cell_items", accel.cell_items, dev, dtype=torch.int32)
+        g = perray_grid_table(accel)
+        _check_aligned("items", g.items)
+        rows = _prims_rows(prims)
+        _check_aligned("rows", rows)
+        return dev, R, rows, [
+            accel.bbox_min.data_ptr(), accel.bbox_max.data_ptr(),
+            g.items.data_ptr(), g.count.data_ptr(), accel.nx, accel.ny,
+            accel.nz, g.items.shape[1] // 4, rows.data_ptr(),
+            accel.unbounded_ids.data_ptr(), accel.unbounded_ids.numel()]
+    b = perray_bvh_table(accel)
+    _check("nodes", b.nodes, dev)
+    _check_aligned("nodes", b.nodes)
+    rows = _prims_rows(prims, accel)
+    _check_aligned("rows", rows)
+    return dev, R, rows, [b.nodes.data_ptr(), b.nodes.shape[0],
+                          rows.data_ptr(), b.n_order,
+                          b.objects.numel() - b.n_order]
 
 
-def _perray_closest(name, what, accel, rows, o, d, dead, counts, out):
-    dev, R, tbl = _perray_args(what, accel, rows, o, d, dead, counts)
+def _perray_closest(name, what, accel, prims, o, d, dead, counts, out):
+    dev, R, rows, tbl = _perray_args(what, accel, prims, o, d, dead, counts)
     if out is None:
         out = (torch.empty(R, dtype=torch.float32, device=dev),
                torch.empty(R, dtype=torch.int32, device=dev))
@@ -588,14 +765,15 @@ def _perray_closest(name, what, accel, rows, o, d, dead, counts, out):
             torch.cuda.current_stream(dev).cuda_stream, o.data_ptr(),
             d.data_ptr(), R, _ptr(dead), *tbl, t.data_ptr(), obj.data_ptr(),
             _ptr(counts))
+    del rows  # read by the launch, freed after it in stream order
     if rc != 0:
         raise RuntimeError(f"{name} failed: CUDA error {rc}")
     return out, True
 
 
-def _perray_any(name, what, accel, rows, o, d, max_t, flags, dead, counts,
+def _perray_any(name, what, accel, prims, o, d, max_t, flags, dead, counts,
                 out):
-    dev, R, tbl = _perray_args(what, accel, rows, o, d, dead, counts)
+    dev, R, rows, tbl = _perray_args(what, accel, prims, o, d, dead, counts)
     if out is None:
         out = torch.empty(R, dtype=torch.bool, device=dev)
     _check("out", out, dev, R, torch.bool)
@@ -606,22 +784,26 @@ def _perray_any(name, what, accel, rows, o, d, max_t, flags, dead, counts,
             torch.cuda.current_stream(dev).cuda_stream, o.data_ptr(),
             d.data_ptr(), R, float(max_t), *flags, _ptr(dead), *tbl,
             out.data_ptr(), _ptr(counts))
+    del rows  # read by the launch, freed after it in stream order
     if rc != 0:
         raise RuntimeError(f"{name} failed: CUDA error {rc}")
     return out, True
 
 
-def perray_bvh_closest(bvh, rows, o, d, dead=None, counts=None, out=None):
+def perray_bvh_closest(bvh, prims, o, d, dead=None, counts=None,
+                       out=None):
     """(t [R], obj_id [R] int32, -1 on a miss) of rays (o, d) [R,3] through
     the median BVH ``bvh`` (``core.types.BvhArrays``) and the planes beside
-    it, on the card (csrc/perray_traverse.cu); ``rows`` is
-    ``perray_rows(prims)``. ``dead`` [R] bool slots are not traced and read
-    (BIG, -1). ``counts``, an optional int32 [R, WORK_COUNTS] of zeros,
-    receives each ray's node box tests and primitive tests (bvh_closest's
-    columns); ``out`` the (t, obj_id) tensors to write into."""
+    it, on the card (csrc/perray_traverse.cu), the primitives ``prims``
+    (``core.types.Primitives``) packed once (``perray_bvh_rows``,
+    ``_prims_rows``).
+    ``dead`` [R] bool slots are not traced and read (BIG, -1).
+    ``counts``, an optional int32 [R, WORK_COUNTS] of zeros, receives each
+    ray's node box tests and primitive tests (bvh_closest's columns);
+    ``out`` the (t, obj_id) tensors to write into."""
     got, launched = _perray_closest("median_bvh_closest_launch",
-                                    "median BVH walk", bvh, rows, o, d, dead,
-                                    counts, out)
+                                    "median BVH walk", bvh, prims, o, d,
+                                    dead, counts, out)
     perray_bvh_closest.launches += launched
     return got
 
@@ -630,7 +812,7 @@ perray_bvh_closest.launches = 0
 perray_bvh_closest.device_kernel = "median_bvh_closest_kernel"
 
 
-def perray_bvh_any(bvh, rows, o, d, max_t: float, dead=None, counts=None,
+def perray_bvh_any(bvh, prims, o, d, max_t: float, dead=None, counts=None,
                    out=None):
     """Occlusion [R] bool of segments o + t·d, t < ``max_t``, through the
     median BVH (its walk stops at the first such hit) and the planes, on
@@ -638,7 +820,7 @@ def perray_bvh_any(bvh, rows, o, d, max_t: float, dead=None, counts=None,
     ``counts`` and ``out`` (an [R] bool tensor) as for
     ``perray_bvh_closest``."""
     got, launched = _perray_any("median_bvh_any_launch", "median BVH walk",
-                                bvh, rows, o, d, max_t, (), dead, counts,
+                                bvh, prims, o, d, max_t, (), dead, counts,
                                 out)
     perray_bvh_any.launches += launched
     return got
@@ -648,14 +830,15 @@ perray_bvh_any.launches = 0
 perray_bvh_any.device_kernel = "median_bvh_any_kernel"
 
 
-def grid_closest(grid, rows, o, d, dead=None, counts=None, out=None):
+def grid_closest(grid, prims, o, d, dead=None, counts=None, out=None):
     """(t [R], obj_id [R] int32, -1 on a miss) of rays (o, d) [R,3] through
     the DDA of the uniform grid ``grid`` (``core.types.GridArrays``) and the
-    planes beside it, on the card (csrc/perray_traverse.cu); ``rows``,
-    ``dead``, ``counts`` (column 0: the cells stepped through) and ``out``
-    as for ``perray_bvh_closest``."""
+    planes beside it, on the card (csrc/perray_traverse.cu), the primitives
+    packed once (``perray_rows``, ``_prims_rows``); ``dead``, ``counts``
+    (column 0: the cells stepped through) and ``out`` as for
+    ``perray_bvh_closest``."""
     got, launched = _perray_closest("grid_closest_launch", "grid DDA", grid,
-                                    rows, o, d, dead, counts, out)
+                                    prims, o, d, dead, counts, out)
     grid_closest.launches += launched
     return got
 
@@ -664,14 +847,14 @@ grid_closest.launches = 0
 grid_closest.device_kernel = "grid_closest_kernel"
 
 
-def grid_any(grid, rows, o, d, max_t: float, dead=None,
+def grid_any(grid, prims, o, d, max_t: float, dead=None,
              init_fail_occludes: bool = False, counts=None, out=None):
     """Occlusion [R] bool of segments o + t·d, t < ``max_t``, through the
     shadow DDA of ``grid`` (it stops at the first such object) and the
     planes, on the card. ``init_fail_occludes``: a ray whose grid entry
     fails is occluded (the reference's grid.cpp:326-328 quirk). ``dead``,
     ``counts`` and ``out`` as for ``perray_bvh_any``."""
-    got, launched = _perray_any("grid_any_launch", "grid DDA", grid, rows,
+    got, launched = _perray_any("grid_any_launch", "grid DDA", grid, prims,
                                 o, d, max_t, (int(init_fail_occludes),),
                                 dead, counts, out)
     grid_any.launches += launched

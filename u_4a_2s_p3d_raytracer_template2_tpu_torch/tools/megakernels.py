@@ -1,10 +1,12 @@
-"""The two megakernels and the BVH walk on the card: what ptxas gave them,
-how many blocks an SM holds, their SASS, and their time on the main paths'
-inputs by block size and against another checkout's build of them.
+"""The two megakernels, the BVH walk and the per-ray traversals on the
+card: what ptxas gave them, how many blocks an SM holds, their SASS, and
+their time on the main paths' inputs by block size and against another
+checkout's build of them.
 
 The kernels are K1/K2 (``csrc/whitted_megakernel.cu``), K3
-(``csrc/pt_megakernel.cu``) and K5 (``csrc/bvh_walk.cu``). For each source
-this prints:
+(``csrc/pt_megakernel.cu``), K5 (``csrc/bvh_walk.cu``) and the four
+per-ray kernels (``csrc/perray_traverse.cu``). For each source this
+prints:
 
   * ptxas's registers, spills and stack frame for each kernel instantiation
     (the Whitted kernel's depths 1-8);
@@ -26,7 +28,18 @@ the dead masks the sweep hands them; ``frame_queries``) of seven drifting
 frames, each launch timed alone with its live slots printed; beside the
 times, the share of lanes busy on the primaries and the level-1 rays (each
 ray's node tests against its warp's largest, ``warp_max_sum``), over the
-slots as laid out and over the live slots packed in slot order.
+slots as laid out and over the live slots packed in slot order. The
+per-ray kernels' are the P1 and P2 frames' 12 queries each (the same
+field as a BVH and as a grid scene, accel_impl="perray": a closest hit a
+level, a shadow query a level and light) of seven drifting frames, each
+launch timed alone, the primitives' table packed once for the scene as
+a frame packs it once for its 12 queries (``kernels._prims_rows``, both
+builds); each build's launch with every slot dead (its floor: the
+live-slot pack and the dead answers of 262,144 or 524,288 slots, no
+walk); and the compiled P1, P2 and P2q frames, with the BVH sweep's as
+the control, under each build (``perray_frames_in_turns``), an earlier
+build of the arrays layout also as it shipped, its primitives' table
+packed at every query.
 
 ``--baseline DIR`` names the ``csrc/`` of another checkout, such as an
 earlier commit unpacked with ``git archive``. Its kernels are built the
@@ -35,7 +48,12 @@ baseline. The megakernels' tables are cut down to the rows they read; a
 walk reads the tree of its source's node width (``walk_width``): the
 binary walk of PRs 3-8 the binary tables (``accel/packets
 .binary_tables``) through its own entry points, which take no dead mask
-for the closest hit; its answers are compared on the live slots.
+for the closest hit; its answers are compared on the live slots. A
+per-ray source of the earlier layout (the JAX package's arrays: the node
+boxes, flags and indices, the object order and every cell's max_per_cell
+slots; ``perray_layout``) is called through wrappers of its own entry
+points, its primitive table by object id; every build's answers and
+frames are compared on every slot.
 
     python -m u_4a_2s_p3d_raytracer_template2_tpu_torch.tools.megakernels \\
         [--baseline DIR] [--threads 64 128 256] [--kernels bvh_walk ...]
@@ -46,6 +64,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import ctypes
+import gc
 import re
 import statistics
 import subprocess
@@ -58,6 +77,7 @@ from ..kernels import build as kb
 
 KERNELS = ("whitted_megakernel", "pt_megakernel")
 WALK = "bvh_walk"
+PERRAY = "perray_traverse"
 
 # compute capability 9.0 (CUDA C++ Programming Guide, "Technical
 # Specifications per Compute Capability"): registers an SM, the register
@@ -127,15 +147,15 @@ def ptxas_resources(log: str) -> dict[str, dict]:
 def demangle(symbol: str) -> str:
     """``whitted_kernel<4>`` from ``_ZN12_GLOBAL__N_114whitted_kernelILi4EE
     Ev6Params``, ``closest_kernel<true>`` from a symbol with ``ILb1E``,
+    ``median_bvh_any_kernel<false, 16>`` from one with ``ILb0ELi16EE``,
     ``pt_kernel`` from its symbol; other names as they are."""
-    m = re.search(r"([a-z]+_kernel)(?:IL([ib])(\d+)E)?", symbol)
+    m = re.search(r"([a-z_]+_kernel)((?:IL[ib]\d+E)?(?:L[ib]\d+E)*)",
+                  symbol)
     if not m:
         return symbol
-    if not m.group(2):
-        return m.group(1)
-    arg = m.group(3) if m.group(2) == "i" else (
-        "true" if m.group(3) == "1" else "false")
-    return f"{m.group(1)}<{arg}>"
+    args = [n if kind == "i" else ("true" if n == "1" else "false")
+            for kind, n in re.findall(r"L([ib])(\d+)E", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
 
 
 def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
@@ -620,6 +640,332 @@ def walk_timed_in_turns(scene, frames, builds, rounds: int = 2) -> dict:
     return times
 
 
+# ---------------------------------------------------------------------------
+# the per-ray traversals (csrc/perray_traverse.cu) on the P1 and P2 frames'
+# queries
+
+PERRAY_ENTRIES = ("median_bvh_closest_launch", "median_bvh_any_launch",
+                  "grid_closest_launch", "grid_any_launch")
+# the compiled frames timed with each per-ray build: (label, kind, config
+# keywords); the BVH sweep walks neither build's kernels (csrc/bvh_walk.cu)
+# and shows how far the card drifts between turns
+PERRAY_FRAMES = (("P1", "bvh", {"accel_impl": "perray"}),
+                 ("P2", "grid", {"accel_impl": "perray"}),
+                 ("P2q", "grid", {"accel_impl": "perray",
+                                  "reference_grid_shadow_initfail": True}),
+                 ("BVH sweep", "bvh", {}))
+
+
+def perray_layout(src_dir: Path) -> str:
+    """"packed" for a source that walks kernels.perray_bvh_table's records
+    and perray_grid_table's items, "arrays" for the earlier one (commit
+    efff919), which reads the JAX package's arrays (BvhArrays,
+    GridArrays) as they are."""
+    text = (src_dir / f"{PERRAY}.cu").read_text()
+    return ("packed" if "const float* nodes, int n_records" in text
+            else "arrays")
+
+
+def _arrays_argtypes(name: str) -> list:
+    """The C arguments of the arrays layout's entry point ``name``."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    head = [vp, vp, vp, i] + ([ctypes.c_float] if "any" in name else [])
+    head += ([i] if name == "grid_any_launch" else []) + [vp]
+    accel = ([vp] * 5 + [i, vp, i] if name.startswith("median_bvh")
+             else [vp] * 3 + [i] * 4)
+    out = [vp] * 3 if name.endswith("closest_launch") else [vp] * 2
+    return head + accel + [vp, vp, i] + out
+
+
+def _arrays_tables(accel) -> list:
+    """The arrays layout's table arguments of the tree or grid
+    ``accel``."""
+    from ..core.types import GridArrays
+
+    if isinstance(accel, GridArrays):
+        return [accel.bbox_min.data_ptr(), accel.bbox_max.data_ptr(),
+                accel.cell_items.data_ptr(), accel.nx, accel.ny, accel.nz,
+                accel.cell_items.shape[1]]
+    return [accel.bbox_min.data_ptr(), accel.bbox_max.data_ptr(),
+            accel.leaf.data_ptr(), accel.index.data_ptr(),
+            accel.n_objs.data_ptr(), accel.leaf.shape[0],
+            accel.order.data_ptr(), accel.order.numel()]
+
+
+def _arrays_wrappers(fns, per_query: bool) -> dict:
+    """kernels' four per-ray wrappers over the arrays layout's entry points
+    ``fns``, with their signatures: the primitives' table by object id,
+    packed once as the sound build's (``kernels._prims_rows``), or at
+    every query where ``per_query`` (that build as it shipped), and the
+    tree's or grid's arrays as they are."""
+    from .. import kernels
+
+    def launch(name, accel, prims, o, d, head, dead, out):
+        R = o.shape[0]
+        rows = (kernels.perray_rows(prims) if per_query
+                else kernels._prims_rows(prims))
+        rc = fns[name](torch.cuda.current_stream(o.device).cuda_stream,
+                       o.data_ptr(), d.data_ptr(), R, *head,
+                       kernels._ptr(dead), *_arrays_tables(accel),
+                       rows.data_ptr(), accel.unbounded_ids.data_ptr(),
+                       accel.unbounded_ids.numel(),
+                       *[t.data_ptr() for t in out], None)
+        if rc:
+            raise RuntimeError(f"{name} of the arrays layout failed: CUDA "
+                               f"error {rc}")
+        return out if len(out) > 1 else out[0]
+
+    def closest(name):
+        def fn(accel, prims, o, d, dead=None, counts=None, out=None):
+            out = out or (torch.empty(o.shape[0], device=o.device),
+                          torch.empty(o.shape[0], dtype=torch.int32,
+                                      device=o.device))
+            return launch(name, accel, prims, o, d, [], dead, out)
+        return fn
+
+    def bvh_any(accel, prims, o, d, max_t, dead=None, counts=None,
+                out=None):
+        out = out if out is not None else torch.empty(
+            o.shape[0], dtype=torch.bool, device=o.device)
+        return launch("median_bvh_any_launch", accel, prims, o, d,
+                      [float(max_t)], dead, (out,))
+
+    def grid_any(grid, prims, o, d, max_t, dead=None,
+                 init_fail_occludes=False, counts=None, out=None):
+        out = out if out is not None else torch.empty(
+            o.shape[0], dtype=torch.bool, device=o.device)
+        return launch("grid_any_launch", grid, prims, o, d,
+                      [float(max_t), int(init_fail_occludes)], dead, (out,))
+
+    return {"perray_bvh_closest": closest("median_bvh_closest_launch"),
+            "perray_bvh_any": bvh_any,
+            "grid_closest": closest("grid_closest_launch"),
+            "grid_any": grid_any}
+
+
+@contextlib.contextmanager
+def perray_build(lib: Path | None, layout: str):
+    """Within the block, kernels' four per-ray wrappers (and so
+    accel/traverse.py's dispatchers and the frames that call them) launch
+    the kernels of ``lib`` (None: the sound build) of ``layout``
+    (perray_layout): a packed build through kernels' own wrappers, the
+    arrays layout through wrappers of its own entry points
+    (``_arrays_wrappers``; "arrays-per-query": packing the primitives'
+    table at every query, as that build shipped)."""
+    from .. import kernels
+
+    so = None if lib is None else ctypes.CDLL(str(lib))
+    sound = kernels._perray_entry
+    wrappers = {n: getattr(kernels, n) for n in (
+        "perray_bvh_closest", "perray_bvh_any", "grid_closest", "grid_any")}
+    fns = {}
+    for n in PERRAY_ENTRIES if so is not None else ():
+        fns[n] = getattr(so, n)
+        fns[n].restype, fns[n].argtypes = (
+            (sound(n).restype, sound(n).argtypes) if layout == "packed"
+            else (ctypes.c_int, _arrays_argtypes(n)))
+    try:
+        if so is not None and layout == "packed":
+            kernels._perray_entry = lambda n: fns[n]
+        elif so is not None:
+            for n, fn in _arrays_wrappers(
+                    fns, layout == "arrays-per-query").items():
+                setattr(kernels, n, fn)
+        yield
+    finally:
+        kernels._perray_entry = sound
+        for n, fn in wrappers.items():
+            setattr(kernels, n, fn)
+
+
+def perray_query(kind, query, scene, args):
+    """One query through kernels' per-ray wrapper of ``kind`` ("bvh" or
+    "grid"): "closest" with args (o, d, dead), "any" with (o, d, max_t,
+    dead, init_fail_occludes)."""
+    from .. import kernels
+
+    accel = scene.bvh if kind == "bvh" else scene.grid
+    o, d = args[0], args[1]
+    if query == "closest":
+        fn = (kernels.perray_bvh_closest if kind == "bvh"
+              else kernels.grid_closest)
+        return fn(accel, scene.prims, o, d, args[2])
+    max_t, dead, quirk = args[2:]
+    if kind == "bvh":
+        return kernels.perray_bvh_any(accel, scene.prims, o, d, max_t, dead)
+    return kernels.grid_any(accel, scene.prims, o, d, max_t, dead, quirk)
+
+
+def perray_inputs(dev):
+    """{kind: (scene, frames)}: the field of WALK_SIDE^2 spheres at
+    WALK_RES^2 as a BVH ("bvh", P1) and as a grid ("grid", P2) scene, and
+    each frame's queries under accel_impl="perray" (frame_queries) of
+    WALK_FRAMES frames, the pixel grid drifting 0.37 px a frame."""
+    from ..core import constants as C
+    from ..core.build import build_scene
+    from ..core.types import RenderConfig
+    from ..models.scenes import sphere_field_scene
+    from ..models.whitted import pixel_grid
+    from ..ops.camera import pinhole_rays
+
+    out = {}
+    for kind, accel in (("bvh", C.ACCEL_BVH), ("grid", C.ACCEL_GRID)):
+        scene = build_scene(sphere_field_scene(
+            n_side=WALK_SIDE, res=WALK_RES, accel=accel), device=dev)
+        px, py = pixel_grid(WALK_RES, WALK_RES, dev)
+        frames = []
+        for i in range(WALK_FRAMES):
+            r = pinhole_rays(scene.camera, px + 0.5 + 0.37 * i, py + 0.5)
+            frames.append(frame_queries(scene, r.origin.contiguous(),
+                                        r.direction.contiguous(),
+                                        RenderConfig(accel_impl="perray")))
+        out[kind] = (scene, frames)
+    return out
+
+
+def _perray_launches(frames):
+    """walk_launches' labels, query and pick, with an any hit's
+    init_fail_occludes (False) after its dead mask."""
+    return [(label, query, pick if query == "closest" else
+             (lambda f, pick=pick: (*pick(f), False)))
+            for label, query, pick in walk_launches(frames)]
+
+
+def perray_answers(inputs, builds) -> dict:
+    """{(kind, label, build tag): equal}: whether each build answers the
+    first frame's launches as the first build does, bit for bit on every
+    slot; ``builds``: (tag, library or None, layout)."""
+    out, first = {}, {}
+    for tag, lib, layout in builds:
+        with perray_build(lib, layout):
+            for kind, (scene, frames) in inputs.items():
+                for label, query, pick in _perray_launches(frames):
+                    got = perray_query(kind, query, scene, pick(frames[0]))
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = first.setdefault((kind, label), got)
+                    out[kind, label, tag] = all(
+                        torch.equal(g, w) for g, w in zip(got, want))
+                    print(f"answers {tag} | perray {kind} {label}: "
+                          + ("equal to " if out[kind, label, tag]
+                             else "differ from ") + builds[0][0],
+                          flush=True)
+    return out
+
+
+def perray_timed_in_turns(inputs, builds, rounds: int = 2) -> dict:
+    """{(kind, label, build tag): [ms, ...]}: each build's launches of the
+    P1 and P2 frames, each label over WALK_FRAMES frames with the launches
+    queued (utils/timing.queued_ms), builds in the order A, B, ..., B, A,
+    ``rounds`` times; each time, each build's frame sums and medians are
+    printed."""
+    from ..utils.timing import queued_ms
+
+    times = {}
+    for _ in range(rounds):
+        for tag, lib, layout in list(builds) + list(builds)[::-1]:
+            with perray_build(lib, layout):
+                for kind, (scene, frames) in inputs.items():
+                    total = 0.0
+                    for label, query, pick in _perray_launches(frames):
+                        ms = queued_ms(
+                            lambda *a, q=query: perray_query(kind, q, scene,
+                                                             a),
+                            [pick(f) for f in frames])
+                        times.setdefault((kind, label, tag), []).append(ms)
+                        total += ms
+                        args = pick(frames[0])
+                        dead = args[2] if query == "closest" else args[3]
+                        slots = args[0].shape[0]
+                        live = slots if dead is None else int((~dead).sum())
+                        print(f"time {tag} | perray {kind} {label}: "
+                              f"{ms:.4f} ms a launch ({live} live of "
+                              f"{slots} slots)", flush=True)
+                    times.setdefault((kind, "frame", tag), []).append(total)
+                    print(f"time {tag} | perray {kind}, the frame's "
+                          f"{len(_perray_launches(frames))} launches: "
+                          f"{total:.4f} ms", flush=True)
+    for (kind, label, tag), ms in times.items():
+        print(f"median {tag} | perray {kind} {label}: "
+              f"{statistics.median(ms):.4f} ms "
+              f"({', '.join(f'{m:.4f}' for m in ms)})", flush=True)
+    return times
+
+
+def perray_floor(inputs, builds) -> dict:
+    """{(kind, query, build tag): ms}: each build's closest and any hit
+    launch over the slots of the frame's level-1 rays (524,288) and level-0
+    shadow segments (262,144) with every slot dead, queued
+    (utils/timing.queued_ms): what a launch costs before any walk."""
+    from ..utils.timing import queued_ms
+
+    out = {}
+    for tag, lib, layout in builds:
+        with perray_build(lib, layout):
+            for kind, (scene, frames) in inputs.items():
+                for label, query, pick in _perray_launches(frames):
+                    if label not in ("closest, level 1",
+                                     "any, level 0, light 0"):
+                        continue
+                    args = [list(pick(f)) for f in frames]
+                    for a in args:
+                        a[2 if query == "closest" else 3] = torch.ones(
+                            a[0].shape[0], dtype=torch.bool,
+                            device=a[0].device)
+                    ms = out[kind, query, tag] = queued_ms(
+                        lambda *a, q=query: perray_query(kind, q, scene, a),
+                        [tuple(a) for a in args])
+                    print(f"floor {tag} | perray {kind} {query}: {ms:.4f} "
+                          f"ms a launch of {args[0][0].shape[0]} slots, "
+                          "every one dead", flush=True)
+    return out
+
+
+def perray_frames_in_turns(inputs, builds, rounds: int = 3) -> dict:
+    """{(frame label, build tag): [ms, ...]}: the compiled frames of
+    PERRAY_FRAMES on perray_inputs' scenes (render_image's graph, captured
+    anew for each build: utils/timing.frame_ms, the median of 21 frames)
+    with each build's per-ray kernels, builds in the order A, B, ..., B, A,
+    ``rounds`` times. Each build's image of each frame is compared with
+    the first build's, bit for bit. After each turn its graphs are
+    dropped and collected (a graph's pool is freed with the graph, which
+    a reference cycle can keep until a collection)."""
+    from ..core.types import RenderConfig
+    from ..models.whitted import render_image
+    from ..utils import graphs
+    from ..utils.timing import frame_ms
+
+    times, first = {}, {}
+    for r in range(rounds):
+        for tag, lib, layout in list(builds) + list(builds)[::-1]:
+            with perray_build(lib, layout):
+                graphs.CACHE.clear()
+                for label, kind, kw in PERRAY_FRAMES:
+                    scene, cfg = inputs[kind][0], RenderConfig(**kw)
+                    if r == 0:
+                        img = render_image(scene, cfg, torch.Generator(
+                            device=scene.device).manual_seed(5))
+                        want = first.setdefault(label, img)
+                        print(f"image {tag} | {label}: "
+                              + ("equal to " if torch.equal(img, want)
+                                 else "differs from ") + builds[0][0],
+                              flush=True)
+                    ms = frame_ms(scene, cfg)
+                    times.setdefault((label, tag), []).append(ms)
+                    print(f"frame {tag} | {label} compiled: {ms:.4f} ms",
+                          flush=True)
+                graphs.CACHE.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+                print(f"memory {tag} | after the turn: "
+                      f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+                      "allocated", flush=True)
+    for (label, tag), ms in times.items():
+        print(f"median {tag} | frame {label} compiled: "
+              f"{statistics.median(ms):.4f} ms "
+              f"({', '.join(f'{m:.4f}' for m in ms)})", flush=True)
+    return times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, default=None,
@@ -629,7 +975,7 @@ def main(argv=None) -> int:
                     help="kMinBlocks values to build at 128 threads, for a "
                     "source that declares it")
     ap.add_argument("--kernels", nargs="*", default=[*KERNELS, WALK],
-                    choices=[*KERNELS, WALK])
+                    choices=[*KERNELS, WALK, PERRAY])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("megakernels: needs a CUDA card")
@@ -661,6 +1007,10 @@ def main(argv=None) -> int:
             report(lib, btag, 0, n)
             builds[name].append((btag, lib, walk_width(src)))
             continue
+        if name == PERRAY:
+            report(lib, btag, 0, n)
+            builds[name].append((btag, lib, perray_layout(src)))
+            continue
         width = row_width(src, name)
         report(lib, btag, smem_of(name, inputs, width), n)
         builds[name].append((btag, name, lib, width))
@@ -671,6 +1021,14 @@ def main(argv=None) -> int:
         scene, frames = walk_inputs(dev)
         walk_answers(scene, frames, builds[WALK])
         walk_timed_in_turns(scene, frames, builds[WALK])
+    if PERRAY in args.kernels:
+        inputs = perray_inputs(dev)
+        perray_answers(inputs, builds[PERRAY])
+        perray_timed_in_turns(inputs, builds[PERRAY])
+        perray_floor(inputs, builds[PERRAY])
+        perray_frames_in_turns(inputs, builds[PERRAY] + [
+            (f"{tag}-per-query", lib, "arrays-per-query")
+            for tag, lib, layout in builds[PERRAY] if layout == "arrays"])
     return 0
 
 
