@@ -4171,18 +4171,24 @@ def main() -> int:
     def wave_frame(label, scene, cfg):
         """render_image (a graph replay, captured first) and its launches
         counted on the device (replay_launches); the queue's live entries
-        a round, read after an eager frame (render_tile: a capture writes
-        nothing it records)."""
+        a round (its counter, whitted_wavefront.live_counter), added by an
+        eager frame (render_tile) and by a replay of the same frame, which
+        must agree; round 0 holds the primary rays."""
         render_image(scene, cfg)
         image, counts = replay_launches(lambda: render_image(scene, cfg),
                                         counted)
-        wf.record_live = []
-        try:
-            render_tile(scene, px, py, cfg)
-            torch.cuda.synchronize()
-            live = [int(n) for n in wf.record_live]
-        finally:
-            wf.record_live = None
+        counter = wf.live_counter(px.device)
+        before = counter.clone()
+        render_image(scene, cfg)
+        mid = counter.clone()
+        render_tile(scene, px, py, cfg)
+        torch.cuda.synchronize()
+        by_replay = (mid - before)[1:cfg.max_depth].tolist()
+        live = [px.shape[0]] + (counter - mid)[1:cfg.max_depth].tolist()
+        if by_replay != live[1:]:
+            raise AssertionError(f"{label}: the replay counted the queue's "
+                                 f"rounds {by_replay}, the eager frame "
+                                 f"{live[1:]}")
         print(f"main path: render_image {label} {RES}x{RES} depth "
               f"{cfg.max_depth} engine={cfg.engine}, launches {counts}; the "
               f"queue's live entries a round {live}")

@@ -1,8 +1,8 @@
 """The port's front-end helpers against the JAX package's: the terminal
 preview (io/image.preview_u8 and ansi_halfblock), the orbit camera
 (ops/camera.orbit_eye), the scene loader (core/build.load_scene) and the
-profiling helpers (utils/profiling: PhaseTiming, RenderStats, ray_count,
-and trace on torch.profiler in place of JAX's xla_trace)."""
+profiling helpers (utils/profiling: ray_count, and trace on
+torch.profiler in place of JAX's xla_trace)."""
 import dataclasses
 import json
 import os
@@ -127,19 +127,6 @@ def test_load_scene_equals_build_of_parse(tmp_path):
                                   (16, 16, 2, 2, 2)])
 def test_ray_count_equals_jax(args):
     assert profiling.ray_count(*args) == jax_profiling.ray_count(*args)
-
-
-def test_render_stats_report_equals_jax():
-    got, want = profiling.RenderStats(), jax_profiling.RenderStats()
-    got.phases = [profiling.PhaseTiming("render", 0.25, 262144 * 2),
-                  profiling.PhaseTiming("build", 0.0125)]
-    want.phases = [jax_profiling.PhaseTiming("render", 0.25, 262144 * 2),
-                   jax_profiling.PhaseTiming("build", 0.0125)]
-    assert got.report() == want.report()
-    assert got.json() == want.json()
-    with got.phase("timed", rays=10):
-        pass
-    assert got.phases[-1].name == "timed" and got.phases[-1].seconds >= 0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -218,7 +218,8 @@ class _HostReads(TorchDispatchMode):
 def test_a_round_reads_nothing_on_the_host():
     """The queue's live count stays a device tensor: on mount_low (brute
     force, sync-free) a depth-4 frame through the wavefront makes no host
-    read and sizes nothing by the data; the module reads no scalar."""
+    read and sizes nothing by the data, and adds its rounds after the
+    first to the queue's counter; the module reads no scalar."""
     source = inspect.getsource(wf)
     for call in (".item(", ".tolist(", "nonzero", ".cpu(", "int(n_"):
         assert call not in source, call
@@ -227,16 +228,13 @@ def test_a_round_reads_nothing_on_the_host():
     rays = pt.models.whitted.subpixel_rays(
         scene, px, py, pt.RenderConfig(), samples.Draws(None, None, None,
                                                         None, None))
-    wf.record_live = []
-    try:
-        with _HostReads() as mode:
-            out = wf.trace_rays_wavefront(scene, rays, pt.RenderConfig())
-        live = wf.record_live
-    finally:
-        wf.record_live = None
+    counter = wf.live_counter(CPU)
+    before = counter.clone()
+    with _HostReads() as mode:
+        out = wf.trace_rays_wavefront(scene, rays, pt.RenderConfig())
+    live = counter - before
     assert mode.seen == []
-    assert len(live) == 4 and live[0] == 64
-    assert all(isinstance(n, torch.Tensor) for n in live[1:])
+    assert int(live[0]) == 0 and not live[4:].any()
     assert 0 < int(live[1]) <= 64
     np.testing.assert_allclose(out.clamp(0, 1).numpy(), pw.trace_rays(
         scene, rays, pt.RenderConfig()).clamp(0, 1).numpy(), atol=ATOL)

@@ -58,6 +58,7 @@ from ..core.types import (
 from ..ops import intersect, shade
 from ..ops.camera import primary_rays
 from ..utils import graphs
+from ..utils.profiling import span
 from .samples import (
     Draws,
     NodeDraws,
@@ -601,16 +602,19 @@ def render_image(scene: Scene, cfg: RenderConfig, generator=None, *,
     tensors do.
 
     Row y=0 is the bottom scanline, as in the reference's framebuffer
-    (main.cpp:749-805 fills bottom-up).
+    (main.cpp:749-805 fills bottom-up). The call is the entry span
+    ``rt.render_image`` (``utils/profiling``).
     """
-    cam = scene.camera
-    px, py = _frame_pixels(cam.res_x, cam.res_y, scene.device)
-    n = cam.res_y * cam.res_x
-    if generator is None and stochastic(scene, cfg):
-        generator = torch.Generator(device=scene.device).manual_seed(0)
-    tile = n if tile_rows <= 0 else tile_rows * cam.res_x
-    if graphs.on_card(scene.device) and not _needs_grad(scene):
-        img = render_tile_compiled(scene, px, py, cfg, generator, tile=tile)
-    else:
-        img = _tiles(scene, px, py, cfg, tile, generator)
-    return img.reshape(cam.res_y, cam.res_x, 3)
+    with span("rt.render_image", entry=True):
+        cam = scene.camera
+        px, py = _frame_pixels(cam.res_x, cam.res_y, scene.device)
+        n = cam.res_y * cam.res_x
+        if generator is None and stochastic(scene, cfg):
+            generator = torch.Generator(device=scene.device).manual_seed(0)
+        tile = n if tile_rows <= 0 else tile_rows * cam.res_x
+        if graphs.on_card(scene.device) and not _needs_grad(scene):
+            img = render_tile_compiled(scene, px, py, cfg, generator,
+                                       tile=tile)
+        else:
+            img = _tiles(scene, px, py, cfg, tile, generator)
+        return img.reshape(cam.res_y, cam.res_x, 3)

@@ -21,7 +21,9 @@ Between rounds the children (reflection and refraction interleaved, as
 the sweep lays them out) are compacted into a queue of
 ``ceil(R · cfg.wavefront_capacity)`` entries by a device ``cumsum``, a
 binary search of it and one gather; children beyond capacity are dropped. The live count stays a
-device tensor: the host never reads it, so a round issues no sync. The
+device tensor: the host never reads it, so a round issues no sync; one
+device op a round adds it to the queue's counter (``live_counter``), which
+benchmarks and checks read after the frame. The
 queue's dead entries form a suffix and reach the walk and brute force as
 ``dead = ~active``: the walk packs the live slots inside its own launch,
 brute force on the device, without the host knowing the count.
@@ -52,11 +54,10 @@ from ..core.types import RenderConfig, Rays, Scene, filled
 from . import whitted
 from .samples import NodeDraws
 
-# When a list, every round appends its queue's live count (a device tensor
-# after the first round, never read here): chip_smoke.py prints them after
-# an eager frame. A frame captured as a CUDA graph (utils/graphs.py) runs
-# nothing while it is captured, so under capture a list here raises.
-record_live = None
+# rounds the queue's counter holds (live_counter)
+LEVELS = 32
+# the queue's counter of each device (live_counter)
+_LIVE = {}
 
 # float payload of an entry: origin (3), direction (3), time, ior, weight
 # (3); its defaults on a dead entry
@@ -72,15 +73,28 @@ def _payload(rays: Rays, ior, w):
                       ior[:, None], w], dim=-1)
 
 
-def _record(n, device) -> None:
-    if record_live is None:
-        return
-    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(
-            "whitted_wavefront.record_live is set while a frame is captured "
-            "as a CUDA graph: the counts a capture appends are never "
-            "written. Read them from an eager frame (whitted.render_tile)")
-    record_live.append(n)
+def live_counter(device) -> torch.Tensor:
+    """The queue's counter on ``device``: int64 [LEVELS], entry ``l`` the
+    live entries of round ``l`` (clamped to the queue's capacity) summed
+    over every trace on the device since the process began. Round 0 (the
+    primary rays, all live) and rounds from ``LEVELS`` on are not counted.
+    A round adds its count with one device op, inside a captured frame
+    too, so a replay counts as the eager trace does; the program never
+    reads the counter (a reader takes the difference of two copies). It
+    is made at the device's first trace, which runs eagerly: a compiled
+    frame is warmed up before it is captured (utils/graphs.py)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    live = _LIVE.get(device)
+    if live is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the wavefront queue's counter is made while a capture is "
+                "open: trace once eagerly first")
+        live = _LIVE[device] = torch.zeros(LEVELS, dtype=torch.int64,
+                                           device=device)
+    return live
 
 
 def trace_rays_wavefront(scene: Scene, rays: Rays, cfg: RenderConfig,
@@ -99,7 +113,6 @@ def trace_rays_wavefront(scene: Scene, rays: Rays, cfg: RenderConfig,
     q_ior = torch.ones(R, dtype=rays.origin.dtype, device=dev)
     q_pix = torch.arange(R, device=dev)
     q_path = torch.zeros(R, dtype=torch.int64, device=dev)
-    _record(R, dev)
 
     if not (spawn_refl or spawn_refr) or cfg.max_depth <= 1:
         local, _ = whitted._level_step(
@@ -109,6 +122,7 @@ def trace_rays_wavefront(scene: Scene, rays: Rays, cfg: RenderConfig,
 
     cap = int(math.ceil(R * cfg.wavefront_capacity))
     slots = torch.arange(cap, device=dev)
+    live = live_counter(dev)
     # a dead entry's (pixel, path): path 0 of a pixel of its own where it
     # can, so that the zeros it adds do not pile onto one pixel of the
     # accumulation
@@ -169,5 +183,9 @@ def trace_rays_wavefront(scene: Scene, rays: Rays, cfg: RenderConfig,
         q_rays = Rays(q_f[:, 0:3], q_f[:, 3:6], q_f[:, 6])
         q_ior, q_w = q_f[:, 7], q_f[:, 8:11]
         q_pix, q_path = q_i[:, 0], q_i[:, 1]
-        _record(torch.clamp(n_live, max=cap), dev)
+        if lvl + 1 < LEVELS:
+            # the live entries of the next round: n_live, which passes cap
+            # only where the children outnumber the queue
+            live[lvl + 1].add_(n_live if c_act.shape[0] <= cap
+                               else n_live.clamp(max=cap))
     return out

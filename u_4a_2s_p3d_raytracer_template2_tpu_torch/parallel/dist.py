@@ -98,6 +98,7 @@ import torch.distributed as dist
 from ..core import constants as C
 from ..core.types import Materials, RenderConfig, Scene
 from ..utils import graphs
+from ..utils.profiling import span
 
 # the process group's timeout: a rank that waits longer on a collective or
 # the rendezvous raises instead of hanging
@@ -771,7 +772,8 @@ def make_train_step(step, cfg: RenderConfig, lr: float = 0.05, *,
     on gloo those run eagerly after the replay. The returned scene is
     cloned from the graph's outputs (the tables it does not change,
     ``STEP_TABLES``, are the caller's). On CPU tensors ``run`` is the
-    eager ``step``. The backward adds with atomics, so a replay equals the
+    eager ``step``. A call of ``run`` is the entry span ``rt.train_step``
+    (``utils/profiling``). The backward adds with atomics, so a replay equals the
     eager step within the gradient's rounding, not bit for bit."""
     if step is train_step:
         if scales is not None or freeze:
@@ -803,10 +805,13 @@ def make_train_step(step, cfg: RenderConfig, lr: float = 0.05, *,
                          f"train_step_full, not {step!r}")
 
     def run(scene: Scene, target: torch.Tensor, generator=None):
-        if not graphs.on_card(scene.device):
-            return step(scene, target, cfg, lr, generator, group=group, **kw)
-        g = _whitted_draws(scene, cfg, generator, group)
-        return _sharded_call("dist." + step.__name__, local, finish,
-                             (scene, target), g, static, group, STEP_TABLES)
+        with span("rt.train_step", entry=True):
+            if not graphs.on_card(scene.device):
+                return step(scene, target, cfg, lr, generator, group=group,
+                            **kw)
+            g = _whitted_draws(scene, cfg, generator, group)
+            return _sharded_call("dist." + step.__name__, local, finish,
+                                 (scene, target), g, static, group,
+                                 STEP_TABLES)
 
     return run

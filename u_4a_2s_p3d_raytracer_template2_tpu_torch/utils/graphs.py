@@ -57,6 +57,13 @@ on CUDA tensors and replayed on every later call:
     it in the chained traceback. The callers decide on the device alone:
     CPU tensors run the eager function, CUDA tensors the graph.
 
+**Spans** (``utils/profiling.span``): ``rt.call`` around a whole call;
+inside it ``rt.signature`` (the arguments flattened, the key looked up),
+``rt.capture`` (warm-up and capture, where one happens), ``rt.copy_in``
+(the inputs into the static buffers, the generator's state into the
+graph's), ``rt.launch`` (the replay: ``cudaGraphLaunch``) and
+``rt.outputs`` (the caller's generator's state, the clones).
+
 ``CACHE.captures`` counts the captures of the process; ``CACHE.clear()``
 frees the graphs (their memory pools) and keeps the count. The cache keeps
 the ``PER_PROGRAM`` graphs of a program that were called last, so a process
@@ -70,6 +77,8 @@ import time
 from typing import Callable
 
 import torch
+
+from .profiling import span
 
 # eager runs of a program before its capture
 WARMUP = 2
@@ -295,13 +304,16 @@ class Graph:
             generator.set_state(self.generator.get_state())
 
     def __call__(self, leaves, generator=None):
-        self.copy_in(leaves)
-        self.enter(generator)
-        self.backend.replay(self.graph)
-        self.leave(generator)
+        with span("rt.copy_in"):
+            self.copy_in(leaves)
+            self.enter(generator)
+        with span("rt.launch"):
+            self.backend.replay(self.graph)
         self.replays += 1
-        return unflatten(self.out_spec, [x.clone() for x in self.outputs],
-                         self.out_kept)
+        with span("rt.outputs"):
+            self.leave(generator)
+            return unflatten(self.out_spec,
+                             [x.clone() for x in self.outputs], self.out_kept)
 
 
 class GraphCache:
@@ -327,20 +339,24 @@ class GraphCache:
         ``args`` and the identity of their fields named in ``keep``
         (module doc). Returns clones of the outputs; on the dataclass
         fields named in ``keep`` the outputs hold the objects themselves."""
-        leaves, spec, kept = flatten(args, keep)
-        key = (name, static, spec, tuple(map(id, kept)),
-               generator is not None)
-        graph = self.graphs.pop(key, None)
-        if graph is None:
-            graph = Graph(name, lambda xs, g: fn(*unflatten(spec, xs, kept),
-                                                 g), self.backend)
-            graph.capture(leaves, generator, keep, self.capture_mode)
-            self.captures += 1
-            self._evict(name)
-        # the entry holds ``kept`` (through fn), so no id in a key is reused
-        # while its graph lives; the dict's order is the order of last use
-        self.graphs[key] = graph
-        return graph(leaves, generator)
+        with span("rt.call"):
+            with span("rt.signature"):
+                leaves, spec, kept = flatten(args, keep)
+                key = (name, static, spec, tuple(map(id, kept)),
+                       generator is not None)
+                graph = self.graphs.pop(key, None)
+            if graph is None:
+                with span("rt.capture"):
+                    graph = Graph(name, lambda xs, g: fn(
+                        *unflatten(spec, xs, kept), g), self.backend)
+                    graph.capture(leaves, generator, keep, self.capture_mode)
+                    self.captures += 1
+                    self._evict(name)
+            # the entry holds ``kept`` (through fn), so no id in a key is
+            # reused while its graph lives; the dict's order is the order of
+            # last use
+            self.graphs[key] = graph
+            return graph(leaves, generator)
 
     def _evict(self, name: str) -> None:
         """Drop the least recently called graphs of program ``name`` until

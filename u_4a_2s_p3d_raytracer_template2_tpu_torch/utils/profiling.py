@@ -1,73 +1,165 @@
-"""Phase timers, ray accounting and profiler traces: the counterpart of
+"""Program spans, ray accounting and profiler traces: the counterpart of
 ``u_4a_2s_p3d_raytracer_template2_tpu/utils/profiling.py``.
 
-``PhaseTiming``, ``RenderStats`` and ``ray_count`` are JAX's. ``trace``
-records a ``torch.profiler`` trace of the CPU and, where there is a card,
-CUDA activity, and writes it as a Chrome trace (``trace.json`` in its
-directory, for chrome://tracing or Perfetto), in place of JAX's
-``xla_trace``. ``device_launches`` counts the hand-written kernels' runs on
-the card from the same profiler's kernel events, a CUDA graph's replays
-included; ``graph_kernels`` reads the kernel nodes a captured graph holds
-from the CUDA driver. JAX's ``enable_compilation_cache`` has no counterpart: it
-kept XLA's compiled programs across processes, and the port compiles no
-programs at run time except its CUDA kernels, which ``kernels/build.py``
-keeps in ``build/kernels/`` by the hash of their sources.
+``ray_count`` is JAX's. JAX's ``PhaseTiming`` and ``RenderStats`` (a host
+clock around work that, on a card, is only enqueued) are not ported; the
+span recorder stands in their place:
+
+  * **Spans.** ``span(name)`` around a part of the program: the entry
+    calls (``models/whitted.render_image``, ``parallel/dist
+    .make_train_step``'s step: ``entry=True``) and the compiled call's
+    parts (``utils/graphs.GraphCache.call``). Every name starts with
+    ``PREFIX``. Off (the default), ``span`` checks one flag and returns a
+    shared no-op context: no clock read, no allocation, no profiler range.
+    On (``record_spans(True)`` or ``recording()``), each span keeps its
+    name, its start and end on ``time.perf_counter_ns``, the index of the
+    span it is nested in and the unit it belongs to, until ``take_spans()``
+    hands them over. An entry span outside any unit starts a unit (a frame,
+    a train step); the spans inside it share its id; spans outside every
+    unit have unit -1. While a ``torch.profiler`` session is active a span
+    also opens a profiler range of its name, so the spans sit on the device
+    trace's clock. One thread records (the caller's).
+
+``trace`` records a ``torch.profiler`` trace of the CPU and, where there is
+a card, CUDA activity, spans on, and writes it as a Chrome trace
+(``trace.json`` in its directory, for chrome://tracing or Perfetto), in
+place of JAX's ``xla_trace``. ``device_launches`` counts the hand-written
+kernels' runs on the card from the same profiler's kernel events, a CUDA
+graph's replays included; ``graph_kernels`` reads the kernel nodes a
+captured graph holds from the CUDA driver. JAX's
+``enable_compilation_cache`` has no counterpart: it kept XLA's compiled
+programs across processes, and the port compiles no programs at run time
+except its CUDA kernels, which ``kernels/build.py`` keeps in
+``build/kernels/`` by the hash of their sources.
 
 A host clock around device work measures the enqueue unless the work ends
-in ``torch.cuda.synchronize()``; a phase that times CUDA work must end in
-one (``utils/timing.py`` times frames with CUDA events).
+in ``torch.cuda.synchronize()`` (``utils/timing.py`` times frames with CUDA
+events); a span measures the host's part of the call it wraps.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import json
 import os
 import re
 import time
 from typing import Optional
 
+# the prefix of every span's name (a name holds neither "LaunchKernel" nor
+# "GraphLaunch", which count a profiler's host launch calls)
+PREFIX = "rt."
 
-@dataclasses.dataclass
-class PhaseTiming:
+
+@dataclasses.dataclass(slots=True)
+class Span:
+    """A recorded span: ``parent`` the index of the span it is nested in,
+    in the list ``take_spans`` returns (-1 for none); ``unit`` the id of
+    its frame or step (-1 outside every entry span)."""
     name: str
-    seconds: float
-    rays: int = 0
-
-    @property
-    def mrays_per_s(self) -> float:
-        return self.rays / self.seconds / 1e6 if self.seconds > 0 else 0.0
+    start_ns: int
+    end_ns: int
+    parent: int
+    unit: int
 
 
-class RenderStats:
-    """Per-phase host timings and the structured metrics lines."""
+class _Off:
+    """The context every span is while the recorder is off."""
+    __slots__ = ()
 
-    def __init__(self):
-        self.phases: list[PhaseTiming] = []
+    def __enter__(self):
+        return None
 
-    @contextlib.contextmanager
-    def phase(self, name: str, rays: int = 0):
-        t0 = time.perf_counter()
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+_on = False
+_profiler = None    # torch.autograd.profiler, imported when spans go on
+_spans: list = []   # recorded since the last take, in order of start
+_open: list = []    # indices of the open spans, innermost last
+_units = 0          # units started so far
+
+
+class _On:
+    __slots__ = ("name", "entry", "index", "range")
+
+    def __init__(self, name: str, entry: bool):
+        self.name, self.entry, self.range = name, entry, None
+
+    def __enter__(self):
+        global _units
+        parent = _open[-1] if _open else -1
+        unit = _spans[parent].unit if parent >= 0 else -1
+        if unit < 0 and self.entry:
+            unit = _units
+            _units += 1
+        if _profiler._is_profiler_enabled:
+            self.range = _profiler.record_function(self.name)
+            self.range.__enter__()
+        self.index = len(_spans)
+        _open.append(self.index)
+        _spans.append(Span(self.name, time.perf_counter_ns(), 0, parent,
+                           unit))
+        return None
+
+    def __exit__(self, *exc):
+        _spans[self.index].end_ns = time.perf_counter_ns()
+        _open.pop()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str, entry: bool = False):
+    """The context of span ``name`` (module doc); ``entry`` marks an entry
+    call, which starts a unit."""
+    if not _on:
+        return _OFF
+    return _On(name, entry)
+
+
+def record_spans(on: bool) -> bool:
+    """Switch the recorder on or off; returns whether it was on."""
+    global _on, _profiler
+    if on and _profiler is None:
+        from torch.autograd import profiler
+
+        _profiler = profiler
+    was, _on = _on, bool(on)
+    return was
+
+
+def take_spans() -> list:
+    """The spans recorded since the last take, oldest first, and the record
+    emptied; taken between units (raises while a span is open)."""
+    global _spans
+    if _open:
+        raise RuntimeError("take_spans while a span is open")
+    out, _spans = _spans, []
+    return out
+
+
+@contextlib.contextmanager
+def recording():
+    """The recorder on for the block; after it, as it was before. Spans
+    recorded by a block that switched it on are dropped at its end unless
+    taken inside it."""
+    was = record_spans(True)
+    try:
         yield
-        self.phases.append(PhaseTiming(name, time.perf_counter() - t0, rays))
-
-    def report(self) -> str:
-        lines = []
-        for p in self.phases:
-            extra = f" — {p.mrays_per_s:.2f} Mrays/s" if p.rays else ""
-            lines.append(f"{p.name}: {p.seconds:.3f}s{extra}")
-        return "\n".join(lines)
-
-    def json(self) -> str:
-        return json.dumps([dataclasses.asdict(p) for p in self.phases])
+    finally:
+        record_spans(was)
+        if not was and not _open:
+            take_spans()
 
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[str]):
     """Profile the block with ``torch.profiler`` (CPU, and CUDA where a
-    card is present) and write ``<log_dir>/trace.json`` as a Chrome trace;
-    yields the profiler, or None and records nothing without a
-    ``log_dir``."""
+    card is present), the program's spans on, and write
+    ``<log_dir>/trace.json`` as a Chrome trace; yields the profiler, or
+    None and records nothing without a ``log_dir``."""
     if not log_dir:
         yield None
         return
@@ -77,7 +169,7 @@ def trace(log_dir: Optional[str]):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with recording(), profile(activities=activities) as prof:
         yield prof
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
